@@ -1,0 +1,46 @@
+"""Hand-written CUDA kernels of the synthesis path (sources in ``csrc/``).
+
+=====================================  ========================================
+wrapper                                replaces (go_pocket_tts_tpu/ops/pallas)
+=====================================  ========================================
+decode_attention.decode_attention_step decode_attention.py: decode_attention_step
+seanet_tail.fused_seanet_up_tail       seanet_tail.py: fused_seanet_up_tail
+seanet_tail.fused_seanet_tail          seanet_tail.py: fused_seanet_tail
+=====================================  ========================================
+
+Each wrapper runs its plain PyTorch version for CPU tensors and launches its
+kernel for CUDA tensors (or raises), counting launches in ``.launches``.
+"""
+
+from go_pocket_tts_tpu_torch.kernels import decode_attention, seanet_tail
+
+WRAPPERS = (
+    decode_attention.decode_attention_step,
+    seanet_tail.fused_seanet_up_tail,
+    seanet_tail.fused_seanet_tail,
+)
+
+# Per wrapper (same order): its CUDA source and the TPU kernel it replaces.
+META = (
+    {
+        "source": "go_pocket_tts_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "go_pocket_tts_tpu/ops/pallas/decode_attention.py:92",
+    },
+    {
+        "source": "go_pocket_tts_tpu_torch/csrc/seanet_tail.cu",
+        "replaces": "go_pocket_tts_tpu/ops/pallas/seanet_tail.py:251",
+    },
+    {
+        "source": "go_pocket_tts_tpu_torch/csrc/seanet_tail.cu",
+        "replaces": "go_pocket_tts_tpu/ops/pallas/seanet_tail.py:108",
+    },
+)
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    for fn in WRAPPERS:
+        fn.launches = 0
+
+
+__all__ = ["decode_attention", "seanet_tail", "WRAPPERS", "META", "reset_launches"]

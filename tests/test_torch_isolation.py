@@ -1,0 +1,103 @@
+"""The port stands alone: it imports neither ``jax`` nor the JAX package,
+synthesizes with both unimportable, and never drops to the CPU on its own."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from go_pocket_tts_tpu_torch import DEFAULT_DEVICE, resolve_device
+from go_pocket_tts_tpu_torch.convert import params_from_jax
+from go_pocket_tts_tpu_torch.models import synthetic
+from go_pocket_tts_tpu_torch.models.model import load_model_from_tensors
+from go_pocket_tts_tpu_torch.runtime import GPURuntime
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "go_pocket_tts_tpu")
+
+_SCRIPT = r"""
+import sys
+
+class _Block:
+    def find_spec(self, name, path=None, target=None):
+        root = name.split(".")[0]
+        if root in ("jax", "jaxlib", "go_pocket_tts_tpu"):
+            raise ImportError(f"{name} is blocked in this test")
+        return None
+
+sys.meta_path.insert(0, _Block())
+
+import numpy as np
+from go_pocket_tts_tpu_torch.models import synthetic
+from go_pocket_tts_tpu_torch.models.model import load_model_from_tensors
+from go_pocket_tts_tpu_torch.runtime import GenerateConfig, GPURuntime
+import go_pocket_tts_tpu_torch.convert, go_pocket_tts_tpu_torch.kernels.build
+
+arch = synthetic.tiny_arch()
+model = load_model_from_tensors(synthetic.build_checkpoint(arch, seed=4), num_heads=arch.num_heads, device="cpu")
+audio = GPURuntime(model, seed=1, frame_bucket=64, device="cpu").generate_audio(
+    [3, 17, 41], GenerateConfig(temperature=0.0, eos_threshold=1e9, max_steps=4)
+)
+assert audio.shape == (4 * 1920,) and np.isfinite(audio).all(), audio.shape
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "go_pocket_tts_tpu") for m in sys.modules)
+print("NO-JAX-OK", len(audio))
+"""
+
+
+def test_port_synthesizes_with_jax_blocked():
+    proc = subprocess.run(
+        [sys.executable, "-c", _SCRIPT],
+        cwd=ROOT,
+        capture_output=True,
+        text=True,
+        timeout=300,
+        env={**os.environ, "PYTHONPATH": str(ROOT)},
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "NO-JAX-OK" in proc.stdout
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(encoding="utf-8"), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(str(p.relative_to(ROOT)) for p in (ROOT / "go_pocket_tts_tpu_torch").rglob("*.py"))
+    + ["chip_smoke.py", "scripts/torch_profile.py"],
+)
+def test_no_jax_imports(path):
+    bad = [root for root in _imported_roots(ROOT / path) if root in FORBIDDEN]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_default_device_is_cuda():
+    assert DEFAULT_DEVICE == "cuda"
+    for fn in (GPURuntime.__init__, load_model_from_tensors, params_from_jax):
+        assert fn.__defaults__ is not None and "cuda" in fn.__defaults__, fn
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    arch = synthetic.tiny_arch()
+    tensors = synthetic.build_checkpoint(arch, seed=4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_model_from_tensors(tensors, num_heads=arch.num_heads)
+    model = load_model_from_tensors(tensors, num_heads=arch.num_heads, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        GPURuntime(model)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        params_from_jax({"w": model.params["mimi"]["up3"]["w"].numpy()})
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("meta")

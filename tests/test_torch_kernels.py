@@ -1,0 +1,154 @@
+"""The plain versions of the port's CUDA kernels against the Pallas kernels
+they replace, run in interpret mode on the CPU as tests/test_pallas.py runs
+them, on the same NumPy inputs. The CUDA kernels themselves run only on a
+card (tests/test_torch_cuda.py and chip_smoke.py)."""
+
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from go_pocket_tts_tpu.ops import TOLERANCES
+from go_pocket_tts_tpu.ops import build_rope_tables as j_rope_tables
+from go_pocket_tts_tpu.ops import repack_conv_transpose_kernel as j_repack
+from go_pocket_tts_tpu.ops.pallas import seanet_tail as j_st
+from go_pocket_tts_tpu.ops.pallas.decode_attention import decode_attention_step as j_decode
+from go_pocket_tts_tpu_torch import kernels
+from go_pocket_tts_tpu_torch.kernels import build
+from go_pocket_tts_tpu_torch.kernels import decode_attention as t_da
+from go_pocket_tts_tpu_torch.kernels import seanet_tail as t_st
+from go_pocket_tts_tpu_torch.ops import build_rope_tables as t_rope_tables
+
+ROOT = Path(__file__).resolve().parent.parent
+ATOL, RTOL = TOLERANCES["attention"]
+CONV_ATOL, CONV_RTOL = TOLERANCES["conv1d"]
+
+
+def _np(x) -> np.ndarray:
+    return np.array(x, np.float32)  # a writable copy
+
+
+@pytest.mark.parametrize("offset", [0, 5, 31])
+@pytest.mark.parametrize("layer", [0, 1])
+def test_decode_attention_plain_matches_pallas(offset, layer):
+    n_layers, b, h, c, d = 2, 2, 4, 32, 64
+    rng = np.random.RandomState(offset + 10 * layer)
+    q, k_new, v_new = (rng.randn(b, h, 1, d).astype(np.float32) for _ in range(3))
+    k_cache = (rng.randn(n_layers, b, h, c, d) * 0.3).astype(np.float32)
+    v_cache = (rng.randn(n_layers, b, h, c, d) * 0.3).astype(np.float32)
+    jc, js = j_rope_tables(64, d)
+    want, want_k, want_v = j_decode(
+        jnp.asarray(q), jnp.asarray(k_new), jnp.asarray(k_cache), jnp.asarray(v_cache),
+        jnp.asarray(v_new), jnp.int32(offset), jc, js, layer=layer, interpret=True,
+    )
+    tc, ts = t_rope_tables(64, d)
+    kc, vc = torch.from_numpy(k_cache.copy()), torch.from_numpy(v_cache.copy())
+    got, got_k, got_v = t_da.decode_attention_step(
+        torch.from_numpy(q), torch.from_numpy(k_new), kc, vc, torch.from_numpy(v_new),
+        torch.tensor(offset, dtype=torch.int32), tc, ts, layer,
+    )
+    assert got_k is kc and got_v is vc  # appended in place
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(got_k.numpy(), _np(want_k), atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(got_v.numpy(), _np(want_v), atol=ATOL, rtol=RTOL)
+
+
+def test_decode_attention_plain_bf16_matches_pallas():
+    n_layers, b, h, c, d, offset = 1, 1, 2, 16, 64, 9
+    rng = np.random.RandomState(3)
+    q, k_new, v_new = (rng.randn(b, h, 1, d).astype(np.float32) for _ in range(3))
+    caches = [(rng.randn(n_layers, b, h, c, d) * 0.3).astype(np.float32) for _ in range(2)]
+    jc, js = j_rope_tables(64, d)
+    want, want_k, _ = j_decode(
+        *(jnp.asarray(a, jnp.bfloat16) for a in (q, k_new, caches[0], caches[1], v_new)),
+        jnp.int32(offset), jc, js, layer=0, interpret=True,
+    )
+    tc, ts = t_rope_tables(64, d)
+    args = [torch.from_numpy(a).bfloat16() for a in (q, k_new, caches[0], caches[1], v_new)]
+    got, got_k, _ = t_da.decode_attention_step(
+        *args, torch.tensor(offset, dtype=torch.int32), tc, ts, 0
+    )
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), _np(want), atol=1e-2, rtol=1e-2)
+    np.testing.assert_allclose(got_k.float().numpy(), _np(want_k), atol=1e-2, rtol=1e-2)
+
+
+def _tail_weights(rng):
+    return [
+        (rng.randn(*shape) * 0.1).astype(np.float32)
+        for shape in ((32, 64, 3), (32,), (64, 32, 1), (64,), (1, 64, 7), (1,))
+    ]
+
+
+@pytest.mark.parametrize("blocks,batch", [(1, 1), (2, 2)])
+def test_fused_seanet_up_tail_plain_matches_pallas(blocks, batch):
+    rng = np.random.RandomState(blocks + 3 * batch)
+    x = (rng.randn(batch, 128, 512 * blocks) * 0.5).astype(np.float32)
+    wu = _np(j_repack(jnp.asarray((rng.randn(128, 64, 8) * 0.1).astype(np.float32))))
+    bu = (rng.randn(64) * 0.1).astype(np.float32)
+    tail = _tail_weights(rng)
+    want = j_st.fused_seanet_up_tail(*(jnp.asarray(a) for a in (x, wu, bu, *tail)), interpret=True)
+    got = t_st.fused_seanet_up_tail(*(torch.from_numpy(a) for a in (x, wu, bu, *tail)))
+    assert got.shape == (batch, 1, 4 * 512 * blocks)
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=CONV_ATOL, rtol=CONV_RTOL)
+
+
+@pytest.mark.parametrize("blocks,batch", [(1, 1), (2, 2)])
+def test_fused_seanet_tail_plain_matches_pallas(blocks, batch):
+    rng = np.random.RandomState(blocks * 10 + batch)
+    x = (rng.randn(batch, 64, 1920 * blocks) * 0.5).astype(np.float32)
+    tail = _tail_weights(rng)
+    want = j_st.fused_seanet_tail(*(jnp.asarray(a) for a in (x, *tail)), interpret=True)
+    got = t_st.fused_seanet_tail(*(torch.from_numpy(a) for a in (x, *tail)))
+    assert got.shape == (batch, 1, 1920 * blocks)
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=CONV_ATOL, rtol=CONV_RTOL)
+
+
+@pytest.mark.parametrize("t", [0, 1920, 3840, 2000, 1919 * 2])
+def test_tail_gate_matches_reference(t):
+    assert t_st.supports(t) == j_st.supports(t)
+
+
+@pytest.mark.parametrize("c_in,t_in,k", [(128, 512, 8), (128, 1024, 8), (128, 480, 8), (64, 512, 8), (128, 512, 10)])
+def test_up_tail_gate_matches_reference(c_in, t_in, k):
+    assert t_st.supports_up(c_in, t_in, k) == j_st.supports_up(c_in, t_in, k)
+
+
+def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
+    kernels.reset_launches()
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy((rng.randn(1, 64, 1920) * 0.5).astype(np.float32))
+    tail = [torch.from_numpy(a) for a in _tail_weights(rng)]
+    assert torch.equal(t_st.fused_seanet_tail(x, *tail), t_st.fused_seanet_tail_plain(x, *tail))
+    assert [fn.launches for fn in kernels.WRAPPERS] == [0, 0, 0]
+
+
+def test_wrappers_and_meta_line_up():
+    names = [fn.__name__ for fn in kernels.WRAPPERS]
+    assert names == ["decode_attention_step", "fused_seanet_up_tail", "fused_seanet_tail"]
+    assert len(kernels.META) == len(kernels.WRAPPERS)
+    for meta in kernels.META:
+        path, line = meta["replaces"].rsplit(":", 1)
+        src = (ROOT / path).read_text(encoding="utf-8").splitlines()
+        assert src[int(line) - 1].startswith("def "), meta
+        assert (ROOT / meta["source"]).read_text(encoding="utf-8")
+
+
+def test_build_targets_hash_source_and_flags():
+    paths = {name: build._target(name) for name in build.SOURCES}
+    assert len(set(paths.values())) == len(build.SOURCES)
+    for name, path in paths.items():
+        assert path.parent == build.BUILD_DIR and path.name.startswith(f"lib{name}-")
+        assert (build.CSRC / f"{name}.cu").exists()
+    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+
+
+def test_build_without_nvcc_raises(monkeypatch):
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", "/nonexistent-cuda")
+    monkeypatch.setattr(build.os.path, "exists", lambda p: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build._nvcc()
