@@ -9,17 +9,27 @@ failure exits non-zero:
 1. print the card (``nvidia-smi`` name and power limit), build the CUDA
    kernels from ``go_pocket_tts_tpu_torch/csrc`` and print the build time;
 2. hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes, in float32 and bfloat16, and time both (CUDA events,
-   device time from CUDA-graph replay) beside a library call where one
-   exists;
-3. the main path: ``real_arch()`` weights from a fixed seed, bfloat16 on the
-   card, ``GPURuntime.generate_audio`` on three requests (a warm-up request
-   first), then one ``PocketTTSModel.mimi_decode`` of a latent whose length
-   takes the decoder's fallback tail; every launch count is set to 0 just
-   before and read just after, and each must be positive;
-4. float32: the runtime with the kernels against the same runtime with every
-   kernel replaced by its plain version, held to an RMS tolerance.
+   main paths' shapes, and time both (CUDA events, device time from
+   CUDA-graph replay) beside its bound and a library call where one exists:
+   decode attention and the SEANet tails (float32 and bfloat16), batched
+   decode attention at 8 lanes x 16 heads x 384 slots with random lane
+   offsets (float and int8 caches), and the int8 matmul at the real model's
+   linear shapes with 1, 8 and 64 rows;
+3. the single-utterance path: ``real_arch()`` weights from a fixed seed,
+   bfloat16 on the card, ``GPURuntime.generate_audio`` on three requests (a
+   warm-up request first), then one ``PocketTTSModel.mimi_decode`` of a
+   latent whose length takes the decoder's fallback tail;
+4. float32: that runtime with the kernels against the same runtime with
+   every kernel replaced by its plain version, held to an RMS tolerance;
+5. batched serving: ``ContinuousBatcher`` at 8 slots with int8 weights and
+   an int8 KV cache (the batcher's serving configuration), 16 requests of
+   12-45 tokens submitted at once after a warm-up request, then 4 requests
+   with a bfloat16 KV cache; prints the aggregate x real time;
+6. float32 batcher: against ``GPURuntime`` for the same request, and with
+   the kernels against their plain versions (int8 weights and KV cache).
 
+Around each path of phases 3 and 5 every launch count is set to 0 just
+before and read just after; each kernel that path runs must be positive.
 The last lines are the kernel table as one JSON object, then
 ``{"ok": true, "device": {...}}``.
 """
@@ -243,7 +253,97 @@ def check_seanet(rows: dict) -> None:
                 )
 
 
-# -- phases 3 and 4: the main path ------------------------------------------
+def check_batched_decode_attention(rows: dict) -> None:
+    from go_pocket_tts_tpu_torch.kernels import batched_decode_attention as bda
+    from go_pocket_tts_tpu_torch.models.quantize import quantize_kv_rows
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    n_layers, b, h, c, d, layer = 6, 8, 16, 384, 64, 3
+    offsets = torch.randint(0, c, (b,), generator=gen, device="cuda", dtype=torch.int32)
+    offsets[0] = c - 1  # one lane reads its whole cache
+    visible = int((offsets.long() + 1).sum())  # rows a head reads, over the lanes
+    lane_mask = (torch.arange(c, device="cuda")[None, :] <= offsets.long()[:, None])[:, None, None, :]
+    print(f"  batched decode attention: lane offsets {offsets.tolist()}")
+    for int8 in (False, True):
+        name = "batched_decode_attention_int8" if int8 else "batched_decode_attention"
+        kernel, plain = getattr(bda, name), getattr(bda, name + "_plain")
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn((b, h, 1, d), generator=gen, device="cuda").to(dtype)
+            k, v = ((torch.randn((n_layers, b, h, c, d), generator=gen, device="cuda") * 0.3).to(dtype) for _ in range(2))
+            if int8:
+                (kq, ks), (vq, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
+                args = (q, kq, ks, vq, vs, offsets, layer)
+            else:
+                args = (q, k, v, offsets, layer)
+            what = f"{name} {dname(dtype)} B={b} H={h} C={c}"
+            err = max_err(kernel(*args), plain(*args), dtype, what)
+            ms, plain_ms = device_ms(lambda: kernel(*args)), device_ms(lambda: plain(*args))
+            lib_ms = None
+            if not int8:  # yardstick: SDPA with a per-lane boolean mask
+                lib_ms = device_ms(
+                    lambda: torch.nn.functional.scaled_dot_product_attention(q, k[layer], v[layer], attn_mask=lane_mask)
+                )
+            es = torch.finfo(dtype).bits // 8
+            row_bytes = d * (1 if int8 else es) + (4 if int8 else 0)  # + its row scale
+            bytes_moved = 2 * es * b * h * d + 4 * b + 2 * h * visible * row_bytes
+            b_ms, b_by = bound(bytes_moved, 4.0 * h * visible * d, dtype)
+            lib = "none" if lib_ms is None else f"{lib_ms:.5f} ms"
+            print(
+                f"  {what}: max_abs_err {err:.3e}  kernel {ms:.5f} ms  plain {plain_ms:.5f} ms  "
+                f"sdpa {lib}  bound {b_ms:.5f} ms ({b_by})  [{CARD}]"
+            )
+            if dtype == torch.bfloat16:
+                rows[name].update(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms
+                )
+
+
+# The int8 linears of a batched AR step that pass the kernel's gate, (K, N)
+# of real_arch(): FlowLM in_proj, out_proj, linear1, linear2; flowNet
+# cond_embed and mlp2 (1024 -> 512), mlp0, and the fused adaLN projection.
+QMM_SHAPES = (
+    ("in_proj", 1024, 3072),
+    ("out_proj", 1024, 1024),
+    ("linear1", 1024, 4096),
+    ("linear2", 4096, 1024),
+    ("cond_embed/mlp2", 1024, 512),
+    ("mlp0", 512, 1024),
+    ("fused_adaln", 512, 10240),
+)
+
+
+def check_quantized_matmul(rows: dict) -> None:
+    from go_pocket_tts_tpu_torch.kernels import quantized_matmul as qmm
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    for m in (1, 8, 64):
+        for label, k, n in QMM_SHAPES:
+            for dtype in (torch.bfloat16, torch.float32) if m == 8 else (torch.bfloat16,):
+                x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+                w = torch.randint(-127, 128, (k, n), generator=gen, device="cuda", dtype=torch.int8)
+                scale = torch.rand((n,), generator=gen, device="cuda") * 1e-3 + 1e-4
+                what = f"quantized_matmul {label} {dname(dtype)} M={m} K={k} N={n}"
+                # Both outputs are float32 sums of exact products: the float32 tolerance.
+                err = max_err(qmm.quantized_matmul(x, w, scale), qmm.quantized_matmul_plain(x, w, scale), torch.float32, what)
+                ms = device_ms(lambda: qmm.quantized_matmul(x, w, scale))
+                plain_ms = device_ms(lambda: qmm.quantized_matmul_plain(x, w, scale))
+                # Yardstick (no single PyTorch call takes int8 weights): a matmul
+                # against a pre-dequantized weight of x's dtype, twice the bytes.
+                w_deq = (w.float() * scale).to(dtype)
+                lib_ms = device_ms(lambda: torch.matmul(x, w_deq))
+                es = torch.finfo(dtype).bits // 8
+                b_ms, b_by = bound(k * n + es * m * k + 4 * n + 4 * m * n, 2.0 * m * k * n, dtype)
+                print(
+                    f"  {what}: max_abs_err {err:.3e}  kernel {ms:.5f} ms  plain {plain_ms:.5f} ms  "
+                    f"matmul(dequantized {dname(dtype)}) {lib_ms:.5f} ms  bound {b_ms:.5f} ms ({b_by})  [{CARD}]"
+                )
+                if (label, m, dtype) == ("linear1", 8, torch.bfloat16):
+                    rows["quantized_matmul"].update(
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms
+                    )
+
+
+# -- phases 3 to 6: the main paths -------------------------------------------
 
 
 def build_model(dtype: torch.dtype):
@@ -264,15 +364,27 @@ def check_audio(audio: np.ndarray, frames: int, what: str) -> None:
         fail(f"{what}: silent audio")
 
 
-def main_path(rows: dict) -> None:
+def read_launches(phase: str, must, counts: dict) -> None:
+    """Read every launch count after a path's run (they were set to 0 just
+    before it), fail if a kernel the path runs was not launched, and add the
+    counts to the totals of the kernel table."""
+    from go_pocket_tts_tpu_torch import kernels
+
+    launches = {fn.__name__: fn.launches for fn in kernels.WRAPPERS}
+    print(f"  launches in {phase}: {launches}")
+    for name in must:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched in {phase}")
+    for name, n in launches.items():
+        counts[name] = counts.get(name, 0) + n
+
+
+def main_path(model, arch, counts: dict) -> None:
     from go_pocket_tts_tpu_torch import kernels
     from go_pocket_tts_tpu_torch.runtime import GenerateConfig, GPURuntime
     from go_pocket_tts_tpu_torch.runtime.generate import estimate_max_frames
 
-    t0 = time.perf_counter()
-    arch, model = build_model(torch.bfloat16)
     rt = GPURuntime(model, dtype=torch.bfloat16, seed=SEED, device="cuda")
-    print(f"  real_arch bf16 weights built and loaded in {time.perf_counter() - t0:.1f} s")
     rng = np.random.RandomState(SEED)
     requests = [
         (rng.randint(0, arch.n_bins, size=n).tolist(), temp)
@@ -303,26 +415,69 @@ def main_path(rows: dict) -> None:
     torch.cuda.synchronize()
     if tuple(pcm.shape) != (1, 1, 15 * 1920) or not torch.isfinite(pcm.float()).all():
         fail(f"fallback decode: pcm {tuple(pcm.shape)} or not finite")
-    launches = {fn.__name__: fn.launches for fn in kernels.WRAPPERS}
-    print(f"  launches on the main path: {launches}")
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched on the main path")
-        rows[name]["launches"] = n
-    del rt, model
+    read_launches(
+        "the single-utterance path",
+        ("decode_attention_step", "fused_seanet_up_tail", "fused_seanet_tail"),
+        counts,
+    )
+
+
+def batched_serving(model, arch, counts: dict) -> None:
+    from go_pocket_tts_tpu_torch import kernels
+    from go_pocket_tts_tpu_torch.parallel import ContinuousBatcher
+    from go_pocket_tts_tpu_torch.runtime import GenerateConfig
+    from go_pocket_tts_tpu_torch.runtime.generate import estimate_max_frames
+
+    rng = np.random.RandomState(SEED + 4)
+    requests = [rng.randint(0, arch.n_bins, size=n).tolist() for n in rng.randint(12, 46, size=16)]
+    cfg = GenerateConfig(temperature=0.7, eos_threshold=1e9)
+    for kv_quantize, reqs in ((True, requests), (False, requests[:4])):
+        attention = "batched_decode_attention_int8" if kv_quantize else "batched_decode_attention"
+        what = f"batcher slots=8 int8 weights, {'int8' if kv_quantize else 'bf16'} KV cache"
+        t = time.perf_counter()
+        batcher = ContinuousBatcher(
+            model, slots=8, prompt_capacity=128, max_frames=256, dtype=torch.bfloat16, seed=SEED,
+            steps_per_sync=8, steps_per_sync_burst=64, quantize=True, kv_quantize=kv_quantize, device="cuda",
+        )
+        batcher.start()
+        try:
+            batcher.generate(requests[0], cfg, timeout=300)  # warm-up
+            print(f"  {what}: built and warmed up in {time.perf_counter() - t:.1f} s")
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t = time.perf_counter()
+            futs = [batcher.submit(tokens, cfg) for tokens in reqs]
+            outs = [f.result(timeout=600) for f in futs]
+            wall = time.perf_counter() - t
+            read_launches(f"the {what} path", (attention, "quantized_matmul", "fused_seanet_up_tail"), counts)
+        finally:
+            batcher.stop()
+        for i, (tokens, audio) in enumerate(zip(reqs, outs)):
+            check_audio(audio, estimate_max_frames(len(tokens)), f"{what} request {i}")
+        secs = sum(len(a) for a in outs) / 24000
+        print(
+            f"  {what}: {len(reqs)} requests of {min(map(len, reqs))}-{max(map(len, reqs))} tokens, "
+            f"{secs:.2f} s of audio in {wall * 1e3:.1f} ms wall: x{secs / wall:.2f} real time aggregate  [{CARD}]"
+        )
+        del batcher
     torch.cuda.empty_cache()
 
 
 def plain_versions():
     """Swap every kernel wrapper for its plain version (module attributes the
     model code reads at call time); returns the undo function."""
+    from go_pocket_tts_tpu_torch.kernels import batched_decode_attention as bda
     from go_pocket_tts_tpu_torch.kernels import decode_attention as da
+    from go_pocket_tts_tpu_torch.kernels import quantized_matmul as qmm
     from go_pocket_tts_tpu_torch.kernels import seanet_tail as st
 
     saved = [
         (da, "decode_attention_step", da.decode_attention_step_plain),
         (st, "fused_seanet_up_tail", st.fused_seanet_up_tail_plain),
         (st, "fused_seanet_tail", st.fused_seanet_tail_plain),
+        (bda, "batched_decode_attention", bda.batched_decode_attention_plain),
+        (bda, "batched_decode_attention_int8", bda.batched_decode_attention_int8_plain),
+        (qmm, "quantized_matmul", qmm.quantized_matmul_plain),
     ]
     originals = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in saved]
     for mod, attr, plain in saved:
@@ -335,10 +490,16 @@ def plain_versions():
     return undo
 
 
-def f32_parity() -> None:
+def rms_check(a: np.ndarray, b: np.ndarray, what: str) -> None:
+    rms = float(np.sqrt(np.mean((a.astype(np.float64) - b) ** 2)))
+    print(f"  {what}: RMS {rms:.3e} (tolerance {PATH_RMS_TOL})")
+    if not rms < PATH_RMS_TOL:
+        fail(f"{what}: RMS {rms} beyond {PATH_RMS_TOL}")
+
+
+def f32_parity(model, arch) -> None:
     from go_pocket_tts_tpu_torch.runtime import GenerateConfig, GPURuntime
 
-    arch, model = build_model(torch.float32)
     tokens = np.random.RandomState(SEED + 2).randint(0, arch.n_bins, size=20).tolist()
     cfg = GenerateConfig(temperature=0.0, eos_threshold=1e9, max_steps=40)
     a = GPURuntime(model, dtype=torch.float32, seed=SEED).generate_audio(tokens, cfg)
@@ -349,10 +510,41 @@ def f32_parity() -> None:
         undo()
     check_audio(a, 40, "f32 kernels")
     check_audio(b, 40, "f32 plain")
-    rms = float(np.sqrt(np.mean((a.astype(np.float64) - b) ** 2)))
-    print(f"  f32 real_arch, 40 frames: RMS(kernels - plain) {rms:.3e} (tolerance {PATH_RMS_TOL})")
-    if not rms < PATH_RMS_TOL:
-        fail(f"f32 path RMS {rms} beyond {PATH_RMS_TOL}")
+    rms_check(a, b, "f32 real_arch, 40 frames, kernels - plain")
+
+
+def f32_batched_parity(model, arch) -> None:
+    from go_pocket_tts_tpu_torch.parallel import ContinuousBatcher
+    from go_pocket_tts_tpu_torch.runtime import GenerateConfig, GPURuntime
+
+    rng = np.random.RandomState(SEED + 2)
+    tokens = rng.randint(0, arch.n_bins, size=20).tolist()
+    other = rng.randint(0, arch.n_bins, size=33).tolist()  # a neighbour lane at another offset
+    cfg = GenerateConfig(temperature=0.0, eos_threshold=1e9, max_steps=40)
+
+    def serve(**kw):
+        batcher = ContinuousBatcher(
+            model, slots=8, prompt_capacity=128, max_frames=256, dtype=torch.float32, seed=SEED, device="cuda", **kw
+        )
+        batcher.start()
+        try:
+            futs = [batcher.submit(tokens, cfg), batcher.submit(other, cfg)]
+            out = futs[0].result(timeout=300)
+            futs[1].result(timeout=300)
+        finally:
+            batcher.stop()
+        check_audio(out, 40, f"f32 batcher {kw}")
+        return out
+
+    single = GPURuntime(model, dtype=torch.float32, seed=SEED, device="cuda").generate_audio(tokens, cfg)
+    rms_check(serve(), single, "f32 real_arch, 40 frames, batcher - single runtime")
+    q_kernels = serve(quantize=True, kv_quantize=True)
+    undo = plain_versions()
+    try:
+        q_plain = serve(quantize=True, kv_quantize=True)
+    finally:
+        undo()
+    rms_check(q_kernels, q_plain, "f32 real_arch, 40 frames, int8 weights + int8 KV batcher, kernels - plain")
 
 
 def main() -> int:
@@ -386,17 +578,34 @@ def main() -> int:
         fn.__name__: {"name": fn.__name__, "route": "cuda", **meta, "launches": 0}
         for fn, meta in zip(kernels.WRAPPERS, kernels.META)
     }
+    counts: dict = {}
 
     print("phase 2: kernels against their plain versions")
     check_decode_attention(rows)
     check_seanet(rows)
+    check_batched_decode_attention(rows)
+    check_quantized_matmul(rows)
 
-    print("phase 3: main path (real_arch, bfloat16)")
-    main_path(rows)
+    t = time.perf_counter()
+    arch, model = build_model(torch.bfloat16)
+    print(f"  real_arch bf16 weights built and loaded in {time.perf_counter() - t:.1f} s")
+    print("phase 3: single-utterance path (real_arch, bfloat16)")
+    main_path(model, arch, counts)
 
     print("phase 4: float32 path, kernels against plain versions")
-    f32_parity()
+    arch, model32 = build_model(torch.float32)
+    f32_parity(model32, arch)
 
+    print("phase 5: batched serving (real_arch, bfloat16, int8 weights)")
+    batched_serving(model, arch, counts)
+    del model
+    torch.cuda.empty_cache()
+
+    print("phase 6: float32 batcher against the single runtime and against plain versions")
+    f32_batched_parity(model32, arch)
+
+    for name, row in rows.items():
+        row["launches"] = counts.get(name, 0)
     print(f"  total {time.perf_counter() - t_start:.1f} s")
     print(CARD)
     print(json.dumps({"kernels": list(rows.values())}))

@@ -6,7 +6,8 @@ model.params)`` on the caller's side: this module imports no JAX) and
 returns the same tree as torch tensors on ``device`` in ``dtype``. The two
 packages share keys and layouts (linear weights ``[in, out]``, repacked
 ConvTranspose kernels, ``[S, D/2]`` RoPE tables), so no leaf is reshaped.
-RoPE tables and the fused latent→mimi projector stay float32.
+RoPE tables, the scales of int8 linears and the fused latent→mimi projector
+stay float32; a quantized tree's int8 weights stay int8.
 """
 
 from __future__ import annotations

@@ -1,23 +1,35 @@
-"""Hand-written CUDA kernels of the synthesis path (sources in ``csrc/``).
+"""Hand-written CUDA kernels of the synthesis and batched serving paths
+(sources in ``csrc/``).
 
-=====================================  ========================================
-wrapper                                replaces (go_pocket_tts_tpu/ops/pallas)
-=====================================  ========================================
-decode_attention.decode_attention_step decode_attention.py: decode_attention_step
-seanet_tail.fused_seanet_up_tail       seanet_tail.py: fused_seanet_up_tail
-seanet_tail.fused_seanet_tail          seanet_tail.py: fused_seanet_tail
-=====================================  ========================================
+=================================================  ===========================================
+wrapper                                            replaces (go_pocket_tts_tpu/ops/pallas)
+=================================================  ===========================================
+decode_attention.decode_attention_step             decode_attention.py: decode_attention_step
+seanet_tail.fused_seanet_up_tail                   seanet_tail.py: fused_seanet_up_tail
+seanet_tail.fused_seanet_tail                      seanet_tail.py: fused_seanet_tail
+batched_decode_attention.batched_decode_attention  batched_decode_attention.py (float caches)
+batched_decode_attention.batched_decode_attention_int8  batched_decode_attention.py (int8 caches)
+quantized_matmul.quantized_matmul                  quantized_matmul.py: quantized_matmul
+=================================================  ===========================================
 
 Each wrapper runs its plain PyTorch version for CPU tensors and launches its
 kernel for CUDA tensors (or raises), counting launches in ``.launches``.
 """
 
-from go_pocket_tts_tpu_torch.kernels import decode_attention, seanet_tail
+from go_pocket_tts_tpu_torch.kernels import (
+    batched_decode_attention,
+    decode_attention,
+    quantized_matmul,
+    seanet_tail,
+)
 
 WRAPPERS = (
     decode_attention.decode_attention_step,
     seanet_tail.fused_seanet_up_tail,
     seanet_tail.fused_seanet_tail,
+    batched_decode_attention.batched_decode_attention,
+    batched_decode_attention.batched_decode_attention_int8,
+    quantized_matmul.quantized_matmul,
 )
 
 # Per wrapper (same order): its CUDA source and the TPU kernel it replaces.
@@ -34,6 +46,18 @@ META = (
         "source": "go_pocket_tts_tpu_torch/csrc/seanet_tail.cu",
         "replaces": "go_pocket_tts_tpu/ops/pallas/seanet_tail.py:108",
     },
+    {
+        "source": "go_pocket_tts_tpu_torch/csrc/batched_decode_attention.cu",
+        "replaces": "go_pocket_tts_tpu/ops/pallas/batched_decode_attention.py:113",
+    },
+    {
+        "source": "go_pocket_tts_tpu_torch/csrc/batched_decode_attention.cu",
+        "replaces": "go_pocket_tts_tpu/ops/pallas/batched_decode_attention.py:113",
+    },
+    {
+        "source": "go_pocket_tts_tpu_torch/csrc/quantized_matmul.cu",
+        "replaces": "go_pocket_tts_tpu/ops/pallas/quantized_matmul.py:50",
+    },
 )
 
 
@@ -43,4 +67,12 @@ def reset_launches() -> None:
         fn.launches = 0
 
 
-__all__ = ["decode_attention", "seanet_tail", "WRAPPERS", "META", "reset_launches"]
+__all__ = [
+    "batched_decode_attention",
+    "decode_attention",
+    "quantized_matmul",
+    "seanet_tail",
+    "WRAPPERS",
+    "META",
+    "reset_launches",
+]

@@ -1,5 +1,5 @@
 """flowNet: the adaLN flow-matching head and LSD Euler decode (counterpart of
-``go_pocket_tts_tpu/models/flow_net.py``, float32/bfloat16 weights only).
+``go_pocket_tts_tpu/models/flow_net.py``).
 
 - two timestep embedders (times s and t): ``[cos(t·freqs), sin(t·freqs)]``
   → Linear → SiLU → Linear → RMSNorm(alpha, Bessel variance)
@@ -27,6 +27,7 @@ from go_pocket_tts_tpu_torch.models.params import (
     layer_norm_params,
     linear_params,
 )
+from go_pocket_tts_tpu_torch.models.quantize import dequantize_weight, is_quantized
 from go_pocket_tts_tpu_torch.ops import layer_norm, modulate, rms_norm_bessel, silu
 
 __all__ = [
@@ -112,16 +113,27 @@ def _flow_core(params: Params, fused_ada: Params, y: torch.Tensor, x: torch.Tens
 def precompute_fused_adaln(params: Params) -> Params:
     """Concatenate every res-block's adaLN projection plus the final
     layer's into one ``[flow_dim, (3·n_blocks+2)·flow_dim]`` weight: all of
-    them read the same ``silu(y)``, so each step makes one matmul of them."""
+    them read the same ``silu(y)``, so each step makes one matmul of them.
+
+    Int8 sources concatenate as int8 with their scales; if only some are
+    quantized, those are dequantized and the concat is float."""
     sources = [rb["adaln"] for rb in params["res_blocks"]] + [params["final_adaln"]]
-    w = torch.cat([src["w"] for src in sources], dim=1)
+    quantized = all(is_quantized(src) for src in sources)
+    ws = [
+        dequantize_weight(src) if is_quantized(src) and not quantized else src["w"]
+        for src in sources
+    ]
+    w = torch.cat(ws, dim=1)
     b = torch.cat(
         [
             src["b"] if "b" in src else torch.zeros(src["w"].shape[1], device=w.device)
             for src in sources
         ]
     )
-    return {"w": w, "b": b}
+    fused = {"w": w, "b": b}
+    if quantized:
+        fused["scale"] = torch.cat([src["scale"] for src in sources])
+    return fused
 
 
 def precompute_time_cond(params: Params, steps: int) -> torch.Tensor:

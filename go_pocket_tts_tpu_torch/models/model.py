@@ -24,10 +24,12 @@ __all__ = ["ModelConfig", "PocketTTSModel", "load_model_from_tensors", "cast_par
 Params = Dict
 
 # Leaves (by key) and subtrees kept float32 when the model is cast: the RoPE
-# tables, and the fused latent→mimi projector, which the decode casts to the
-# activation type where it reads it (the same values the reference gets by
-# casting it at load).
-KEEP_F32 = ("rope_cos", "rope_sin", "latent_to_mimi")
+# tables, the per-column scales of int8 linears (the reference's ``astype``
+# keeps them float32 too), and the fused latent→mimi projector, which the
+# decode casts to the activation type where it reads it (the same values the
+# reference gets by casting it at load). Integer leaves (int8 weights) are
+# never cast.
+KEEP_F32 = ("rope_cos", "rope_sin", "scale", "latent_to_mimi")
 
 
 @dataclass(frozen=True)

@@ -1,7 +1,7 @@
 """Parameter-tree helpers: a dotted-prefix VarBuilder over a name → array
 mapping, and the linear layer (counterpart of
-``go_pocket_tts_tpu/models/params.py``, float32/bfloat16 only; the
-quantized forms are not ported yet).
+``go_pocket_tts_tpu/models/params.py``: float32/bfloat16 and int8
+weight-only linears; the packed int4 form is not ported yet).
 
 Parameters are nested dicts of tensors with the reference package's keys,
 so a tree from either package can be compared leaf by leaf.
@@ -13,6 +13,8 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+
+from go_pocket_tts_tpu_torch.kernels import quantized_matmul as qmm
 
 __all__ = [
     "VarBuilder",
@@ -92,8 +94,26 @@ def layer_norm_params(vb: VarBuilder, name: str) -> Params:
 
 
 def apply_linear(params: Params, x: torch.Tensor) -> torch.Tensor:
-    """``y = x @ w (+ b)`` in the activation dtype, float32 accumulation."""
-    y = torch.matmul(x, params["w"].to(x.dtype))
+    """``y = x @ w (+ b)`` in the activation dtype, float32 accumulation.
+
+    An int8 weight-only linear (``models/quantize.py``: int8 ``w``, float32
+    per-column ``scale``) computes ``(x @ w) * scale`` in float32: through
+    the quantized-matmul kernel where its gate admits the shape (the AR
+    step's skinny products), else as a plain product of the widened weight
+    (prefill, and the narrow input/EOS/flowNet-output linears), where the
+    reference takes XLA's mixed-dtype dot. The bias adds after the scale.
+    """
+    w = params["w"]
+    if w.dtype == torch.int8 and "scale" in params:
+        lead, k, n = x.shape[:-1], x.shape[-1], w.shape[1]
+        m = x.numel() // k
+        if qmm.supports(m, k, n):
+            y = qmm.quantized_matmul(x.reshape(m, k), w, params["scale"]).reshape(*lead, n)
+        else:
+            y = torch.matmul(x.float(), w.float()) * params["scale"].float()
+        y = y.to(x.dtype)
+    else:
+        y = torch.matmul(x, w.to(x.dtype))
     if "b" in params:
         y = y + params["b"].to(x.dtype)
     return y

@@ -5,7 +5,10 @@ Plain PyTorch; the hand-written CUDA kernels live in
 """
 
 from go_pocket_tts_tpu_torch.ops.act import elu, gelu_erf, silu
-from go_pocket_tts_tpu_torch.ops.attention import attention_with_positions
+from go_pocket_tts_tpu_torch.ops.attention import (
+    attention_with_positions,
+    attention_with_positions_int8kv,
+)
 from go_pocket_tts_tpu_torch.ops.conv import (
     causal_conv1d,
     conv1d,
@@ -41,6 +44,7 @@ __all__ = [
     "build_rope_tables",
     "rope_rows",
     "attention_with_positions",
+    "attention_with_positions_int8kv",
     "causal_conv1d",
     "conv1d",
     "conv_transpose1d_phases",

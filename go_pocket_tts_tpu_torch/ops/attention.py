@@ -18,7 +18,12 @@ from typing import Optional
 
 import torch
 
-__all__ = ["attention_with_positions", "position_mask", "masked_softmax"]
+__all__ = [
+    "attention_with_positions",
+    "attention_with_positions_int8kv",
+    "position_mask",
+    "masked_softmax",
+]
 
 
 def position_mask(
@@ -45,6 +50,15 @@ def masked_softmax(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return e / torch.where(denom > 0, denom, 1.0)
 
 
+def _batch_mask(pos_q, pos_k, context) -> torch.Tensor:
+    mask = position_mask(pos_q, pos_k, context)
+    if mask.ndim == 2:
+        return mask[None, None]
+    if mask.ndim == 3:
+        return mask[:, None]
+    return mask
+
+
 def attention_with_positions(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -59,12 +73,33 @@ def attention_with_positions(
     ``[B, Tq]``/``[B, Tk]``. Output matches the input dtype.
     """
     scale = 1.0 / (q.shape[-1] ** 0.5)
-    mask = position_mask(pos_q, pos_k, context)
-    if mask.ndim == 2:
-        mask = mask[None, None]
-    elif mask.ndim == 3:
-        mask = mask[:, None]
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    p = masked_softmax(scores, mask)
+    p = masked_softmax(scores, _batch_mask(pos_q, pos_k, context))
     out = torch.matmul(p.to(v.dtype).float(), v.float())
     return out.to(q.dtype)
+
+
+def attention_with_positions_int8kv(
+    q: torch.Tensor,
+    k_q: torch.Tensor,
+    k_scale: torch.Tensor,
+    v_q: torch.Tensor,
+    v_scale: torch.Tensor,
+    pos_q: torch.Tensor,
+    pos_k: torch.Tensor,
+    context: Optional[int] = None,
+) -> torch.Tensor:
+    """Masked SDPA over an int8 KV cache with per-row scales.
+
+    ``k_q``/``v_q`` are int8 ``[B, H, Tk, Dh]``, ``k_scale``/``v_scale``
+    float32 ``[B, H, Tk]``. The row scales distribute over the products:
+    ``scores = (q·k_int8)·k_scale/√D`` and ``out = (p·v_scale)·v_int8``,
+    with ``p·v_scale`` rounded to q's dtype as the reference rounds it.
+    Masks as in :func:`attention_with_positions`.
+    """
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    scores = torch.matmul(q.float(), k_q.float().transpose(-1, -2))
+    scores = scores * k_scale[:, :, None, :] * scale
+    p = masked_softmax(scores, _batch_mask(pos_q, pos_k, context))
+    pv = (p * v_scale[:, :, None, :]).to(q.dtype).float()
+    return torch.matmul(pv, v_q.float()).to(q.dtype)

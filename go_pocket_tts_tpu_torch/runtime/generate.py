@@ -39,11 +39,12 @@ from go_pocket_tts_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from go_pocket_tts_tpu_torch.models import flow_lm as flm
 from go_pocket_tts_tpu_torch.models import flow_transformer as ftr
 from go_pocket_tts_tpu_torch.models.model import PocketTTSModel
+from go_pocket_tts_tpu_torch.models.quantize import quantize_model_params
 from go_pocket_tts_tpu_torch.utils import buckets as bk
 
 log = logging.getLogger("pockettts.torch.runtime")
 
-__all__ = ["GenerateConfig", "GPURuntime", "estimate_max_frames"]
+__all__ = ["GenerateConfig", "GPURuntime", "decode_pcm16", "estimate_max_frames", "quantized_model"]
 
 DEFAULT_MIMI_FRAME_RATE = 12.5
 
@@ -89,15 +90,43 @@ def _full_f32(enabled: bool) -> Iterator[None]:
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
+def decode_pcm16(
+    model: PocketTTSModel, frames: torch.Tensor, n_frames: torch.Tensor, decode_frames: int
+) -> torch.Tensor:
+    """Mask → fused latent→mimi → Mimi decode → int16
+    ``[B, 1, decode_frames·1920]`` of ``frames [B, W, L]``; frames at or past
+    a lane's ``n_frames`` are zeroed, and the host trims each lane to
+    ``n_frames·1920`` samples."""
+    frames = frames[:, :decode_frames]
+    mask = (torch.arange(decode_frames, device=frames.device) < n_frames[:, None])[:, :, None]
+    latent = torch.where(mask, frames, torch.zeros((), dtype=frames.dtype, device=frames.device))
+    pcm = model.mimi_decode(model.latent_to_mimi(latent))
+    # Truncation toward zero, as the reference's host WAV encoder does.
+    return (pcm.float().clamp(-1.0, 1.0) * 32767.0).to(torch.int16)
+
+
+def quantized_model(model: PocketTTSModel, quantize: Union[bool, int]) -> PocketTTSModel:
+    """``model`` with every linear int8 weight-only quantized when
+    ``quantize`` is True or 8; unchanged when it is False. (4 raises: int4
+    is not ported yet.)"""
+    if not quantize:
+        return model
+    bits = 8 if quantize is True else int(quantize)
+    return PocketTTSModel(quantize_model_params(model.params, bits=bits), model.config)
+
+
 class GPURuntime:
     """Generation runtime over a loaded :class:`PocketTTSModel`.
 
     ``device`` defaults to ``"cuda"`` and raises on a host without CUDA;
     pass ``device="cpu"`` to run the plain PyTorch versions of the kernels
     there. ``dtype`` is ``torch.float32`` (the parity path) or
-    ``torch.bfloat16``. Randomness comes from a ``torch.Generator`` seeded
-    with ``seed``; each request draws its own seed from it, so a request's
-    noise does not depend on how many steps earlier requests ran.
+    ``torch.bfloat16``. ``quantize=True`` (or 8) runs every linear with int8
+    weights (``models/quantize.py``), as ``TPURuntime(quantize=True)`` does;
+    the AR step's linears then go through the quantized-matmul kernel.
+    Randomness comes from a ``torch.Generator`` seeded with ``seed``; each
+    request draws its own seed from it, so a request's noise does not depend
+    on how many steps earlier requests ran.
     """
 
     SYNC_EVERY = 16  # AR steps between host reads of ``done``
@@ -109,11 +138,13 @@ class GPURuntime:
         seed: Optional[int] = None,
         frame_bucket: int = 256,
         device: Union[str, torch.device] = DEFAULT_DEVICE,
+        quantize: Union[bool, int] = False,
     ) -> None:
         self.device = resolve_device(device)
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"GPURuntime: dtype {dtype} not supported (float32 or bfloat16)")
         self.dtype = dtype
+        model = quantized_model(model, quantize)
         self.model = model if (model.device, model.dtype) == (self.device, dtype) else model.to(
             self.device, dtype
         )
@@ -201,14 +232,7 @@ class GPURuntime:
         return frames, n_frames
 
     def _decode_pcm16(self, frames: torch.Tensor, n_frames: torch.Tensor, decode_frames: int):
-        """Mask → fused latent→mimi → Mimi decode → int16
-        [B, 1, decode_frames·1920]; the host trims to ``n_frames·1920``."""
-        frames = frames[:, :decode_frames]
-        mask = (torch.arange(decode_frames, device=frames.device) < n_frames[:, None])[:, :, None]
-        latent = torch.where(mask, frames, torch.zeros((), dtype=frames.dtype, device=frames.device))
-        pcm = self.model.mimi_decode(self.model.latent_to_mimi(latent))
-        # Truncation toward zero, as the reference's host WAV encoder does.
-        return (pcm.float().clamp(-1.0, 1.0) * 32767.0).to(torch.int16)
+        return decode_pcm16(self.model, frames, n_frames, decode_frames)
 
     # -- entry point -------------------------------------------------------
 

@@ -3,7 +3,10 @@
 A CUDA kernel has no interpret mode, so these tests need a GPU and ``nvcc``;
 elsewhere they skip. On a card host::
 
-    python -m pytest tests/test_torch_cuda.py -m cuda -q
+    python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
+
+(``--noconftest``: the suite's conftest imports JAX, which a card host
+need not have.)
 """
 
 import dataclasses
@@ -13,10 +16,13 @@ import pytest
 import torch
 
 from go_pocket_tts_tpu_torch import kernels
+from go_pocket_tts_tpu_torch.kernels import batched_decode_attention as bda
 from go_pocket_tts_tpu_torch.kernels import decode_attention as da
+from go_pocket_tts_tpu_torch.kernels import quantized_matmul as qmm
 from go_pocket_tts_tpu_torch.kernels import seanet_tail as st
 from go_pocket_tts_tpu_torch.models import synthetic
 from go_pocket_tts_tpu_torch.models.model import load_model_from_tensors
+from go_pocket_tts_tpu_torch.models.quantize import quantize_kv_rows
 from go_pocket_tts_tpu_torch.ops import build_rope_tables, repack_conv_transpose_kernel
 from go_pocket_tts_tpu_torch.runtime import GenerateConfig, GPURuntime
 
@@ -59,6 +65,44 @@ def test_decode_attention_kernel(card, dtype, offset):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+def test_batched_decode_attention_kernels(card, dtype, int8):
+    gen = torch.Generator(device=card).manual_seed(7)
+    n_layers, b, h, c, d, layer = 3, 8, 16, 384, 64, 1
+    q = torch.randn((b, h, 1, d), generator=gen, device=card).to(dtype)
+    k, v = ((torch.randn((n_layers, b, h, c, d), generator=gen, device=card) * 0.3).to(dtype) for _ in range(2))
+    # Lane offsets: the first and last slot, past the capacity, and random.
+    offsets = torch.tensor([0, c - 1, c, 5, 100, 383, 200, 17], dtype=torch.int32, device=card)
+    if int8:
+        (kq, ks), (vq, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
+        fn, before = bda.batched_decode_attention_int8, bda.batched_decode_attention_int8.launches
+        got = fn(q, kq, ks, vq, vs, offsets, layer)
+        want = bda.batched_decode_attention_int8_plain(q, kq, ks, vq, vs, offsets, layer)
+    else:
+        fn, before = bda.batched_decode_attention, bda.batched_decode_attention.launches
+        got = fn(q, k, v, offsets, layer)
+        want = bda.batched_decode_attention_plain(q, k, v, offsets, layer)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(1, 1024, 3072), (8, 1024, 4096), (8, 4096, 1024), (64, 512, 10240), (13, 1024, 1024)])
+def test_quantized_matmul_kernel(card, dtype, m, k, n):
+    gen = torch.Generator(device=card).manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=gen, device=card).to(dtype)
+    w = torch.randint(-127, 128, (k, n), generator=gen, device=card, dtype=torch.int8)
+    scale = torch.rand((n,), generator=gen, device=card) * 1e-3
+    before = qmm.quantized_matmul.launches
+    got = qmm.quantized_matmul(x, w, scale)
+    want = qmm.quantized_matmul_plain(x, w, scale)
+    torch.cuda.synchronize()
+    assert qmm.quantized_matmul.launches == before + 1 and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)  # f32 sums, another order
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_seanet_kernels(card, dtype):
     gen = torch.Generator(device=card).manual_seed(0)
 
@@ -94,3 +138,36 @@ def test_tiny_synthesis_kernels_match_plain(card, monkeypatch):
     monkeypatch.setattr(da, "decode_attention_step", da.decode_attention_step_plain)
     b = GPURuntime(model, seed=1, frame_bucket=64, device=card).generate_audio([3, 17, 41], cfg)
     assert np.sqrt(np.mean((a - b) ** 2)) < 1e-5
+
+
+def test_tiny_batcher_kernels_match_plain(card, monkeypatch):
+    """The batcher at its serving knobs on a tiny model whose heads are 64
+    wide and whose linears pass the int8 kernel's gate: kernels 4 (int8)
+    and 5 launch, and the audio is the plain versions' within the path
+    budget."""
+    from go_pocket_tts_tpu_torch.parallel import ContinuousBatcher
+
+    arch = dataclasses.replace(synthetic.tiny_arch(), d_model=128, num_heads=2, ffn_dim=256)
+    model = load_model_from_tensors(synthetic.build_checkpoint(arch, seed=2), num_heads=arch.num_heads, device=card)
+    cfg = GenerateConfig(temperature=0.0, eos_threshold=1e9, max_steps=8)
+
+    def serve():
+        batcher = ContinuousBatcher(
+            model, slots=2, prompt_capacity=16, max_frames=16, seed=1, quantize=True, kv_quantize=True, device=card
+        )
+        batcher.start()
+        try:
+            futs = [batcher.submit([3, 17, 41], cfg), batcher.submit([5, 9, 2, 60, 7], cfg)]
+            return [f.result(timeout=120) for f in futs]
+        finally:
+            batcher.stop()
+
+    kernels.reset_launches()
+    got = serve()
+    assert bda.batched_decode_attention_int8.launches > 0 and qmm.quantized_matmul.launches > 0
+    monkeypatch.setattr(bda, "batched_decode_attention_int8", bda.batched_decode_attention_int8_plain)
+    monkeypatch.setattr(qmm, "quantized_matmul", qmm.quantized_matmul_plain)
+    want = serve()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape == (8 * 1920,)
+        assert np.sqrt(np.mean((g - w) ** 2)) < 1e-3

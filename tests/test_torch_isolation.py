@@ -14,6 +14,8 @@ from go_pocket_tts_tpu_torch import DEFAULT_DEVICE, resolve_device
 from go_pocket_tts_tpu_torch.convert import params_from_jax
 from go_pocket_tts_tpu_torch.models import synthetic
 from go_pocket_tts_tpu_torch.models.model import load_model_from_tensors
+from go_pocket_tts_tpu_torch.parallel import BatcherRuntime, ContinuousBatcher
+from go_pocket_tts_tpu_torch.parallel.batching import make_batched_state
 from go_pocket_tts_tpu_torch.runtime import GPURuntime
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -43,8 +45,17 @@ audio = GPURuntime(model, seed=1, frame_bucket=64, device="cpu").generate_audio(
     [3, 17, 41], GenerateConfig(temperature=0.0, eos_threshold=1e9, max_steps=4)
 )
 assert audio.shape == (4 * 1920,) and np.isfinite(audio).all(), audio.shape
+from go_pocket_tts_tpu_torch.parallel import ContinuousBatcher
+batcher = ContinuousBatcher(model, slots=2, prompt_capacity=16, max_frames=16, seed=1, device="cpu",
+                            quantize=True, kv_quantize=True)
+batcher.start()
+try:
+    served = batcher.generate([3, 17, 41], GenerateConfig(temperature=0.7, eos_threshold=1e9, max_steps=3))
+finally:
+    batcher.stop()
+assert served.shape == (3 * 1920,) and np.isfinite(served).all(), served.shape
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "go_pocket_tts_tpu") for m in sys.modules)
-print("NO-JAX-OK", len(audio))
+print("NO-JAX-OK", len(audio), len(served))
 """
 
 
@@ -61,6 +72,9 @@ def test_port_synthesizes_with_jax_blocked():
     assert "NO-JAX-OK" in proc.stdout
 
 
+PORT_FILES = sorted(str(p.relative_to(ROOT)) for p in (ROOT / "go_pocket_tts_tpu_torch").rglob("*.py"))
+
+
 def _imported_roots(path: Path):
     tree = ast.parse(path.read_text(encoding="utf-8"), filename=str(path))
     for node in ast.walk(tree):
@@ -73,17 +87,29 @@ def _imported_roots(path: Path):
 
 @pytest.mark.parametrize(
     "path",
-    sorted(str(p.relative_to(ROOT)) for p in (ROOT / "go_pocket_tts_tpu_torch").rglob("*.py"))
-    + ["chip_smoke.py", "scripts/torch_profile.py"],
+    PORT_FILES + ["chip_smoke.py", "scripts/torch_profile.py"],
 )
 def test_no_jax_imports(path):
     bad = [root for root in _imported_roots(ROOT / path) if root in FORBIDDEN]
     assert not bad, f"{path} imports {bad}"
 
 
+def test_scan_covers_every_port_package():
+    packages = {Path(p).parts[1] for p in PORT_FILES if len(Path(p).parts) > 2}
+    assert {"kernels", "models", "ops", "parallel", "runtime", "utils"} <= packages
+    assert "go_pocket_tts_tpu_torch/parallel/batching.py" in PORT_FILES
+
+
 def test_default_device_is_cuda():
     assert DEFAULT_DEVICE == "cuda"
-    for fn in (GPURuntime.__init__, load_model_from_tensors, params_from_jax):
+    for fn in (
+        GPURuntime.__init__,
+        ContinuousBatcher.__init__,
+        BatcherRuntime.__init__,
+        make_batched_state,
+        load_model_from_tensors,
+        params_from_jax,
+    ):
         assert fn.__defaults__ is not None and "cuda" in fn.__defaults__, fn
 
 
@@ -96,6 +122,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     model = load_model_from_tensors(tensors, num_heads=arch.num_heads, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         GPURuntime(model)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ContinuousBatcher(model, slots=2)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         params_from_jax({"w": model.params["mimi"]["up3"]["w"].numpy()})
     assert resolve_device("cpu") == torch.device("cpu")

@@ -14,11 +14,16 @@ import jax.numpy as jnp
 from go_pocket_tts_tpu.ops import TOLERANCES
 from go_pocket_tts_tpu.ops import build_rope_tables as j_rope_tables
 from go_pocket_tts_tpu.ops import repack_conv_transpose_kernel as j_repack
+from go_pocket_tts_tpu.models.quantize import quantize_kv_rows as j_quantize_kv_rows
+from go_pocket_tts_tpu.ops.pallas import quantized_matmul as j_qmm
 from go_pocket_tts_tpu.ops.pallas import seanet_tail as j_st
+from go_pocket_tts_tpu.ops.pallas.batched_decode_attention import batched_decode_attention as j_bda
 from go_pocket_tts_tpu.ops.pallas.decode_attention import decode_attention_step as j_decode
 from go_pocket_tts_tpu_torch import kernels
+from go_pocket_tts_tpu_torch.kernels import batched_decode_attention as t_bda
 from go_pocket_tts_tpu_torch.kernels import build
 from go_pocket_tts_tpu_torch.kernels import decode_attention as t_da
+from go_pocket_tts_tpu_torch.kernels import quantized_matmul as t_qmm
 from go_pocket_tts_tpu_torch.kernels import seanet_tail as t_st
 from go_pocket_tts_tpu_torch.ops import build_rope_tables as t_rope_tables
 
@@ -76,6 +81,63 @@ def test_decode_attention_plain_bf16_matches_pallas():
     np.testing.assert_allclose(got_k.float().numpy(), _np(want_k), atol=1e-2, rtol=1e-2)
 
 
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("layer", [0, 2])
+def test_batched_decode_attention_plain_matches_pallas(int8, layer):
+    n_layers, b, h, c, d = 3, 5, 2, 32, 64
+    rng = np.random.RandomState(layer + 10 * int8)
+    q = rng.randn(b, h, 1, d).astype(np.float32)
+    k, v = ((rng.randn(n_layers, b, h, c, d) * 0.3).astype(np.float32) for _ in range(2))
+    offsets = np.array([0, c - 1, 7, 18, 1], np.int32)  # first slot, last slot, in between
+    if int8:
+        (kq, ks), (vq, vs) = j_quantize_kv_rows(jnp.asarray(k)), j_quantize_kv_rows(jnp.asarray(v))
+        want = j_bda(jnp.asarray(q), kq, vq, jnp.asarray(offsets), k_scale=ks, v_scale=vs, layer=layer, interpret=True)
+        tk, tks, tv, tvs = (torch.from_numpy(np.array(a)) for a in (kq, ks, vq, vs))
+        got = t_bda.batched_decode_attention_int8(
+            torch.from_numpy(q), tk, tks, tv, tvs, torch.from_numpy(offsets), layer
+        )
+    else:
+        want = j_bda(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(offsets), layer=layer, interpret=True)
+        got = t_bda.batched_decode_attention(
+            torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), torch.from_numpy(offsets), layer
+        )
+    assert got.shape == (b, h, 1, d) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=ATOL, rtol=RTOL)
+
+
+def test_batched_decode_attention_plain_bf16_matches_pallas():
+    n_layers, b, h, c, d = 1, 3, 2, 16, 64
+    rng = np.random.RandomState(5)
+    q = rng.randn(b, h, 1, d).astype(np.float32)
+    k, v = ((rng.randn(n_layers, b, h, c, d) * 0.3).astype(np.float32) for _ in range(2))
+    offsets = np.array([15, 0, 9], np.int32)
+    want = j_bda(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), jnp.asarray(offsets), layer=0, interpret=True)
+    got = t_bda.batched_decode_attention(
+        *(torch.from_numpy(a).bfloat16() for a in (q, k, v)), torch.from_numpy(offsets), 0
+    )
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), _np(want), atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 128, 256), (8, 1024, 3072), (64, 512, 10240)])
+def test_quantized_matmul_plain_matches_pallas(m, k, n):
+    rng = np.random.RandomState(m + n)
+    x = rng.randn(m, k).astype(np.float32)
+    w = rng.randint(-127, 128, size=(k, n)).astype(np.int8)
+    scale = ((rng.rand(n) + 0.5) * 0.01).astype(np.float32)
+    want = j_qmm.quantized_matmul(jnp.asarray(x), jnp.asarray(w), jnp.asarray(scale), interpret=True)
+    got = t_qmm.quantized_matmul(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(scale))
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize(
+    "m,k,n", [(1, 128, 256), (64, 1024, 4096), (65, 1024, 4096), (8, 32, 1024), (8, 1024, 1), (8, 512, 32), (8, 100, 512)]
+)
+def test_quantized_matmul_gate_matches_reference(m, k, n):
+    assert t_qmm.supports(m, k, n) == j_qmm.supports(m, k, n)
+
+
 def _tail_weights(rng):
     return [
         (rng.randn(*shape) * 0.1).astype(np.float32)
@@ -123,12 +185,22 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     x = torch.from_numpy((rng.randn(1, 64, 1920) * 0.5).astype(np.float32))
     tail = [torch.from_numpy(a) for a in _tail_weights(rng)]
     assert torch.equal(t_st.fused_seanet_tail(x, *tail), t_st.fused_seanet_tail_plain(x, *tail))
-    assert [fn.launches for fn in kernels.WRAPPERS] == [0, 0, 0]
+    rng_q = torch.from_numpy(rng.randn(2, 128).astype(np.float32))
+    w = torch.ones((128, 256), dtype=torch.int8)
+    assert torch.equal(t_qmm.quantized_matmul(rng_q, w, torch.ones(256)), t_qmm.quantized_matmul_plain(rng_q, w, torch.ones(256)))
+    assert [fn.launches for fn in kernels.WRAPPERS] == [0] * len(kernels.WRAPPERS)
 
 
 def test_wrappers_and_meta_line_up():
     names = [fn.__name__ for fn in kernels.WRAPPERS]
-    assert names == ["decode_attention_step", "fused_seanet_up_tail", "fused_seanet_tail"]
+    assert names == [
+        "decode_attention_step",
+        "fused_seanet_up_tail",
+        "fused_seanet_tail",
+        "batched_decode_attention",
+        "batched_decode_attention_int8",
+        "quantized_matmul",
+    ]
     assert len(kernels.META) == len(kernels.WRAPPERS)
     for meta in kernels.META:
         path, line = meta["replaces"].rsplit(":", 1)
