@@ -13,8 +13,9 @@ failure exits non-zero:
    CUDA-graph replay) beside its bound and a library call where one exists:
    decode attention and the SEANet tails (float32 and bfloat16), batched
    decode attention at 8 lanes x 16 heads x 384 slots with random lane
-   offsets (float and int8 caches), and the int8 matmul at the real model's
-   linear shapes with 1, 8 and 64 rows;
+   offsets (float and int8 caches), and the int8 and int4 matmuls at the
+   real model's linear shapes with 1, 8 and 64 rows (the int4 one beside
+   the int8 one and a matmul on the dequantized weight);
 3. the single-utterance path: ``real_arch()`` weights from a fixed seed,
    bfloat16 on the card, ``GPURuntime.generate_audio`` on three requests (a
    warm-up request first), then one ``PocketTTSModel.mimi_decode`` of a
@@ -26,9 +27,17 @@ failure exits non-zero:
    12-45 tokens submitted at once after a warm-up request, then 4 requests
    with a bfloat16 KV cache; prints the aggregate x real time;
 6. float32 batcher: against ``GPURuntime`` for the same request, and with
-   the kernels against their plain versions (int8 weights and KV cache).
+   the kernels against their plain versions (int8 weights and KV cache);
+7. int4 serving from an artifact: the seeded float checkpoint exported with
+   int4 weights (``build_quantized_checkpoint(bits=4)``), written, loaded
+   back (leaf-equal to load-time ``quantize_model_params(bits=4)``), served
+   by the 8-slot int8-KV batcher (the same 16 requests as phase 5, after a
+   warm-up request; 38 int4-matmul launches per batched AR step) and by
+   ``GPURuntime`` on one request;
+8. float32 int4 + int8-KV batcher, the kernels against their plain
+   versions.
 
-Around each path of phases 3 and 5 every launch count is set to 0 just
+Around each path of phases 3, 5 and 7 every launch count is set to 0 just
 before and read just after; each kernel that path runs must be positive.
 The last lines are the kernel table as one JSON object, then
 ``{"ok": true, "device": {...}}``.
@@ -36,11 +45,13 @@ The last lines are the kernel table as one JSON object, then
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -343,15 +354,61 @@ def check_quantized_matmul(rows: dict) -> None:
                     )
 
 
-# -- phases 3 to 6: the main paths -------------------------------------------
+def check_int4_matmul(rows: dict) -> None:
+    from go_pocket_tts_tpu_torch.kernels import int4_matmul as i4mm
+    from go_pocket_tts_tpu_torch.kernels import quantized_matmul as qmm
+    from go_pocket_tts_tpu_torch.models.quantize import dequantize_weight
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    for m in (1, 8, 64):
+        for label, k, n in QMM_SHAPES:
+            for dtype in (torch.bfloat16, torch.float32) if m == 8 else (torch.bfloat16,):
+                x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+                # Random bytes: every nibble code, -8 included, appears.
+                w = torch.randint(0, 256, (k // 2, n), generator=gen, device="cuda", dtype=torch.uint8)
+                scale = torch.rand((k // 128, n), generator=gen, device="cuda") * 1e-3 + 1e-4
+                what = f"int4_matmul {label} {dname(dtype)} M={m} K={k} N={n}"
+                # Both outputs are float32 sums of exact products: the float32 tolerance.
+                err = max_err(i4mm.int4_matmul(x, w, scale), i4mm.int4_matmul_plain(x, w, scale), torch.float32, what)
+                ms = device_ms(lambda: i4mm.int4_matmul(x, w, scale))
+                plain_ms = device_ms(lambda: i4mm.int4_matmul_plain(x, w, scale))
+                # Yardsticks: a matmul against the pre-dequantized weight in x's
+                # dtype (four times the bytes in bf16), and kernel 5 on an int8
+                # weight of the same shape (twice the bytes).
+                w_deq = dequantize_weight({"w": w, "scale": scale}).to(dtype)
+                lib_ms = device_ms(lambda: torch.matmul(x, w_deq))
+                w8 = torch.randint(-127, 128, (k, n), generator=gen, device="cuda", dtype=torch.int8)
+                s8 = scale[0].contiguous()
+                qmm_ms = device_ms(lambda: qmm.quantized_matmul(x, w8, s8))
+                es = torch.finfo(dtype).bits // 8
+                b_ms, b_by = bound(k * n // 2 + 4 * (k // 128) * n + es * m * k + 4 * m * n, 2.0 * m * k * n, dtype)
+                print(
+                    f"  {what}: max_abs_err {err:.3e}  kernel {ms:.5f} ms  plain {plain_ms:.5f} ms  "
+                    f"matmul(dequantized {dname(dtype)}) {lib_ms:.5f} ms  int8 kernel 5 {qmm_ms:.5f} ms  "
+                    f"bound {b_ms:.5f} ms ({b_by})  [{CARD}]"
+                )
+                if (label, m, dtype) == ("linear1", 8, torch.bfloat16):
+                    rows["int4_matmul"].update(
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms
+                    )
+
+
+# -- phases 3 to 8: the main paths -------------------------------------------
+
+
+@functools.lru_cache(maxsize=1)
+def checkpoint():
+    """``real_arch()`` float32 weights from the fixed seed, ``{name: array}``."""
+    from go_pocket_tts_tpu_torch.models import synthetic
+
+    arch = synthetic.real_arch()
+    return arch, synthetic.build_checkpoint(arch, seed=SEED)
 
 
 def build_model(dtype: torch.dtype):
-    from go_pocket_tts_tpu_torch.models import synthetic
     from go_pocket_tts_tpu_torch.models.model import load_model_from_tensors
 
-    arch = synthetic.real_arch()
-    tensors = synthetic.build_checkpoint(arch, seed=SEED)
+    arch, tensors = checkpoint()
     return arch, load_model_from_tensors(tensors, num_heads=arch.num_heads, device="cuda", dtype=dtype)
 
 
@@ -422,45 +479,65 @@ def main_path(model, arch, counts: dict) -> None:
     )
 
 
-def batched_serving(model, arch, counts: dict) -> None:
+def serve_requests(batcher, reqs, cfg, what: str, must, counts: dict) -> float:
+    """Warm the started batcher up on one request, then submit ``reqs`` at
+    once with every launch count set to 0; check the audio and the path's
+    launches, print and return the aggregate x real time."""
     from go_pocket_tts_tpu_torch import kernels
-    from go_pocket_tts_tpu_torch.parallel import ContinuousBatcher
-    from go_pocket_tts_tpu_torch.runtime import GenerateConfig
     from go_pocket_tts_tpu_torch.runtime.generate import estimate_max_frames
+
+    t = time.perf_counter()
+    batcher.generate(reqs[0], cfg, timeout=300)  # warm-up
+    print(f"  {what}: warmed up in {time.perf_counter() - t:.1f} s")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t = time.perf_counter()
+    futs = [batcher.submit(tokens, cfg) for tokens in reqs]
+    outs = [f.result(timeout=600) for f in futs]
+    wall = time.perf_counter() - t
+    read_launches(f"the {what} path", must, counts)
+    for i, (tokens, audio) in enumerate(zip(reqs, outs)):
+        check_audio(audio, estimate_max_frames(len(tokens)), f"{what} request {i}")
+    secs = sum(len(a) for a in outs) / 24000
+    x_real = secs / wall
+    print(
+        f"  {what}: {len(reqs)} requests of {min(map(len, reqs))}-{max(map(len, reqs))} tokens, "
+        f"{secs:.2f} s of audio in {wall * 1e3:.1f} ms wall: x{x_real:.2f} real time aggregate  [{CARD}]"
+    )
+    return x_real
+
+
+def serving_requests(arch):
+    """The 16 requests of phases 5 and 7 (12-45 tokens) and their config."""
+    from go_pocket_tts_tpu_torch.runtime import GenerateConfig
 
     rng = np.random.RandomState(SEED + 4)
     requests = [rng.randint(0, arch.n_bins, size=n).tolist() for n in rng.randint(12, 46, size=16)]
-    cfg = GenerateConfig(temperature=0.7, eos_threshold=1e9)
+    return requests, GenerateConfig(temperature=0.7, eos_threshold=1e9)
+
+
+def batched_serving(model, arch, counts: dict) -> float:
+    """Phase 5; returns the int8-KV run's aggregate x real time."""
+    from go_pocket_tts_tpu_torch.parallel import ContinuousBatcher
+
+    requests, cfg = serving_requests(arch)
+    x_int8 = None
     for kv_quantize, reqs in ((True, requests), (False, requests[:4])):
         attention = "batched_decode_attention_int8" if kv_quantize else "batched_decode_attention"
         what = f"batcher slots=8 int8 weights, {'int8' if kv_quantize else 'bf16'} KV cache"
-        t = time.perf_counter()
         batcher = ContinuousBatcher(
             model, slots=8, prompt_capacity=128, max_frames=256, dtype=torch.bfloat16, seed=SEED,
             steps_per_sync=8, steps_per_sync_burst=64, quantize=True, kv_quantize=kv_quantize, device="cuda",
         )
         batcher.start()
         try:
-            batcher.generate(requests[0], cfg, timeout=300)  # warm-up
-            print(f"  {what}: built and warmed up in {time.perf_counter() - t:.1f} s")
-            torch.cuda.synchronize()
-            kernels.reset_launches()
-            t = time.perf_counter()
-            futs = [batcher.submit(tokens, cfg) for tokens in reqs]
-            outs = [f.result(timeout=600) for f in futs]
-            wall = time.perf_counter() - t
-            read_launches(f"the {what} path", (attention, "quantized_matmul", "fused_seanet_up_tail"), counts)
+            x_real = serve_requests(batcher, reqs, cfg, what, (attention, "quantized_matmul", "fused_seanet_up_tail"), counts)
         finally:
             batcher.stop()
-        for i, (tokens, audio) in enumerate(zip(reqs, outs)):
-            check_audio(audio, estimate_max_frames(len(tokens)), f"{what} request {i}")
-        secs = sum(len(a) for a in outs) / 24000
-        print(
-            f"  {what}: {len(reqs)} requests of {min(map(len, reqs))}-{max(map(len, reqs))} tokens, "
-            f"{secs:.2f} s of audio in {wall * 1e3:.1f} ms wall: x{secs / wall:.2f} real time aggregate  [{CARD}]"
-        )
+        x_int8 = x_real if kv_quantize else x_int8
         del batcher
     torch.cuda.empty_cache()
+    return x_int8
 
 
 def plain_versions():
@@ -468,6 +545,7 @@ def plain_versions():
     model code reads at call time); returns the undo function."""
     from go_pocket_tts_tpu_torch.kernels import batched_decode_attention as bda
     from go_pocket_tts_tpu_torch.kernels import decode_attention as da
+    from go_pocket_tts_tpu_torch.kernels import int4_matmul as i4mm
     from go_pocket_tts_tpu_torch.kernels import quantized_matmul as qmm
     from go_pocket_tts_tpu_torch.kernels import seanet_tail as st
 
@@ -478,6 +556,7 @@ def plain_versions():
         (bda, "batched_decode_attention", bda.batched_decode_attention_plain),
         (bda, "batched_decode_attention_int8", bda.batched_decode_attention_int8_plain),
         (qmm, "quantized_matmul", qmm.quantized_matmul_plain),
+        (i4mm, "int4_matmul", i4mm.int4_matmul_plain),
     ]
     originals = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in saved]
     for mod, attr, plain in saved:
@@ -513,38 +592,169 @@ def f32_parity(model, arch) -> None:
     rms_check(a, b, "f32 real_arch, 40 frames, kernels - plain")
 
 
-def f32_batched_parity(model, arch) -> None:
-    from go_pocket_tts_tpu_torch.parallel import ContinuousBatcher
-    from go_pocket_tts_tpu_torch.runtime import GenerateConfig, GPURuntime
+def parity_requests(arch):
+    """A 20-token request, a neighbour lane of 33 tokens at another offset,
+    40 frames at temperature 0."""
+    from go_pocket_tts_tpu_torch.runtime import GenerateConfig
 
     rng = np.random.RandomState(SEED + 2)
     tokens = rng.randint(0, arch.n_bins, size=20).tolist()
-    other = rng.randint(0, arch.n_bins, size=33).tolist()  # a neighbour lane at another offset
-    cfg = GenerateConfig(temperature=0.0, eos_threshold=1e9, max_steps=40)
+    other = rng.randint(0, arch.n_bins, size=33).tolist()
+    return tokens, other, GenerateConfig(temperature=0.0, eos_threshold=1e9, max_steps=40)
 
-    def serve(**kw):
-        batcher = ContinuousBatcher(
-            model, slots=8, prompt_capacity=128, max_frames=256, dtype=torch.float32, seed=SEED, device="cuda", **kw
-        )
-        batcher.start()
-        try:
-            futs = [batcher.submit(tokens, cfg), batcher.submit(other, cfg)]
-            out = futs[0].result(timeout=300)
-            futs[1].result(timeout=300)
-        finally:
-            batcher.stop()
-        check_audio(out, 40, f"f32 batcher {kw}")
-        return out
 
+def serve_f32(model, arch, **kw) -> np.ndarray:
+    """The parity request served next to its neighbour by a float32 8-slot
+    batcher with the knobs ``kw``; returns the parity request's audio."""
+    from go_pocket_tts_tpu_torch.parallel import ContinuousBatcher
+
+    tokens, other, cfg = parity_requests(arch)
+    batcher = ContinuousBatcher(
+        model, slots=8, prompt_capacity=128, max_frames=256, dtype=torch.float32, seed=SEED, device="cuda", **kw
+    )
+    batcher.start()
+    try:
+        futs = [batcher.submit(tokens, cfg), batcher.submit(other, cfg)]
+        out = futs[0].result(timeout=300)
+        futs[1].result(timeout=300)
+    finally:
+        batcher.stop()
+    check_audio(out, 40, f"f32 batcher {kw}")
+    return out
+
+
+def f32_batched_parity(model, arch) -> None:
+    from go_pocket_tts_tpu_torch.runtime import GPURuntime
+
+    tokens, _, cfg = parity_requests(arch)
     single = GPURuntime(model, dtype=torch.float32, seed=SEED, device="cuda").generate_audio(tokens, cfg)
-    rms_check(serve(), single, "f32 real_arch, 40 frames, batcher - single runtime")
-    q_kernels = serve(quantize=True, kv_quantize=True)
+    rms_check(serve_f32(model, arch), single, "f32 real_arch, 40 frames, batcher - single runtime")
+    q_kernels = serve_f32(model, arch, quantize=True, kv_quantize=True)
     undo = plain_versions()
     try:
-        q_plain = serve(quantize=True, kv_quantize=True)
+        q_plain = serve_f32(model, arch, quantize=True, kv_quantize=True)
     finally:
         undo()
     rms_check(q_kernels, q_plain, "f32 real_arch, 40 frames, int8 weights + int8 KV batcher, kernels - plain")
+
+
+def _assert_same_tree(got, want, what: str) -> int:
+    """Leaf for leaf the same dtype and values (RoPE tables, rebuilt by
+    torch's CPU cos, within 1e-5); returns the number of packed int4
+    leaves."""
+    from go_pocket_tts_tpu_torch.models.params import tree_map
+
+    def leaves(tree):
+        out = {}
+        tree_map(lambda path, leaf: out.__setitem__(".".join(path), leaf), tree)
+        return out
+
+    a, b = leaves(got), leaves(want)
+    if set(a) != set(b):
+        fail(f"{what}: leaves differ: {sorted(set(a) ^ set(b))[:6]}")
+    for name, x in a.items():
+        y = b[name]
+        same = x.dtype == y.dtype and x.shape == y.shape and (
+            bool(((x - y).abs() <= 1e-5).all()) if "rope_" in name else torch.equal(x, y)
+        )
+        if not same:
+            fail(f"{what}: leaf {name} differs ({x.dtype} {tuple(x.shape)} vs {y.dtype} {tuple(y.shape)})")
+    return sum(x.dtype == torch.uint8 for x in a.values())
+
+
+def int4_serving(model32, arch, counts: dict, x_int8: float):
+    """Phase 7; returns the artifact loaded in float32 for phase 8."""
+    from go_pocket_tts_tpu_torch import kernels
+    from go_pocket_tts_tpu_torch.kernels import batched_decode_attention as bda
+    from go_pocket_tts_tpu_torch.kernels import int4_matmul as i4mm
+    from go_pocket_tts_tpu_torch.model_assets.quantize_export import build_quantized_checkpoint
+    from go_pocket_tts_tpu_torch.models.model import load_model
+    from go_pocket_tts_tpu_torch.models.quantize import model_quantized_bits, quantize_model_params
+    from go_pocket_tts_tpu_torch.parallel import ContinuousBatcher
+    from go_pocket_tts_tpu_torch.runtime import GenerateConfig, GPURuntime
+    from go_pocket_tts_tpu_torch.runtime.generate import estimate_max_frames
+    from go_pocket_tts_tpu_torch.utils.safetensors import read_header_metadata, write_file
+
+    _, tensors = checkpoint()
+    t = time.perf_counter()
+    q_tensors, meta, quantized = build_quantized_checkpoint(tensors, 4, num_heads=arch.num_heads)
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        path = os.path.join(tmp, "int4.safetensors")
+        write_file(path, q_tensors, metadata=meta)
+        size = os.path.getsize(path)
+        stamp = read_header_metadata(path).get("pockettts.quantize")
+        model4_f32 = load_model(path, num_heads=arch.num_heads, device="cuda", dtype=torch.float32)
+        model4 = load_model(path, num_heads=arch.num_heads, device="cuda", dtype=torch.bfloat16)
+    print(
+        f"  exported {len(quantized)} linears as int4 ({stamp}), {size / 1e6:.1f} MB written "
+        f"({sum(a.nbytes for a in tensors.values()) / 1e6:.1f} MB float32 source), loaded twice, "
+        f"in {time.perf_counter() - t:.1f} s"
+    )
+    if stamp != "int4-g128" or model_quantized_bits(model4.params) != 4:
+        fail(f"int4 artifact: stamp {stamp!r}, bits {model_quantized_bits(model4.params)}")
+    with torch.no_grad():
+        n_packed = _assert_same_tree(
+            model4_f32.params, quantize_model_params(model32.params, bits=4), "int4 artifact vs quantize_model_params"
+        )
+    print(f"  artifact tree leaf-equal to quantize_model_params(bits=4) of the float32 model ({n_packed} packed leaves)")
+
+    requests, cfg = serving_requests(arch)
+    batcher = ContinuousBatcher(
+        model4, slots=8, prompt_capacity=128, max_frames=256, dtype=torch.bfloat16, seed=SEED,
+        steps_per_sync=8, steps_per_sync_burst=64, kv_quantize=True, device="cuda",
+    )
+    batcher.start()
+    try:
+        what = "batcher slots=8 int4 weights (artifact), int8 KV cache"
+        must = ("int4_matmul", "batched_decode_attention_int8", "fused_seanet_up_tail")
+        x_int4 = serve_requests(batcher, requests, cfg, what, must, counts)
+    finally:
+        batcher.stop()
+    # Kernel 4 runs once per layer of every batched AR step and nowhere else;
+    # every AR step makes 38 int4 launches (in_proj, out_proj, linear1 and
+    # linear2 of 6 layers; cond_embed, mlp0 and mlp2 of 6 res blocks; the
+    # fused adaLN), and a one-lane admission prefill, whose M is its prompt
+    # bucket (16-64 rows), makes 24 more (the 6 layers' 4 linears).
+    steps = bda.batched_decode_attention_int8.launches // arch.num_layers
+    extra = i4mm.int4_matmul.launches - 38 * steps
+    print(
+        f"  int4 x{x_int4:.2f} real time aggregate against int8 x{x_int8:.2f} (phase 5); {steps} batched AR "
+        f"steps: int4_matmul {i4mm.int4_matmul.launches} launches = 38 x {steps} + 24 x {extra // 24} "
+        f"(one-lane admission prefills)  [{CARD}]"
+    )
+    if extra < 0 or extra % 24:
+        fail(f"int4 batcher: {i4mm.int4_matmul.launches} int4_matmul launches over {steps} AR steps")
+    del batcher
+
+    rt = GPURuntime(model4, dtype=torch.bfloat16, seed=SEED, device="cuda")
+    tokens = requests[0]
+    rt.generate_audio(tokens[:12], GenerateConfig(temperature=0.7, eos_threshold=1e9))  # warm-up
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    audio = rt.generate_audio(tokens, cfg)
+    wall = time.perf_counter() - t
+    check_audio(audio, estimate_max_frames(len(tokens)), "int4 single runtime")
+    print(
+        f"  GPURuntime on the int4 artifact: {len(tokens)} tokens, {len(audio) / 24000:.2f} s of audio "
+        f"in {wall * 1e3:.1f} ms: x{len(audio) / 24000 / wall:.2f} real time  [{CARD}]"
+    )
+    read_launches("the int4 single-utterance path", ("decode_attention_step", "int4_matmul", "fused_seanet_up_tail"), counts)
+    del rt, model4
+    torch.cuda.empty_cache()
+    return model4_f32
+
+
+def f32_int4_parity(model4_f32, arch) -> None:
+    q_kernels = serve_f32(model4_f32, arch, kv_quantize=True)
+    undo = plain_versions()
+    try:
+        q_plain = serve_f32(model4_f32, arch, kv_quantize=True)
+    finally:
+        undo()
+    rms_check(q_kernels, q_plain, "f32 real_arch, 40 frames, int4 weights + int8 KV batcher, kernels - plain")
 
 
 def main() -> int:
@@ -585,6 +795,7 @@ def main() -> int:
     check_seanet(rows)
     check_batched_decode_attention(rows)
     check_quantized_matmul(rows)
+    check_int4_matmul(rows)
 
     t = time.perf_counter()
     arch, model = build_model(torch.bfloat16)
@@ -597,12 +808,18 @@ def main() -> int:
     f32_parity(model32, arch)
 
     print("phase 5: batched serving (real_arch, bfloat16, int8 weights)")
-    batched_serving(model, arch, counts)
+    x_int8 = batched_serving(model, arch, counts)
     del model
     torch.cuda.empty_cache()
 
     print("phase 6: float32 batcher against the single runtime and against plain versions")
     f32_batched_parity(model32, arch)
+
+    print("phase 7: int4 serving from an exported artifact (real_arch, bfloat16)")
+    model4_f32 = int4_serving(model32, arch, counts, x_int8)
+
+    print("phase 8: float32 int4 + int8-KV batcher, kernels against plain versions")
+    f32_int4_parity(model4_f32, arch)
 
     for name, row in rows.items():
         row["launches"] = counts.get(name, 0)

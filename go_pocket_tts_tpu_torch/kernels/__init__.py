@@ -10,6 +10,7 @@ seanet_tail.fused_seanet_tail                      seanet_tail.py: fused_seanet_
 batched_decode_attention.batched_decode_attention  batched_decode_attention.py (float caches)
 batched_decode_attention.batched_decode_attention_int8  batched_decode_attention.py (int8 caches)
 quantized_matmul.quantized_matmul                  quantized_matmul.py: quantized_matmul
+int4_matmul.int4_matmul                            int4_matmul.py: int4_matmul
 =================================================  ===========================================
 
 Each wrapper runs its plain PyTorch version for CPU tensors and launches its
@@ -19,6 +20,7 @@ kernel for CUDA tensors (or raises), counting launches in ``.launches``.
 from go_pocket_tts_tpu_torch.kernels import (
     batched_decode_attention,
     decode_attention,
+    int4_matmul,
     quantized_matmul,
     seanet_tail,
 )
@@ -30,6 +32,7 @@ WRAPPERS = (
     batched_decode_attention.batched_decode_attention,
     batched_decode_attention.batched_decode_attention_int8,
     quantized_matmul.quantized_matmul,
+    int4_matmul.int4_matmul,
 )
 
 # Per wrapper (same order): its CUDA source and the TPU kernel it replaces.
@@ -58,6 +61,10 @@ META = (
         "source": "go_pocket_tts_tpu_torch/csrc/quantized_matmul.cu",
         "replaces": "go_pocket_tts_tpu/ops/pallas/quantized_matmul.py:50",
     },
+    {
+        "source": "go_pocket_tts_tpu_torch/csrc/int4_matmul.cu",
+        "replaces": "go_pocket_tts_tpu/ops/pallas/int4_matmul.py:99",
+    },
 )
 
 
@@ -70,6 +77,7 @@ def reset_launches() -> None:
 __all__ = [
     "batched_decode_attention",
     "decode_attention",
+    "int4_matmul",
     "quantized_matmul",
     "seanet_tail",
     "WRAPPERS",

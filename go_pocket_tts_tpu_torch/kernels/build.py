@@ -25,7 +25,7 @@ __all__ = ["SOURCES", "NVCC_FLAGS", "build_all", "library", "build_log"]
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("decode_attention", "seanet_tail", "batched_decode_attention", "quantized_matmul")
+SOURCES = ("decode_attention", "seanet_tail", "batched_decode_attention", "quantized_matmul", "int4_matmul")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

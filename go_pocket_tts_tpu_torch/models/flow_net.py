@@ -115,10 +115,14 @@ def precompute_fused_adaln(params: Params) -> Params:
     layer's into one ``[flow_dim, (3·n_blocks+2)·flow_dim]`` weight: all of
     them read the same ``silu(y)``, so each step makes one matmul of them.
 
-    Int8 sources concatenate as int8 with their scales; if only some are
-    quantized, those are dequantized and the concat is float."""
+    Sources of one quantized form (same weight dtype and scale rank)
+    concatenate quantized, weights along the output dim and scales along
+    their last axis (``[N]`` int8, ``[G, N]`` group-wise int4); otherwise
+    the quantized ones are dequantized and the concat is float."""
     sources = [rb["adaln"] for rb in params["res_blocks"]] + [params["final_adaln"]]
-    quantized = all(is_quantized(src) for src in sources)
+    quantized = all(is_quantized(src) for src in sources) and (
+        len({(src["w"].dtype, src["scale"].ndim) for src in sources}) == 1
+    )
     ws = [
         dequantize_weight(src) if is_quantized(src) and not quantized else src["w"]
         for src in sources
@@ -132,7 +136,7 @@ def precompute_fused_adaln(params: Params) -> Params:
     )
     fused = {"w": w, "b": b}
     if quantized:
-        fused["scale"] = torch.cat([src["scale"] for src in sources])
+        fused["scale"] = torch.cat([src["scale"] for src in sources], dim=-1)
     return fused
 
 

@@ -18,17 +18,18 @@ from go_pocket_tts_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from go_pocket_tts_tpu_torch.models import flow_lm as flm
 from go_pocket_tts_tpu_torch.models import mimi as mimi_mod
 from go_pocket_tts_tpu_torch.models.params import VarBuilder, tree_map
+from go_pocket_tts_tpu_torch.utils.safetensors import load_file
 
-__all__ = ["ModelConfig", "PocketTTSModel", "load_model_from_tensors", "cast_params", "KEEP_F32"]
+__all__ = ["ModelConfig", "PocketTTSModel", "load_model", "load_model_from_tensors", "cast_params", "KEEP_F32"]
 
 Params = Dict
 
 # Leaves (by key) and subtrees kept float32 when the model is cast: the RoPE
-# tables, the per-column scales of int8 linears (the reference's ``astype``
-# keeps them float32 too), and the fused latent→mimi projector, which the
-# decode casts to the activation type where it reads it (the same values the
-# reference gets by casting it at load). Integer leaves (int8 weights) are
-# never cast.
+# tables, the scales of quantized linears (``[N]`` int8, ``[G, N]`` or
+# ``[N]`` int4; the reference's ``astype`` keeps them float32 too), and the
+# fused latent→mimi projector, which the decode casts to the activation type
+# where it reads it (the same values the reference gets by casting it at
+# load). Integer leaves (int8 and packed int4 weights) are never cast.
 KEEP_F32 = ("rope_cos", "rope_sin", "scale", "latent_to_mimi")
 
 
@@ -126,3 +127,16 @@ def load_model_from_tensors(
     if fused is not None:
         params["latent_to_mimi"] = fused
     return PocketTTSModel(cast_params(params, dev, dtype), ModelConfig(flow_lm=flow_cfg, mimi=mimi_cfg))
+
+
+def load_model(
+    path: str,
+    num_heads: int = 16,
+    device: Union[str, torch.device] = DEFAULT_DEVICE,
+    dtype: torch.dtype = torch.float32,
+) -> PocketTTSModel:
+    """Load a safetensors checkpoint, float or pre-quantized (int8 / packed
+    int4 linears, written by ``model_assets.quantize_export``), on
+    ``device`` in ``dtype``."""
+    dev = resolve_device(device)
+    return load_model_from_tensors(load_file(path), num_heads=num_heads, device=dev, dtype=dtype)

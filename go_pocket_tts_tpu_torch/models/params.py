@@ -1,7 +1,7 @@
 """Parameter-tree helpers: a dotted-prefix VarBuilder over a name → array
-mapping, and the linear layer (counterpart of
-``go_pocket_tts_tpu/models/params.py``: float32/bfloat16 and int8
-weight-only linears; the packed int4 form is not ported yet).
+mapping, the checkpoint loader of linear layers (float, or pre-quantized
+int8 / packed int4), and the linear layer itself (counterpart of
+``go_pocket_tts_tpu/models/params.py``).
 
 Parameters are nested dicts of tensors with the reference package's keys,
 so a tree from either package can be compared leaf by leaf.
@@ -9,17 +9,21 @@ so a tree from either package can be compared leaf by leaf.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Tuple
+import contextlib
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
+from go_pocket_tts_tpu_torch.kernels import int4_matmul as i4mm
 from go_pocket_tts_tpu_torch.kernels import quantized_matmul as qmm
+from go_pocket_tts_tpu_torch.models.quantize import depack_int4_pairs
 
 __all__ = [
     "VarBuilder",
     "linear_params",
     "layer_norm_params",
+    "record_linear_weight_names",
     "apply_linear",
     "tree_map",
 ]
@@ -68,24 +72,71 @@ class VarBuilder:
     def tensor_maybe(self, name: str) -> Optional[torch.Tensor]:
         return self.tensor(name) if self.has(name) else None
 
+    def raw(self, name: str) -> np.ndarray:
+        """The stored array as it is (int8 and uint8 stay integers)."""
+        return np.asarray(self._require(name))
+
+
+# While set (by record_linear_weight_names), every linear_params call appends
+# the full checkpoint name of its weight: the exporter quantizes exactly the
+# tensors the loader treats as linears, the loader being the ground truth.
+_LINEAR_NAMES_RECORDER: Optional[List[str]] = None
+
+
+@contextlib.contextmanager
+def record_linear_weight_names():
+    global _LINEAR_NAMES_RECORDER
+    prev = _LINEAR_NAMES_RECORDER
+    names: List[str] = []
+    _LINEAR_NAMES_RECORDER = names
+    try:
+        yield names
+    finally:
+        _LINEAR_NAMES_RECORDER = prev
+
+
+def _bias(vb: VarBuilder, name: str, out_dim: int) -> Optional[torch.Tensor]:
+    b = vb.tensor_maybe(name + ".bias")
+    if b is not None and tuple(b.shape) != (out_dim,):
+        raise ValueError(f"linear {name!r} bias shape {tuple(b.shape)} incompatible with out dim {out_dim}")
+    return b
+
+
+def _prequantized_linear_params(vb: VarBuilder, name: str, with_bias: bool) -> Params:
+    """A linear of a pre-quantized checkpoint: ``weight`` int8 ``[out, in]``
+    or packed uint8 ``[out, in/2]`` (nibbles paired along ``in``) and
+    ``weight_scale`` float32 in the runtime orientation (``[out]``, or
+    ``[G, out]`` for group-wise int4). The packed buffer transposes straight
+    into ``pack_int4_rows``' ``[in/2, out]`` form: same bytes, no nibble
+    surgery."""
+    w = torch.from_numpy(np.ascontiguousarray(vb.raw(name + ".weight").T))
+    scale = torch.from_numpy(np.ascontiguousarray(vb.raw(name + ".weight_scale"), dtype=np.float32))
+    out_dim = w.shape[1]
+    if scale.shape[-1] != out_dim:
+        raise ValueError(f"linear {name!r}: scale shape {tuple(scale.shape)} incompatible with out dim {out_dim}")
+    params = {"w": w, "scale": scale}
+    b = _bias(vb, name, out_dim) if with_bias else None
+    if b is not None:
+        params["b"] = b
+    return params
+
 
 def linear_params(vb: VarBuilder, name: str, with_bias: bool) -> Params:
     """Torch-layout linear (weight ``[out, in]``, optional bias), stored
     transposed to ``[in, out]`` as the reference does, so the forward is
-    ``x @ w``."""
+    ``x @ w``. A weight stored as int8 or uint8 (a pre-quantized
+    checkpoint) loads straight into the quantized form."""
+    if _LINEAR_NAMES_RECORDER is not None:
+        _LINEAR_NAMES_RECORDER.append(vb.full_name(name + ".weight"))
+    if vb.has(name + ".weight") and vb.raw(name + ".weight").dtype in (np.int8, np.uint8):
+        return _prequantized_linear_params(vb, name, with_bias)
     w = vb.tensor(name + ".weight")
     if w.ndim != 2:
         raise ValueError(f"linear {name!r} weight must be rank-2, got {tuple(w.shape)}")
     params = {"w": w.T.contiguous()}
-    if with_bias:
-        b = vb.tensor_maybe(name + ".bias")
-        if b is not None:
-            if tuple(b.shape) != (w.shape[0],):
-                raise ValueError(
-                    f"linear {name!r} bias shape {tuple(b.shape)} incompatible with "
-                    f"weight {tuple(w.shape)}"
-                )
-            params["b"] = b
+    b = _bias(vb, name, w.shape[0]) if with_bias else None
+    if b is not None:
+        params["b"] = b
     return params
 
 
@@ -93,25 +144,50 @@ def layer_norm_params(vb: VarBuilder, name: str) -> Params:
     return {"weight": vb.tensor(name + ".weight"), "bias": vb.tensor(name + ".bias")}
 
 
+def _int4_product(x2: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``x2 [M, K]`` times a packed int4 linear, float32: through the int4
+    kernel where its gate admits the shape, else what the reference's
+    default ``"split"`` variant computes — per-group float32 partials times
+    ``scale [G, N]``, summed (the kernel's plain version), or for
+    per-channel int4 the paired product times ``scale [N]``."""
+    m, k = x2.shape
+    n = w.shape[1]
+    if i4mm.supports(m, k, n, tuple(scale.shape)):
+        return i4mm.int4_matmul(x2, w, scale)
+    if scale.ndim == 2:
+        return i4mm.int4_matmul_plain(x2, w, scale)
+    return torch.matmul(x2.float(), depack_int4_pairs(w).reshape(k, n).float()) * scale.float()
+
+
 def apply_linear(params: Params, x: torch.Tensor) -> torch.Tensor:
     """``y = x @ w (+ b)`` in the activation dtype, float32 accumulation.
 
-    An int8 weight-only linear (``models/quantize.py``: int8 ``w``, float32
-    per-column ``scale``) computes ``(x @ w) * scale`` in float32: through
-    the quantized-matmul kernel where its gate admits the shape (the AR
-    step's skinny products), else as a plain product of the widened weight
-    (prefill, and the narrow input/EOS/flowNet-output linears), where the
-    reference takes XLA's mixed-dtype dot. The bias adds after the scale.
+    Quantized linears (``models/quantize.py``) are told apart by the weight's
+    dtype, and compute in float32 with the scale applied to the product:
+    - int8 ``w``, ``scale [N]``: ``(x @ w) * scale``, through the
+      quantized-matmul kernel where its gate admits the shape (the AR step's
+      skinny products), else as a plain product of the widened weight
+      (prefill, and the narrow input/EOS/flowNet-output linears), where the
+      reference takes XLA's mixed-dtype dot;
+    - packed int4 ``w`` (uint8), ``scale [G, N]`` or ``[N]``: see
+      :func:`_int4_product`.
+    The result is cast to the activation dtype, then the bias is added in it.
     """
     w = params["w"]
-    if w.dtype == torch.int8 and "scale" in params:
+    if w.dtype in (torch.int8, torch.uint8):
+        if "scale" not in params:
+            raise ValueError(f"linear weight of dtype {w.dtype} without a scale")
         lead, k, n = x.shape[:-1], x.shape[-1], w.shape[1]
         m = x.numel() // k
-        if qmm.supports(m, k, n):
-            y = qmm.quantized_matmul(x.reshape(m, k), w, params["scale"]).reshape(*lead, n)
+        x2 = x.reshape(m, k)
+        scale = params["scale"]
+        if w.dtype == torch.uint8:
+            y = _int4_product(x2, w, scale)
+        elif qmm.supports(m, k, n):
+            y = qmm.quantized_matmul(x2, w, scale)
         else:
-            y = torch.matmul(x.float(), w.float()) * params["scale"].float()
-        y = y.to(x.dtype)
+            y = torch.matmul(x2.float(), w.float()) * scale.float()
+        y = y.reshape(*lead, n).to(x.dtype)
     else:
         y = torch.matmul(x, w.to(x.dtype))
     if "b" in params:

@@ -28,7 +28,7 @@ the batcher owns, drawn per block on the device (JAX's threefry bits cannot
 be reproduced, so the two packages agree at temperature 0 only).
 
 Not ported yet (ROADMAP.md): streaming lanes (``submit_stream``),
-sessions, ``prewarm``, dp/tp meshes, voice conditioning, int4 weights.
+sessions, ``prewarm``, dp/tp meshes, voice conditioning.
 """
 
 from __future__ import annotations
@@ -280,8 +280,10 @@ class ContinuousBatcher:
     ``submit`` is thread-safe and returns a Future resolving to float32 PCM
     at 24 kHz. ``device`` defaults to ``"cuda"`` and raises on a host
     without CUDA; ``device="cpu"`` runs the kernels' plain versions there.
-    ``quantize=True`` (or 8) runs every linear with int8 weights;
-    ``kv_quantize`` keeps the KV cache in int8 with per-row scales.
+    ``quantize=True`` (or 8) runs every linear with int8 weights,
+    ``quantize=4`` with packed group-wise int4 weights (a model loaded from a
+    pre-quantized checkpoint runs quantized as it is); ``kv_quantize`` keeps
+    the KV cache in int8 with per-row scales.
     """
 
     def __init__(

@@ -106,9 +106,10 @@ def decode_pcm16(
 
 
 def quantized_model(model: PocketTTSModel, quantize: Union[bool, int]) -> PocketTTSModel:
-    """``model`` with every linear int8 weight-only quantized when
-    ``quantize`` is True or 8; unchanged when it is False. (4 raises: int4
-    is not ported yet.)"""
+    """``model`` with every float linear weight-only quantized: int8 when
+    ``quantize`` is True or 8, packed int4 when it is 4; unchanged when it
+    is False. Linears that are already quantized (a pre-quantized
+    checkpoint) stay as they are, so on such a tree this is a no-op."""
     if not quantize:
         return model
     bits = 8 if quantize is True else int(quantize)
@@ -122,8 +123,11 @@ class GPURuntime:
     pass ``device="cpu"`` to run the plain PyTorch versions of the kernels
     there. ``dtype`` is ``torch.float32`` (the parity path) or
     ``torch.bfloat16``. ``quantize=True`` (or 8) runs every linear with int8
-    weights (``models/quantize.py``), as ``TPURuntime(quantize=True)`` does;
-    the AR step's linears then go through the quantized-matmul kernel.
+    weights and ``quantize=4`` with packed group-wise int4 weights
+    (``models/quantize.py``), as ``TPURuntime(quantize=...)`` does; the AR
+    step's linears then go through the quantized-matmul or the int4-matmul
+    kernel. A model loaded from a pre-quantized checkpoint runs quantized
+    as it is.
     Randomness comes from a ``torch.Generator`` seeded with ``seed``; each
     request draws its own seed from it, so a request's noise does not depend
     on how many steps earlier requests ran.

@@ -1,11 +1,12 @@
 """Where the time of one batched AR step goes in the port's continuous
 batcher.
 
-    python3 scripts/torch_profile_batched.py [--slots 8] [--steps 64] [--no-quantize] [--no-kv-quantize]
+    python3 scripts/torch_profile_batched.py [--slots 8] [--steps 64] [--quantize 8|4|0] [--no-kv-quantize]
 
 Needs one CUDA card. Builds ``real_arch()`` synthetic weights (bfloat16)
 from a seed and a ``ContinuousBatcher`` at the serving configuration (int8
-weights, int8 KV cache unless switched off), admits one request into every
+weights, or packed int4 with ``--quantize 4``, or bfloat16 with
+``--quantize 0``; an int8 KV cache unless switched off), admits one request into every
 slot (prompts of 12-45 tokens, as ``chip_smoke.py`` sends), and then drives
 the engine's AR block (``_batched_ar_multi_step``) by hand, without its
 thread:
@@ -44,7 +45,7 @@ def main() -> int:
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--steps", type=int, default=64)
     ap.add_argument("--seed", type=int, default=1234)
-    ap.add_argument("--no-quantize", action="store_true")
+    ap.add_argument("--quantize", type=int, choices=(8, 4, 0), default=8, help="weight bits; 0 keeps bfloat16")
     ap.add_argument("--no-kv-quantize", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -60,7 +61,7 @@ def main() -> int:
     )
     batcher = ContinuousBatcher(
         model, slots=args.slots, prompt_capacity=128, max_frames=256, dtype=torch.bfloat16, seed=args.seed,
-        steps_per_sync=8, steps_per_sync_burst=64, quantize=not args.no_quantize,
+        steps_per_sync=8, steps_per_sync_burst=64, quantize=args.quantize,
         kv_quantize=not args.no_kv_quantize, device="cuda",
     )
     rng = np.random.RandomState(args.seed)
@@ -86,7 +87,7 @@ def main() -> int:
         t2 = time.perf_counter()
         ms = (t2 - t0) * 1e3 / args.steps
         enqueue = (t1 - t0) * 1e3 / args.steps
-        knobs = f"slots={args.slots} quantize={not args.no_quantize} kv_quantize={not args.no_kv_quantize}"
+        knobs = f"slots={args.slots} quantize={args.quantize} kv_quantize={not args.no_kv_quantize}"
         print(f"{knobs}: wall {ms:.3f} ms/step (host enqueue {enqueue:.3f} ms/step) over {args.steps} steps  [{card}]")
 
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]

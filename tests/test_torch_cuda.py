@@ -18,11 +18,12 @@ import torch
 from go_pocket_tts_tpu_torch import kernels
 from go_pocket_tts_tpu_torch.kernels import batched_decode_attention as bda
 from go_pocket_tts_tpu_torch.kernels import decode_attention as da
+from go_pocket_tts_tpu_torch.kernels import int4_matmul as i4mm
 from go_pocket_tts_tpu_torch.kernels import quantized_matmul as qmm
 from go_pocket_tts_tpu_torch.kernels import seanet_tail as st
 from go_pocket_tts_tpu_torch.models import synthetic
 from go_pocket_tts_tpu_torch.models.model import load_model_from_tensors
-from go_pocket_tts_tpu_torch.models.quantize import quantize_kv_rows
+from go_pocket_tts_tpu_torch.models.quantize import quantize_kv_rows, quantize_linear
 from go_pocket_tts_tpu_torch.ops import build_rope_tables, repack_conv_transpose_kernel
 from go_pocket_tts_tpu_torch.runtime import GenerateConfig, GPURuntime
 
@@ -103,6 +104,47 @@ def test_quantized_matmul_kernel(card, dtype, m, k, n):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "m,k,n", [(1, 1024, 3072), (8, 1024, 4096), (8, 4096, 1024), (64, 512, 10240), (13, 1024, 1024), (8, 384, 768)]
+)
+def test_int4_matmul_kernel(card, dtype, m, k, n):
+    gen = torch.Generator(device=card).manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=gen, device=card).to(dtype)
+    lin = quantize_linear({"w": torch.randn((k, n), generator=gen, device=card) / k**0.5}, bits=4)
+    assert lin["w"].dtype == torch.uint8 and lin["scale"].shape == (k // 128, n)
+    before = i4mm.int4_matmul.launches
+    got = i4mm.int4_matmul(x, lin["w"], lin["scale"])
+    want = i4mm.int4_matmul_plain(x, lin["w"], lin["scale"])
+    torch.cuda.synchronize()
+    assert i4mm.int4_matmul.launches == before + 1 and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)  # f32 sums, another order
+
+
+def test_int4_matmul_kernel_decodes_every_code(card):
+    """All 256 bytes, both nibbles over -8..7 (an artifact may hold -8),
+    against the plain version, with group scales that differ per group."""
+    packed = torch.arange(256, dtype=torch.uint8, device=card).reshape(64, 4).repeat(2, 64)  # [128, 256]
+    scale = torch.tensor([[0.5], [2.0]], device=card).expand(2, 256).contiguous()
+    x = torch.randn((8, 256), generator=torch.Generator(device=card).manual_seed(3), device=card)
+    got = i4mm.int4_matmul(x, packed, scale)
+    torch.testing.assert_close(got, i4mm.int4_matmul_plain(x, packed, scale), atol=2e-4, rtol=2e-4)
+
+
+def test_int4_matmul_raises_outside_its_gate(card):
+    x = torch.zeros((8, 256), device=card)
+    w = torch.zeros((128, 512), dtype=torch.uint8, device=card)
+    with pytest.raises(ValueError, match="gate"):
+        i4mm.int4_matmul(x, w, torch.ones((512,), device=card))  # per-channel int4
+    with pytest.raises(ValueError, match="gate"):
+        i4mm.int4_matmul(torch.zeros((65, 256), device=card), w, torch.ones((2, 512), device=card))
+    with pytest.raises(ValueError, match="aligned"):
+        buf = torch.zeros(128 * 512 + 1, dtype=torch.uint8, device=card)
+        i4mm.int4_matmul(x, buf[1:].view(128, 512), torch.ones((2, 512), device=card))
+    with pytest.raises(TypeError):
+        i4mm.int4_matmul(x.half(), w, torch.ones((2, 512), device=card))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_seanet_kernels(card, dtype):
     gen = torch.Generator(device=card).manual_seed(0)
 
@@ -167,6 +209,38 @@ def test_tiny_batcher_kernels_match_plain(card, monkeypatch):
     assert bda.batched_decode_attention_int8.launches > 0 and qmm.quantized_matmul.launches > 0
     monkeypatch.setattr(bda, "batched_decode_attention_int8", bda.batched_decode_attention_int8_plain)
     monkeypatch.setattr(qmm, "quantized_matmul", qmm.quantized_matmul_plain)
+    want = serve()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape == (8 * 1920,)
+        assert np.sqrt(np.mean((g - w) ** 2)) < 1e-3
+
+
+def test_tiny_int4_batcher_kernels_match_plain(card, monkeypatch):
+    """The batcher with int4 weights and an int8 KV cache on a tiny model
+    whose linears are group-wise and pass the int4 kernel's gate: kernel 6
+    launches, and the audio is the plain versions' within the path budget."""
+    from go_pocket_tts_tpu_torch.parallel import ContinuousBatcher
+
+    arch = dataclasses.replace(synthetic.tiny_arch(), d_model=256, num_heads=4, ffn_dim=512, flow_dim=256, flow_hidden=256)
+    model = load_model_from_tensors(synthetic.build_checkpoint(arch, seed=2), num_heads=arch.num_heads, device=card)
+    cfg = GenerateConfig(temperature=0.0, eos_threshold=1e9, max_steps=8)
+
+    def serve():
+        batcher = ContinuousBatcher(
+            model, slots=2, prompt_capacity=16, max_frames=16, seed=1, quantize=4, kv_quantize=True, device=card
+        )
+        batcher.start()
+        try:
+            futs = [batcher.submit([3, 17, 41], cfg), batcher.submit([5, 9, 2, 60, 7], cfg)]
+            return [f.result(timeout=120) for f in futs]
+        finally:
+            batcher.stop()
+
+    kernels.reset_launches()
+    got = serve()
+    assert i4mm.int4_matmul.launches > 0 and qmm.quantized_matmul.launches == 0
+    monkeypatch.setattr(bda, "batched_decode_attention_int8", bda.batched_decode_attention_int8_plain)
+    monkeypatch.setattr(i4mm, "int4_matmul", i4mm.int4_matmul_plain)
     want = serve()
     for g, w in zip(got, want):
         assert g.shape == w.shape == (8 * 1920,)

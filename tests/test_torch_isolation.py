@@ -59,9 +59,42 @@ print("NO-JAX-OK", len(audio), len(served))
 """
 
 
-def test_port_synthesizes_with_jax_blocked():
+_INT4_SCRIPT = _SCRIPT[: _SCRIPT.index("import numpy as np")] + r"""
+import dataclasses, os, tempfile
+import numpy as np
+from go_pocket_tts_tpu_torch.model_assets.quantize_export import build_quantized_checkpoint
+from go_pocket_tts_tpu_torch.models import synthetic
+from go_pocket_tts_tpu_torch.models.model import load_model
+from go_pocket_tts_tpu_torch.models.quantize import model_quantized_bits
+from go_pocket_tts_tpu_torch.parallel import ContinuousBatcher
+from go_pocket_tts_tpu_torch.runtime import GenerateConfig, GPURuntime
+from go_pocket_tts_tpu_torch.utils.safetensors import read_header_metadata, write_file
+
+arch = dataclasses.replace(synthetic.tiny_arch(), d_model=256, ffn_dim=512, flow_dim=256, flow_hidden=256)
+tensors, meta, quantized = build_quantized_checkpoint(synthetic.build_checkpoint(arch, seed=4), 4, num_heads=arch.num_heads)
+with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, "int4.safetensors")
+    write_file(path, tensors, metadata=meta)
+    assert read_header_metadata(path)["pockettts.quantize"] == "int4-g128"
+    model = load_model(path, num_heads=arch.num_heads, device="cpu")
+assert model_quantized_bits(model.params) == 4
+cfg = GenerateConfig(temperature=0.0, eos_threshold=1e9, max_steps=3)
+audio = GPURuntime(model, seed=1, frame_bucket=64, device="cpu").generate_audio([3, 17, 41], cfg)
+batcher = ContinuousBatcher(model, slots=2, prompt_capacity=16, max_frames=16, seed=1, device="cpu", kv_quantize=True)
+batcher.start()
+try:
+    served = batcher.generate([3, 17, 41], cfg)
+finally:
+    batcher.stop()
+assert audio.shape == served.shape == (3 * 1920,) and np.isfinite(served).all()
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "go_pocket_tts_tpu") for m in sys.modules)
+print("NO-JAX-INT4-OK", len(quantized))
+"""
+
+
+def _run_blocked(script: str) -> str:
     proc = subprocess.run(
-        [sys.executable, "-c", _SCRIPT],
+        [sys.executable, "-c", script],
         cwd=ROOT,
         capture_output=True,
         text=True,
@@ -69,7 +102,17 @@ def test_port_synthesizes_with_jax_blocked():
         env={**os.environ, "PYTHONPATH": str(ROOT)},
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
-    assert "NO-JAX-OK" in proc.stdout
+    return proc.stdout
+
+
+def test_port_synthesizes_with_jax_blocked():
+    assert "NO-JAX-OK" in _run_blocked(_SCRIPT)
+
+
+def test_port_serves_an_int4_artifact_with_jax_blocked():
+    """Export an int4 artifact, write it, load it and serve it on both
+    runtimes, with jax and the JAX package unimportable."""
+    assert "NO-JAX-INT4-OK" in _run_blocked(_INT4_SCRIPT)
 
 
 PORT_FILES = sorted(str(p.relative_to(ROOT)) for p in (ROOT / "go_pocket_tts_tpu_torch").rglob("*.py"))
@@ -87,7 +130,7 @@ def _imported_roots(path: Path):
 
 @pytest.mark.parametrize(
     "path",
-    PORT_FILES + ["chip_smoke.py", "scripts/torch_profile.py"],
+    PORT_FILES + ["chip_smoke.py", "scripts/torch_profile.py", "scripts/torch_profile_batched.py"],
 )
 def test_no_jax_imports(path):
     bad = [root for root in _imported_roots(ROOT / path) if root in FORBIDDEN]
@@ -96,7 +139,7 @@ def test_no_jax_imports(path):
 
 def test_scan_covers_every_port_package():
     packages = {Path(p).parts[1] for p in PORT_FILES if len(Path(p).parts) > 2}
-    assert {"kernels", "models", "ops", "parallel", "runtime", "utils"} <= packages
+    assert {"kernels", "model_assets", "models", "ops", "parallel", "runtime", "utils"} <= packages
     assert "go_pocket_tts_tpu_torch/parallel/batching.py" in PORT_FILES
 
 

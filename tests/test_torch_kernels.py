@@ -15,6 +15,8 @@ from go_pocket_tts_tpu.ops import TOLERANCES
 from go_pocket_tts_tpu.ops import build_rope_tables as j_rope_tables
 from go_pocket_tts_tpu.ops import repack_conv_transpose_kernel as j_repack
 from go_pocket_tts_tpu.models.quantize import quantize_kv_rows as j_quantize_kv_rows
+from go_pocket_tts_tpu.models.quantize import quantize_linear as j_quantize_linear
+from go_pocket_tts_tpu.ops.pallas import int4_matmul as j_i4mm
 from go_pocket_tts_tpu.ops.pallas import quantized_matmul as j_qmm
 from go_pocket_tts_tpu.ops.pallas import seanet_tail as j_st
 from go_pocket_tts_tpu.ops.pallas.batched_decode_attention import batched_decode_attention as j_bda
@@ -23,6 +25,7 @@ from go_pocket_tts_tpu_torch import kernels
 from go_pocket_tts_tpu_torch.kernels import batched_decode_attention as t_bda
 from go_pocket_tts_tpu_torch.kernels import build
 from go_pocket_tts_tpu_torch.kernels import decode_attention as t_da
+from go_pocket_tts_tpu_torch.kernels import int4_matmul as t_i4mm
 from go_pocket_tts_tpu_torch.kernels import quantized_matmul as t_qmm
 from go_pocket_tts_tpu_torch.kernels import seanet_tail as t_st
 from go_pocket_tts_tpu_torch.ops import build_rope_tables as t_rope_tables
@@ -138,6 +141,43 @@ def test_quantized_matmul_gate_matches_reference(m, k, n):
     assert t_qmm.supports(m, k, n) == j_qmm.supports(m, k, n)
 
 
+# The shapes of tests/test_pallas.py's int4 kernel test.
+@pytest.mark.parametrize("m,k,n", [(8, 256, 512), (8, 1024, 512), (4, 512, 256), (16, 384, 768), (1, 256, 256)])
+def test_int4_matmul_plain_matches_pallas(m, k, n):
+    rng = np.random.RandomState(k + n)
+    x = rng.randn(m, k).astype(np.float32)
+    q = j_quantize_linear({"w": jnp.asarray(rng.randn(k, n).astype(np.float32) / np.sqrt(k))}, bits=4)
+    w, scale = _np(q["w"]).astype(np.uint8), _np(q["scale"])
+    assert scale.shape == (k // 128, n) and t_i4mm.supports(m, k, n, scale.shape)
+    x2 = jnp.moveaxis(jnp.asarray(x).reshape(m, k // 2, 2), -1, 0)  # the reference's even/odd planes
+    want = j_i4mm.int4_matmul(x2, jnp.asarray(w), jnp.asarray(scale), interpret=True)
+    got = t_i4mm.int4_matmul(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(scale))
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=1e-4, rtol=1e-4)  # f32 sums, another order
+
+
+def test_int4_matmul_plain_decodes_every_code():
+    """Every byte (both nibbles over -8..7, the artifact's -8 included)
+    against a weight decoded by hand; one group, scale 1."""
+    packed = np.arange(256, dtype=np.uint8).reshape(64, 4).repeat(64, axis=1)  # [64, 256]
+    levels = np.empty((128, 256), np.float32)
+    levels[0::2] = (packed & 0x0F).astype(np.int8) - 16 * ((packed & 0x0F) >= 8)
+    levels[1::2] = (packed >> 4).astype(np.int8) - 16 * ((packed >> 4) >= 8)
+    assert levels.min() == -8 and levels.max() == 7
+    x = np.random.RandomState(1).randn(3, 128).astype(np.float32)
+    got = t_i4mm.int4_matmul(torch.from_numpy(x), torch.from_numpy(packed), torch.ones((1, 256)))
+    np.testing.assert_allclose(got.numpy(), x @ levels, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "m,k,n,scale_shape",
+    [(8, 256, 512, (2, 512)), (64, 1024, 4096, (8, 4096)), (65, 256, 512, (2, 512)), (8, 256, 100, (2, 100)),
+     (8, 256, 512, (512,)), (8, 512, 512, (2, 512)), (8, 100, 512, (1, 512)), (8, 128, 256, (1, 256))],
+)
+def test_int4_matmul_gate_matches_reference(m, k, n, scale_shape):
+    assert t_i4mm.supports(m, k, n, scale_shape) == j_i4mm.supports(m, k, n, scale_shape)
+
+
 def _tail_weights(rng):
     return [
         (rng.randn(*shape) * 0.1).astype(np.float32)
@@ -188,6 +228,8 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     rng_q = torch.from_numpy(rng.randn(2, 128).astype(np.float32))
     w = torch.ones((128, 256), dtype=torch.int8)
     assert torch.equal(t_qmm.quantized_matmul(rng_q, w, torch.ones(256)), t_qmm.quantized_matmul_plain(rng_q, w, torch.ones(256)))
+    w4 = torch.full((64, 256), 0x9F, dtype=torch.uint8)
+    assert torch.equal(t_i4mm.int4_matmul(rng_q, w4, torch.ones((1, 256))), t_i4mm.int4_matmul_plain(rng_q, w4, torch.ones((1, 256))))
     assert [fn.launches for fn in kernels.WRAPPERS] == [0] * len(kernels.WRAPPERS)
 
 
@@ -200,6 +242,7 @@ def test_wrappers_and_meta_line_up():
         "batched_decode_attention",
         "batched_decode_attention_int8",
         "quantized_matmul",
+        "int4_matmul",
     ]
     assert len(kernels.META) == len(kernels.WRAPPERS)
     for meta in kernels.META:

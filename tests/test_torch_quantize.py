@@ -83,11 +83,15 @@ def test_quantize_linear_matches_reference(k, n, bias):
 
 
 def test_bits_4_is_not_ported_and_other_widths_are_refused():
+    """Widths other than 8 and 4 are refused; ``bits=4`` now gives the
+    packed int4 form (``tests/test_torch_int4.py`` holds it against the
+    reference)."""
     p = {"w": torch.ones(4, 4)}
+    q4 = t_quant.quantize_linear(p, bits=4)
+    assert q4["w"].dtype == torch.uint8 and tuple(q4["w"].shape) == (2, 4)
+    assert t_quant.quantize_model_params({"lin": p}, bits=4)["lin"]["w"].dtype == torch.uint8
     for fn in (t_quant.quantize_linear, t_quant.quantize_model_params):
-        with pytest.raises(NotImplementedError, match="INT4"):
-            fn(p, bits=4)
-        with pytest.raises(ValueError):
+        with pytest.raises(ValueError, match="8 or 4"):
             fn(p, bits=6)
 
 
