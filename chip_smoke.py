@@ -35,10 +35,20 @@ failure exits non-zero:
    warm-up request; 38 int4-matmul launches per batched AR step) and by
    ``GPURuntime`` on one request;
 8. float32 int4 + int8-KV batcher, the kernels against their plain
-   versions.
+   versions;
+9. frame streaming (``real_arch()``, bfloat16): ``stream_generate`` on the
+   12-, 24- and 45-token requests of phase 3 after a warm-up, printing each
+   request's time to first audio and x real time; ``stream_generate_session``
+   over three chunks; then ``generate_audio`` with a synthetic voice
+   embedding and with a synthetic voice model state;
+10. float32 streaming: the streamed PCM against ``generate_audio`` for the
+   same seed, and the streamed path's kernels against their plain versions.
 
-Around each path of phases 3, 5 and 7 every launch count is set to 0 just
-before and read just after; each kernel that path runs must be positive.
+Phase 2 also holds the up2 kernel and the up2 -> up3 -> tail cascade (whole
+and in 16-frame blocks with a carried halo) against their plain versions at
+160 frames. Around each path of phases 3, 5, 7 and 9 every launch count is
+set to 0 just before and read just after; each kernel that path runs must
+be positive.
 The last lines are the kernel table as one JSON object, then
 ``{"ok": true, "device": {...}}``.
 """
@@ -264,6 +274,95 @@ def check_seanet(rows: dict) -> None:
                 )
 
 
+def _up2_inputs(gen, dtype):
+    """Weights of up2 + res2 and of up3 + res3 + final conv at real widths."""
+    from go_pocket_tts_tpu_torch.ops import repack_conv_transpose_kernel
+
+    def rnd(*shape, scale=0.1):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    wu2 = repack_conv_transpose_kernel(torch.randn((256, 128, 10), generator=gen, device="cuda") * 0.05).to(dtype)
+    up2 = [wu2, rnd(128), rnd(64, 128, 3), rnd(64), rnd(128, 64, 1), rnd(128)]
+    return up2, _tail_inputs(gen, dtype, up=True)
+
+
+def _up2_op_chain(x, wu, bu, w1, b1, w2, b2):
+    """What ``mimi_decode`` runs without kernel 7: convT, res2, ELU as
+    separate ops in the activation dtype."""
+    from go_pocket_tts_tpu_torch.ops import causal_conv1d, conv_transpose1d_trim, elu
+
+    y = conv_transpose1d_trim(x, wu, bu, 5)
+    h = causal_conv1d(elu(causal_conv1d(elu(y), w1, b1)), w2, b2)
+    return elu(y + h)
+
+
+def check_up2(rows: dict) -> None:
+    """Kernels 7 and 8 at 160 frames (x [1,256,15360]); kernel 8 whole and
+    streamed in 16-frame blocks (1536 columns) with a carried halo."""
+    from go_pocket_tts_tpu_torch.kernels import seanet_tail as st
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    frames, block = 160, 16 * 96
+    t_in = 96 * frames
+    t_out = 1920 * frames
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (torch.randn((1, 256, t_in), generator=gen, device="cuda") * 0.5).to(dtype)
+        up2, rest = _up2_inputs(gen, dtype)
+        es = torch.finfo(dtype).bits // 8
+
+        got, want = st.fused_up2_res(x, *up2), st.fused_up2_res_plain(x, *up2)
+        if tuple(got.shape) != (1, 128, 5 * t_in):
+            fail(f"fused_up2_res: output shape {tuple(got.shape)}")
+        what = f"fused_up2_res {dname(dtype)} x={tuple(x.shape)}"
+        err = max_err(got, want, dtype, what)
+        ms = device_ms(lambda: st.fused_up2_res(x, *up2), per_graph=5)
+        plain_ms = device_ms(lambda: st.fused_up2_res_plain(x, *up2), per_graph=5)
+        chain_ms = device_ms(lambda: _up2_op_chain(x, *up2), per_graph=5)
+        bytes_moved = es * (x.numel() + sum(w.numel() for w in up2) + got.numel())
+        b_ms, b_by = bound(bytes_moved, 196608.0 * 5 * t_in, dtype)
+        print(
+            f"  {what}: max_abs_err {err:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+            f"op chain of mimi_decode {chain_ms:.4f} ms  bound {b_ms:.5f} ms ({b_by})  [{CARD}]"
+        )
+        if dtype == torch.bfloat16:
+            rows["fused_up2_res"].update(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None
+            )
+
+        weights = up2 + rest
+        got = st.fused_up2_up3_tail(x, *weights)
+        want = st.fused_up2_up3_tail_plain(x, *weights)
+        if tuple(got.shape) != (1, 1, t_out):
+            fail(f"fused_up2_up3_tail: output shape {tuple(got.shape)}")
+        what = f"fused_up2_up3_tail {dname(dtype)} x={tuple(x.shape)}"
+        err = max_err(got, want, dtype, what)
+        halo = torch.zeros((1, 256, st.HALO), dtype=dtype, device="cuda")
+        start = torch.zeros((1,), dtype=torch.int32, device="cuda")
+        blocks = []
+        for pos in range(0, t_in, block):
+            xb = x[:, :, pos : pos + block].contiguous()
+            blocks.append(st.fused_up2_up3_tail_stream(xb, halo, start, *weights))
+            halo = torch.cat([halo, xb], dim=2)[:, :, -st.HALO :].contiguous()
+            start = start + block
+        err_stream = max_err(torch.cat(blocks, dim=2), want, dtype, what + f" streamed in blocks of {block}")
+        ms = device_ms(lambda: st.fused_up2_up3_tail(x, *weights), per_graph=3)
+        xb = x[:, :, :block].contiguous()
+        start = torch.full((1,), block, dtype=torch.int32, device="cuda")
+        block_ms = device_ms(lambda: st.fused_up2_up3_tail_stream(xb, halo, start, *weights), per_graph=5)
+        plain_ms = device_ms(lambda: st.fused_up2_up3_tail_plain(x, *weights), per_graph=3)
+        bytes_moved = es * (x.numel() + sum(w.numel() for w in weights) + t_out)
+        b_ms, b_by = bound(bytes_moved, 99200.0 * t_out, dtype)
+        print(
+            f"  {what}: max_abs_err {err:.3e} (streamed {err_stream:.3e})  kernel {ms:.4f} ms "
+            f"(one 16-frame block {block_ms:.4f} ms)  plain {plain_ms:.4f} ms  bound {b_ms:.5f} ms ({b_by})  [{CARD}]"
+        )
+        if dtype == torch.bfloat16:
+            rows["fused_up2_up3_tail"].update(
+                max_abs_err=max(err, err_stream), ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None,
+            )
+
+
 def check_batched_decode_attention(rows: dict) -> None:
     from go_pocket_tts_tpu_torch.kernels import batched_decode_attention as bda
     from go_pocket_tts_tpu_torch.models.quantize import quantize_kv_rows
@@ -412,10 +511,13 @@ def build_model(dtype: torch.dtype):
     return arch, load_model_from_tensors(tensors, num_heads=arch.num_heads, device="cuda", dtype=dtype)
 
 
-def check_audio(audio: np.ndarray, frames: int, what: str) -> None:
+def check_audio(audio: np.ndarray, frames: int, what: str, bounded: bool = True) -> None:
+    """Float32 PCM of ``frames`` latent frames, finite and not silent; within
+    [-1, 1] when ``bounded`` (the one-shot paths clamp, the streamed blocks
+    are the decoder's PCM as it comes)."""
     if audio.dtype != np.float32 or audio.shape != (frames * 1920,):
         fail(f"{what}: audio {audio.dtype} {audio.shape}, want float32 ({frames * 1920},)")
-    if not np.isfinite(audio).all() or np.abs(audio).max() > 1.0:
+    if not np.isfinite(audio).all() or (bounded and np.abs(audio).max() > 1.0):
         fail(f"{what}: audio not finite or outside [-1, 1]")
     if not np.abs(audio).max() > 0:
         fail(f"{what}: silent audio")
@@ -436,17 +538,20 @@ def read_launches(phase: str, must, counts: dict) -> None:
         counts[name] = counts.get(name, 0) + n
 
 
+def main_requests(arch):
+    """The 12-, 24- and 45-token requests of phases 3 and 9, with their
+    temperatures."""
+    rng = np.random.RandomState(SEED)
+    return [(rng.randint(0, arch.n_bins, size=n).tolist(), temp) for n, temp in ((12, 0.0), (24, 0.7), (45, 0.7))]
+
+
 def main_path(model, arch, counts: dict) -> None:
     from go_pocket_tts_tpu_torch import kernels
     from go_pocket_tts_tpu_torch.runtime import GenerateConfig, GPURuntime
     from go_pocket_tts_tpu_torch.runtime.generate import estimate_max_frames
 
     rt = GPURuntime(model, dtype=torch.bfloat16, seed=SEED, device="cuda")
-    rng = np.random.RandomState(SEED)
-    requests = [
-        (rng.randint(0, arch.n_bins, size=n).tolist(), temp)
-        for n, temp in ((12, 0.0), (24, 0.7), (45, 0.7))
-    ]
+    requests = main_requests(arch)
     rt.generate_audio(requests[0][0], GenerateConfig(temperature=0.7, eos_threshold=1e9))  # warm-up
 
     kernels.reset_launches()
@@ -474,7 +579,7 @@ def main_path(model, arch, counts: dict) -> None:
         fail(f"fallback decode: pcm {tuple(pcm.shape)} or not finite")
     read_launches(
         "the single-utterance path",
-        ("decode_attention_step", "fused_seanet_up_tail", "fused_seanet_tail"),
+        ("decode_attention_step", "fused_up2_res", "fused_seanet_up_tail", "fused_seanet_tail"),
         counts,
     )
 
@@ -531,7 +636,8 @@ def batched_serving(model, arch, counts: dict) -> float:
         )
         batcher.start()
         try:
-            x_real = serve_requests(batcher, reqs, cfg, what, (attention, "quantized_matmul", "fused_seanet_up_tail"), counts)
+            must = (attention, "quantized_matmul", "fused_up2_res", "fused_seanet_up_tail")
+            x_real = serve_requests(batcher, reqs, cfg, what, must, counts)
         finally:
             batcher.stop()
         x_int8 = x_real if kv_quantize else x_int8
@@ -557,6 +663,9 @@ def plain_versions():
         (bda, "batched_decode_attention_int8", bda.batched_decode_attention_int8_plain),
         (qmm, "quantized_matmul", qmm.quantized_matmul_plain),
         (i4mm, "int4_matmul", i4mm.int4_matmul_plain),
+        (st, "fused_up2_res", st.fused_up2_res_plain),
+        (st, "fused_up2_up3_tail", st.fused_up2_up3_tail_plain),
+        (st, "fused_up2_up3_tail_stream", st.fused_up2_up3_tail_stream_plain),
     ]
     originals = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in saved]
     for mod, attr, plain in saved:
@@ -708,7 +817,7 @@ def int4_serving(model32, arch, counts: dict, x_int8: float):
     batcher.start()
     try:
         what = "batcher slots=8 int4 weights (artifact), int8 KV cache"
-        must = ("int4_matmul", "batched_decode_attention_int8", "fused_seanet_up_tail")
+        must = ("int4_matmul", "batched_decode_attention_int8", "fused_up2_res", "fused_seanet_up_tail")
         x_int4 = serve_requests(batcher, requests, cfg, what, must, counts)
     finally:
         batcher.stop()
@@ -741,7 +850,8 @@ def int4_serving(model32, arch, counts: dict, x_int8: float):
         f"  GPURuntime on the int4 artifact: {len(tokens)} tokens, {len(audio) / 24000:.2f} s of audio "
         f"in {wall * 1e3:.1f} ms: x{len(audio) / 24000 / wall:.2f} real time  [{CARD}]"
     )
-    read_launches("the int4 single-utterance path", ("decode_attention_step", "int4_matmul", "fused_seanet_up_tail"), counts)
+    must = ("decode_attention_step", "int4_matmul", "fused_up2_res", "fused_seanet_up_tail")
+    read_launches("the int4 single-utterance path", must, counts)
     del rt, model4
     torch.cuda.empty_cache()
     return model4_f32
@@ -755,6 +865,112 @@ def f32_int4_parity(model4_f32, arch) -> None:
     finally:
         undo()
     rms_check(q_kernels, q_plain, "f32 real_arch, 40 frames, int4 weights + int8 KV batcher, kernels - plain")
+
+
+def synthetic_voice_state(arch, frames: int, offset: int):
+    """Upstream voice model state from the seed: per layer a ``[2,1,T,H,Dh]``
+    K/V cache and its offset."""
+    from go_pocket_tts_tpu_torch.utils.safetensors import VoiceModelState
+
+    rng = np.random.RandomState(SEED + 8)
+    head_dim = arch.d_model // arch.num_heads
+    modules = {
+        f"transformer.layers.{i}.self_attn": {
+            "cache": (rng.randn(2, 1, frames, arch.num_heads, head_dim) * 0.3).astype(np.float32),
+            "offset": np.array([float(offset)], np.float32),
+        }
+        for i in range(arch.num_layers)
+    }
+    return VoiceModelState(modules=modules)
+
+
+def streaming(model, arch, counts: dict) -> None:
+    """Phase 9."""
+    from go_pocket_tts_tpu_torch import kernels
+    from go_pocket_tts_tpu_torch.runtime import GenerateConfig, GPURuntime, stream_generate, stream_generate_session
+    from go_pocket_tts_tpu_torch.runtime.generate import estimate_max_frames
+
+    rt = GPURuntime(model, dtype=torch.bfloat16, seed=SEED, device="cuda")
+    requests = main_requests(arch)
+    for _ in stream_generate(rt, requests[0][0], GenerateConfig(temperature=0.7, eos_threshold=1e9)):  # warm-up
+        pass
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    for i, (tokens, temp) in enumerate(requests):
+        cfg = GenerateConfig(temperature=temp, eos_threshold=1e9)
+        t = time.perf_counter()
+        blocks = stream_generate(rt, tokens, cfg)
+        first = next(blocks)
+        ttfa = time.perf_counter() - t
+        rest = list(blocks)
+        wall = time.perf_counter() - t
+        audio = np.concatenate([first] + rest)
+        frames = estimate_max_frames(len(tokens))
+        check_audio(audio, frames, f"streamed request {i}", bounded=False)
+        print(
+            f"  streamed request {i}: tokens {len(tokens)} temperature {temp} frames {frames} in "
+            f"{1 + len(rest)} blocks of {[len(b) // 1920 for b in [first] + rest]} frames: time to first audio "
+            f"{ttfa * 1e3:.1f} ms, wall {wall * 1e3:.1f} ms  x{len(audio) / 24000 / wall:.2f} real time  [{CARD}]"
+        )
+    cont = None
+    cfg = GenerateConfig(temperature=0.7, eos_threshold=1e9)
+    for i, (tokens, _temp) in enumerate(requests):
+        t = time.perf_counter()
+        blocks, next_state = stream_generate_session(rt, tokens, cfg, cont)
+        first = next(blocks)
+        ttfa = time.perf_counter() - t
+        audio = np.concatenate([first] + list(blocks))
+        wall = time.perf_counter() - t
+        cont = next_state()
+        check_audio(audio, estimate_max_frames(len(tokens)), f"streamed session chunk {i}", bounded=False)
+        print(
+            f"  streamed session chunk {i}: tokens {len(tokens)} time to first audio {ttfa * 1e3:.1f} ms, "
+            f"wall {wall * 1e3:.1f} ms  x{len(audio) / 24000 / wall:.2f} real time; carried cache "
+            f"{cont.used_ub} of {cont.capacity} slots (offset {int(cont.cache['offset'])})  [{CARD}]"
+        )
+    read_launches("the streaming path", ("decode_attention_step", "fused_up2_up3_tail"), counts)
+
+    tokens = requests[1][0]
+    frames = estimate_max_frames(len(tokens))
+    voice = (np.random.RandomState(SEED + 9).randn(1, 32, arch.d_model) * 0.02).astype(np.float32)
+    kernels.reset_launches()
+    for what, cfg in (
+        ("voice embedding [1, 32, 1024]", GenerateConfig(temperature=0.7, eos_threshold=1e9, voice_embedding=voice)),
+        (
+            "voice model state [2,1,48,16,64] x 6 layers, offset 40",
+            GenerateConfig(temperature=0.7, eos_threshold=1e9, voice_model_state=synthetic_voice_state(arch, 48, 40)),
+        ),
+    ):
+        t = time.perf_counter()
+        audio = rt.generate_audio(tokens, cfg)
+        wall = time.perf_counter() - t
+        check_audio(audio, frames, f"generate_audio with a {what}")
+        print(f"  generate_audio with a {what}: {len(audio)} samples in {wall * 1e3:.1f} ms  [{CARD}]")
+    read_launches("the voiced path", ("decode_attention_step", "fused_up2_res", "fused_seanet_up_tail"), counts)
+
+
+def f32_streaming(model32, arch) -> None:
+    """Phase 10."""
+    from go_pocket_tts_tpu_torch.runtime import GenerateConfig, GPURuntime, stream_generate
+
+    tokens, _, _ = parity_requests(arch)
+    cfg = GenerateConfig(temperature=0.7, eos_threshold=1e9, max_steps=40)
+    whole = GPURuntime(model32, dtype=torch.float32, seed=SEED).generate_audio(tokens, cfg)
+    streamed = np.concatenate(list(stream_generate(GPURuntime(model32, dtype=torch.float32, seed=SEED), tokens, cfg)))
+    check_audio(streamed, 40, "f32 streamed", bounded=False)
+    # generate_audio clamps to [-1, 1] and truncates to int16; the streamed
+    # blocks are the decoder's float PCM.
+    clipped = float(np.mean(np.abs(streamed) > 1.0))
+    print(f"  f32 streamed PCM: {clipped:.4%} of samples beyond [-1, 1] (clamped before the comparison)")
+    rms_check(
+        np.clip(streamed, -1.0, 1.0), whole, "f32 real_arch, 40 frames, temperature 0.7, stream_generate - generate_audio"
+    )
+    undo = plain_versions()
+    try:
+        plain = np.concatenate(list(stream_generate(GPURuntime(model32, dtype=torch.float32, seed=SEED), tokens, cfg)))
+    finally:
+        undo()
+    rms_check(streamed, plain, "f32 real_arch, 40 frames, streamed, kernels - plain")
 
 
 def main() -> int:
@@ -796,6 +1012,7 @@ def main() -> int:
     check_batched_decode_attention(rows)
     check_quantized_matmul(rows)
     check_int4_matmul(rows)
+    check_up2(rows)
 
     t = time.perf_counter()
     arch, model = build_model(torch.bfloat16)
@@ -809,8 +1026,6 @@ def main() -> int:
 
     print("phase 5: batched serving (real_arch, bfloat16, int8 weights)")
     x_int8 = batched_serving(model, arch, counts)
-    del model
-    torch.cuda.empty_cache()
 
     print("phase 6: float32 batcher against the single runtime and against plain versions")
     f32_batched_parity(model32, arch)
@@ -820,6 +1035,14 @@ def main() -> int:
 
     print("phase 8: float32 int4 + int8-KV batcher, kernels against plain versions")
     f32_int4_parity(model4_f32, arch)
+    del model4_f32
+    torch.cuda.empty_cache()
+
+    print("phase 9: frame streaming, sessions and voice conditioning (real_arch, bfloat16)")
+    streaming(model, arch, counts)
+
+    print("phase 10: float32 streaming against generate_audio and against plain versions")
+    f32_streaming(model32, arch)
 
     for name, row in rows.items():
         row["launches"] = counts.get(name, 0)

@@ -7,7 +7,9 @@ returns the same tree as torch tensors on ``device`` in ``dtype``. The two
 packages share keys and layouts (linear weights ``[in, out]``, repacked
 ConvTranspose kernels, ``[S, D/2]`` RoPE tables), so no leaf is reshaped.
 RoPE tables, the scales of int8 linears and the fused latent→mimi projector
-stay float32; a quantized tree's int8 weights stay int8.
+stay float32; a quantized tree's int8 weights stay int8. The fused SEANet
+kernels and the stream decoder read the same up2, res2, up3, res3 and
+final-conv leaves as ``mimi_decode``, so they need nothing converted.
 """
 
 from __future__ import annotations

@@ -32,132 +32,14 @@
 // This is plain SIMT float32 arithmetic; moving the up3 and conv1
 // contractions onto tensor cores (wgmma/mma.sync) is the next step.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "seanet_tail.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kCin = 128;           // up3 input channels
-constexpr int kC = 64;              // tail channels
-constexpr int kCr = 32;             // res3 hidden channels
-constexpr int kTo = 128;            // output samples per block
-constexpr int kTb = kTo / 4;        // up3 input columns per block
-constexpr int kNs = kTo + 8;        // y samples per block: t in [t0-8, t0+kTo)
-constexpr int kNsP = kNs + 4;       // row stride of y / elu(y) / z (zero pad)
-constexpr int kXc = kTb + 3;        // x columns: m in [m0-3, m0+kTb)
-constexpr int kNz = kTo + 6;        // conv1 / z samples: t in [t0-6, t0+kTo)
-constexpr int kNzP = kNs;           // row stride of elu(conv1): 8 x 17 columns
-constexpr int kRegion = kCin * kXc > kCr * kNzP ? kCin * kXc : kCr * kNzP;
-constexpr size_t kSmemUp = sizeof(float) * (2 * kC * kNsP + kRegion);
+using namespace seanet;
+
+constexpr size_t kSmemUp = sizeof(float) * kSmemTailFloats;
 constexpr size_t kSmemTail = sizeof(float) * (2 * kC * kNsP + kCr * kNzP);
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float elu(float v) { return v > 0.f ? v : expm1f(v); }
-
-template <typename T>
-struct TailWeights {
-  const T* w1;  // [32, 64, 3]
-  const T* b1;  // [32]
-  const T* w2;  // [64, 32, 1]
-  const T* b2;  // [64]
-  const T* wf;  // [1, 64, 7]
-  const T* bf;  // [1]
-};
-
-// Stages B-D. On entry ys holds y and hs holds elu(y) over t in
-// [t0-8, t0+kTo) (zero before t = 0, zero padding past kNs); h2 is scratch.
-template <typename T>
-__device__ void tail_stages(const TailWeights<T>& w, float* ys, float* hs, float* h2,
-                            int t0, T* __restrict__ out) {
-  const int tid = threadIdx.x;
-
-  // B: h2[c][s] = elu(b1[c] + sum_{i,d} w1[c][i][d] * hs[i][s+d]); s <-> t0-6+s.
-  {
-    const int c = tid >> 3;
-    const int s0 = (tid & 7) * 17;
-    float acc[17];
-    const float bias = to_f32(w.b1[c]);
-#pragma unroll
-    for (int k = 0; k < 17; ++k) acc[k] = bias;
-    for (int i = 0; i < kC; ++i) {
-      const T* wr = w.w1 + (c * kC + i) * 3;
-      const float a = to_f32(wr[0]), b = to_f32(wr[1]), d = to_f32(wr[2]);
-      const float* hr = hs + i * kNsP + s0;
-      float hv[19];
-#pragma unroll
-      for (int k = 0; k < 19; ++k) hv[k] = hr[k];
-#pragma unroll
-      for (int k = 0; k < 17; ++k) acc[k] += a * hv[k] + b * hv[k + 1] + d * hv[k + 2];
-    }
-#pragma unroll
-    for (int k = 0; k < 17; ++k) h2[c * kNzP + s0 + k] = elu(acc[k]);
-  }
-  __syncthreads();
-
-  // C: z[o][s] = elu(y[o][s+2] + b2[o] + sum_c w2[o][c] * h2[c][s]), zero
-  // before t = 0; written over hs (elu(y) is no longer read).
-  {
-    const int o0 = (tid >> 3) * 2;
-    const int s0 = (tid & 7) * 17;
-    float acc0[17], acc1[17];
-    const float bias0 = to_f32(w.b2[o0]), bias1 = to_f32(w.b2[o0 + 1]);
-#pragma unroll
-    for (int k = 0; k < 17; ++k) {
-      acc0[k] = bias0;
-      acc1[k] = bias1;
-    }
-    for (int c = 0; c < kCr; ++c) {
-      const float a = to_f32(w.w2[o0 * kCr + c]), b = to_f32(w.w2[(o0 + 1) * kCr + c]);
-      const float* hr = h2 + c * kNzP + s0;
-#pragma unroll
-      for (int k = 0; k < 17; ++k) {
-        const float h = hr[k];
-        acc0[k] += a * h;
-        acc1[k] += b * h;
-      }
-    }
-    __syncthreads();  // every thread is done reading hs (stage B) and h2
-#pragma unroll
-    for (int k = 0; k < 17; ++k) {
-      const int s = s0 + k;
-      if (s < kNz) {
-        const bool live = t0 - 6 + s >= 0;
-        hs[o0 * kNsP + s] = live ? elu(ys[o0 * kNsP + s + 2] + acc0[k]) : 0.f;
-        hs[(o0 + 1) * kNsP + s] = live ? elu(ys[(o0 + 1) * kNsP + s + 2] + acc1[k]) : 0.f;
-      }
-    }
-  }
-  __syncthreads();
-
-  // D: out[t0+n] = bf + sum_{o,d} wf[o][d] * z[o][n+d]; two threads per n.
-  {
-    const int n = tid >> 1;
-    const int half = tid & 1;
-    float acc = 0.f;
-    for (int o = half * (kC / 2); o < (half + 1) * (kC / 2); ++o) {
-      const T* wr = w.wf + o * 7;
-      const float* zr = hs + o * kNsP + n;
-#pragma unroll
-      for (int d = 0; d < 7; ++d) acc += to_f32(wr[d]) * zr[d];
-    }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    if (half == 0) out[t0 + n] = from_f32<T>(acc + to_f32(w.bf[0]));
-  }
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -179,48 +61,10 @@ seanet_up_tail_kernel(const T* __restrict__ x, const T* __restrict__ wu,
     const int m = m0 - 3 + c;
     xs[e] = m >= 0 ? to_f32(xb[(size_t)i * t_in + m]) : 0.f;
   }
-  for (int e = tid; e < kC * (kNsP - kNs); e += kThreads) {
-    const int o = e / (kNsP - kNs), c = kNs + e % (kNsP - kNs);
-    ys[o * kNsP + c] = 0.f;
-    hs[o * kNsP + c] = 0.f;
-  }
   __syncthreads();
 
-  // A: y[o][4j+r] (t = t0-8+4j+r, input column m = m0-2+j) =
-  //    bu[o] + sum_i wu[o][i][j1] x[i][m-1] + wu[o][i][j1+4] x[i][m],
-  //    j1 = (7-r) mod 4 (wu is the repacked, flipped forward-conv kernel).
-  {
-    const int o = tid >> 2;
-    const int r = tid & 3;
-    const int j1 = (7 - r) & 3;
-    constexpr int kJ = kNs / 4;
-    float acc[kJ];
-    const float bias = to_f32(bu[o]);
-#pragma unroll
-    for (int j = 0; j < kJ; ++j) acc[j] = bias;
-    for (int i = 0; i < kCin; ++i) {
-      const float wa = to_f32(wu[(o * kCin + i) * 8 + j1]);
-      const float wb = to_f32(wu[(o * kCin + i) * 8 + j1 + 4]);
-      const float* xr = xs + i * kXc;
-      float prev = xr[0];
-#pragma unroll
-      for (int j = 0; j < kJ; ++j) {
-        const float cur = xr[j + 1];
-        acc[j] += wa * prev + wb * cur;
-        prev = cur;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kJ; ++j) {
-      const int s = 4 * j + r;
-      const float v = t0 - 8 + s >= 0 ? acc[j] : 0.f;
-      ys[o * kNsP + s] = v;
-      hs[o * kNsP + s] = elu(v);
-    }
-  }
-  __syncthreads();
-
-  tail_stages<T>(w, ys, hs, xs, t0, out + (size_t)b * 4 * t_in);
+  up3_stage<T>(xs, wu, bu, ys, hs, t0);
+  tail_stages<T>(w, ys, hs, xs, t0, out + (size_t)b * 4 * t_in + t0);
 }
 
 template <typename T>
@@ -243,15 +87,7 @@ seanet_tail_kernel(const T* __restrict__ x, TailWeights<T> w, T* __restrict__ ou
   }
   __syncthreads();
 
-  tail_stages<T>(w, ys, hs, h2, t0, out + (size_t)b * t);
-}
-
-template <typename T>
-TailWeights<T> tail_weights(const void* w1, const void* b1, const void* w2,
-                            const void* b2, const void* wf, const void* bf) {
-  return TailWeights<T>{static_cast<const T*>(w1), static_cast<const T*>(b1),
-                        static_cast<const T*>(w2), static_cast<const T*>(b2),
-                        static_cast<const T*>(wf), static_cast<const T*>(bf)};
+  tail_stages<T>(w, ys, hs, h2, t0, out + (size_t)b * t + t0);
 }
 
 template <typename T>

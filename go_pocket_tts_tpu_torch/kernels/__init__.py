@@ -1,5 +1,5 @@
-"""Hand-written CUDA kernels of the synthesis and batched serving paths
-(sources in ``csrc/``).
+"""Hand-written CUDA kernels of the synthesis, streaming and batched serving
+paths (sources in ``csrc/``).
 
 =================================================  ===========================================
 wrapper                                            replaces (go_pocket_tts_tpu/ops/pallas)
@@ -11,6 +11,8 @@ batched_decode_attention.batched_decode_attention  batched_decode_attention.py (
 batched_decode_attention.batched_decode_attention_int8  batched_decode_attention.py (int8 caches)
 quantized_matmul.quantized_matmul                  quantized_matmul.py: quantized_matmul
 int4_matmul.int4_matmul                            int4_matmul.py: int4_matmul
+seanet_tail.fused_up2_res                          seanet_tail.py: fused_up2_res
+seanet_tail.fused_up2_up3_tail (and its stream)    seanet_tail.py: fused_up2_up3_tail
 =================================================  ===========================================
 
 Each wrapper runs its plain PyTorch version for CPU tensors and launches its
@@ -33,6 +35,8 @@ WRAPPERS = (
     batched_decode_attention.batched_decode_attention_int8,
     quantized_matmul.quantized_matmul,
     int4_matmul.int4_matmul,
+    seanet_tail.fused_up2_res,
+    seanet_tail.fused_up2_up3_tail,
 )
 
 # Per wrapper (same order): its CUDA source and the TPU kernel it replaces.
@@ -64,6 +68,14 @@ META = (
     {
         "source": "go_pocket_tts_tpu_torch/csrc/int4_matmul.cu",
         "replaces": "go_pocket_tts_tpu/ops/pallas/int4_matmul.py:99",
+    },
+    {
+        "source": "go_pocket_tts_tpu_torch/csrc/seanet_up2.cu",
+        "replaces": "go_pocket_tts_tpu/ops/pallas/seanet_tail.py:381",
+    },
+    {
+        "source": "go_pocket_tts_tpu_torch/csrc/seanet_up2.cu",
+        "replaces": "go_pocket_tts_tpu/ops/pallas/seanet_tail.py:569",
     },
 )
 

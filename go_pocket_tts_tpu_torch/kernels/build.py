@@ -4,8 +4,8 @@
 Each ``csrc/<name>.cu`` compiles, on first use, into a shared library with a
 plain C interface for ``sm_90a``; every source gets its own ``nvcc``
 process and all of them start together. Libraries land in ``_build/``
-(git-ignored) under a name that hashes the source and the flags, so an
-edited source never loads a stale library. Nothing is built at import time.
+(git-ignored) under a name that hashes the source, the shared ``*.cuh``
+headers and the flags, so an edited source never loads a stale library. Nothing is built at import time.
 """
 
 from __future__ import annotations
@@ -25,7 +25,14 @@ __all__ = ["SOURCES", "NVCC_FLAGS", "build_all", "library", "build_log"]
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("decode_attention", "seanet_tail", "batched_decode_attention", "quantized_matmul", "int4_matmul")
+SOURCES = (
+    "decode_attention",
+    "seanet_tail",
+    "seanet_up2",
+    "batched_decode_attention",
+    "quantized_matmul",
+    "int4_matmul",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -47,8 +54,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
+    # The shared headers count for every source: an edited header rebuilds.
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

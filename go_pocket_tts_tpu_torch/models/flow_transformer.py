@@ -29,6 +29,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from go_pocket_tts_tpu_torch.kernels import batched_decode_attention as bda
@@ -55,6 +56,7 @@ __all__ = [
     "detect_num_heads",
     "load_flow_transformer",
     "init_kv_cache",
+    "kv_cache_from_voice_state",
     "transformer_forward_cached",
     "transformer_step_batched",
 ]
@@ -134,6 +136,61 @@ def init_kv_cache(
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
         "offset": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def kv_cache_from_voice_state(
+    cfg: TransformerConfig,
+    modules: Dict[str, Dict[str, np.ndarray]],
+    capacity: int,
+    dtype: torch.dtype = torch.float32,
+    device: Union[str, torch.device] = "cpu",
+) -> Params:
+    """A cache hydrated from upstream voice model state.
+
+    Upstream stores per module ``cache [2,B,T,H,Dh]`` (K and V, time-major)
+    and ``offset`` under ``transformer.layers.N.self_attn``; the cache here
+    is head-major ``[L,B,H,C,Dh]``, zero-padded to ``capacity``, with the
+    shared offset. Every layer must name the same offset."""
+    ks, vs, offsets = [], [], []
+    for i in range(cfg.num_layers):
+        name = f"transformer.layers.{i}.self_attn"
+        module = modules.get(name)
+        if module is None:
+            raise ValueError(f"voice model state missing module {name!r}")
+        cache = module.get("cache")
+        off_t = module.get("offset")
+        if cache is None or off_t is None:
+            raise ValueError(f"voice model state module {name!r} missing cache/offset")
+        cache = np.asarray(cache)
+        if cache.ndim != 5 or cache.shape[0] != 2:
+            raise ValueError(
+                f"voice model state module {name!r} cache shape {cache.shape}, want [2,B,T,H,D]"
+            )
+        _, _, t, h, dh = cache.shape
+        if h != cfg.num_heads or dh != cfg.head_dim:
+            raise ValueError(
+                f"voice model state module {name!r} heads/dim ({h},{dh}) != ({cfg.num_heads},{cfg.head_dim})"
+            )
+        off = float(np.asarray(off_t).reshape(-1)[0])
+        if off != int(off) or off < 0:
+            raise ValueError(f"voice model state module {name!r} offset {off} invalid")
+        off = int(off)
+        if off > t:
+            raise ValueError(f"voice model state module {name!r} offset {off} exceeds cache length {t}")
+        if t > capacity:
+            raise ValueError(f"voice cache length {t} exceeds KV capacity {capacity}; raise the prompt bucket")
+        offsets.append(off)
+        # [B,T,H,Dh] → [B,H,T,Dh], time zero-padded to the capacity.
+        pad = ((0, 0), (0, 0), (0, capacity - t), (0, 0))
+        ks.append(np.pad(np.moveaxis(cache[0], 2, 1), pad))
+        vs.append(np.pad(np.moveaxis(cache[1], 2, 1), pad))
+    if len(set(offsets)) != 1:
+        raise ValueError(f"voice model state has inconsistent per-layer offsets {offsets}")
+    return {
+        "k": torch.from_numpy(np.stack(ks).astype(np.float32)).to(device=device, dtype=dtype),
+        "v": torch.from_numpy(np.stack(vs).astype(np.float32)).to(device=device, dtype=dtype),
+        "offset": torch.tensor(offsets[0], dtype=torch.int32, device=device),
     }
 
 

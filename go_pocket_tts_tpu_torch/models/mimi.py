@@ -15,10 +15,15 @@ Weight prefix ``mimi.*``:
 - 16·6·5·4 = 1920 output samples per 12.5 Hz latent frame at 24 kHz
 
 Every stage is causal, so decoding a right-padded latent bucket yields a
-sample-exact prefix. The last stage (up3 → res3 → final conv) goes through
-the fused SEANet tail kernels (``kernels/seanet_tail.py``) where their gates
-take the shape, as in the reference's kernel branch; the wrappers launch the
-CUDA kernels for CUDA tensors and run their plain versions on the CPU.
+sample-exact prefix. The last two SEANet stages go through the fused
+kernels of ``kernels/seanet_tail.py`` where their gates take the shape: up2
+→ res2 → ELU through ``fused_up2_res`` (the reference wrote that kernel for
+this decode and could not fit it in a TPU's scoped VMEM; its
+``mimi_decode`` runs the ops), then up3 → res3 → final conv through the
+fused tail kernels, as in the reference's kernel branch. The wrappers
+launch the CUDA kernels for CUDA tensors and run their plain versions on
+the CPU. The stream decoder (:mod:`models.mimi_stream`) runs the same
+stages through the cascade kernel instead.
 """
 
 from __future__ import annotations
@@ -43,7 +48,17 @@ from go_pocket_tts_tpu_torch.ops import (
 )
 from go_pocket_tts_tpu_torch.ops.local_attention import local_windowed_attention
 
-__all__ = ["MimiConfig", "load_mimi", "mimi_decode", "quantizer_project"]
+__all__ = [
+    "MimiConfig",
+    "load_mimi",
+    "mimi_decode",
+    "quantizer_project",
+    "tail_weights",
+    "takes_up2_kernel",
+    "up2_weights",
+    "takes_cascade_kernel",
+    "cascade_weights",
+]
 
 Params = Dict
 
@@ -221,15 +236,56 @@ def _transformer(params: Params, cfg: MimiConfig, x: torch.Tensor) -> torch.Tens
     return x.transpose(1, 2)
 
 
-def _tail_weights(params: Params, dtype: torch.dtype):
-    """res3 and final-conv weights in the kernels' argument order, with zero
-    biases where the checkpoint has none."""
+def _with_biases(*convs: Params) -> list:
+    """``[w, b, w, b, ...]`` of the given convolutions, in the kernels'
+    argument order, with zero biases where the checkpoint has none."""
     out = []
-    for p in (params["res3"]["conv1"], params["res3"]["conv2"], params["final_conv"]):
+    for p in convs:
         w = p["w"]
         out.append(w)
-        out.append(p["b"] if "b" in p else torch.zeros(w.shape[0], dtype=dtype, device=w.device))
+        out.append(p["b"] if "b" in p else torch.zeros(w.shape[0], dtype=w.dtype, device=w.device))
     return out
+
+
+def tail_weights(params: Params) -> list:
+    """res3 and final-conv weights in the tail kernels' argument order."""
+    return _with_biases(params["res3"]["conv1"], params["res3"]["conv2"], params["final_conv"])
+
+
+def up2_weights(params: Params) -> list:
+    """up2 and res2 weights in the order of ``fused_up2_res``."""
+    return _with_biases(params["up2"], params["res2"]["conv1"], params["res2"]["conv2"])
+
+
+def takes_up2_kernel(params: Params, cfg: MimiConfig) -> bool:
+    """Whether this SEANet has the up2/res2 widths of the up2 kernels
+    (256 → 128 channels, k = 10, stride 5; res2 128 → 64 → 128)."""
+    return (
+        cfg.seanet_strides[1] == 5
+        and tuple(params["up2"]["w"].shape) == (128, 256, 10)
+        and tuple(params["res2"]["conv1"]["w"].shape) == (64, 128, 3)
+        and tuple(params["res2"]["conv2"]["w"].shape) == (128, 64, 1)
+    )
+
+
+def takes_cascade_kernel(params: Params, cfg: MimiConfig) -> bool:
+    """Whether this SEANet has the widths of the up2 → up3 → tail cascade
+    kernel: those of :func:`takes_up2_kernel`, then up3 128 → 64 (k = 8,
+    stride 4), res3 64 → 32 → 64 and a k7 final conv."""
+    return (
+        takes_up2_kernel(params, cfg)
+        and cfg.seanet_strides[2] == 4
+        and tuple(params["up3"]["w"].shape) == (64, 128, 8)
+        and tuple(params["res3"]["conv1"]["w"].shape) == (32, 64, 3)
+        and tuple(params["res3"]["conv2"]["w"].shape) == (64, 32, 1)
+        and tuple(params["final_conv"]["w"].shape) == (1, 64, 7)
+    )
+
+
+def cascade_weights(params: Params) -> list:
+    """up2, res2, up3, res3 and final-conv weights in the order of
+    ``fused_up2_up3_tail``."""
+    return up2_weights(params) + _with_biases(params["up3"]) + tail_weights(params)
 
 
 def mimi_decode(params: Params, cfg: MimiConfig, mimi_latent: torch.Tensor) -> torch.Tensor:
@@ -240,8 +296,11 @@ def mimi_decode(params: Params, cfg: MimiConfig, mimi_latent: torch.Tensor) -> t
     x = elu(_conv(params["init_conv"], x))
     x = _convtr(params["up1"], x, s1)
     x = elu(_resblock(params["res1"], x))
-    x = _convtr(params["up2"], x, s2)
-    x = elu(_resblock(params["res2"], x))
+    if takes_up2_kernel(params, cfg) and seanet_tail.supports_up2(x.shape[1], x.shape[-1], 10):
+        x = seanet_tail.fused_up2_res(x, *up2_weights(params))
+    else:
+        x = _convtr(params["up2"], x, s2)
+        x = elu(_resblock(params["res2"], x))
     wu = params["up3"]["w"]
     if (
         s3 == 4
@@ -250,9 +309,9 @@ def mimi_decode(params: Params, cfg: MimiConfig, mimi_latent: torch.Tensor) -> t
         and seanet_tail.supports_up(x.shape[1], x.shape[-1], wu.shape[-1])
     ):
         bu = params["up3"].get("b", torch.zeros(64, dtype=x.dtype, device=x.device))
-        return seanet_tail.fused_seanet_up_tail(x, wu, bu, *_tail_weights(params, x.dtype))
+        return seanet_tail.fused_seanet_up_tail(x, wu, bu, *tail_weights(params))
     x = _convtr(params["up3"], x, s3)
     if x.shape[1] == 64 and seanet_tail.supports(x.shape[-1]):
-        return seanet_tail.fused_seanet_tail(x, *_tail_weights(params, x.dtype))
+        return seanet_tail.fused_seanet_tail(x, *tail_weights(params))
     x = elu(_resblock(params["res3"], x))
     return _conv(params["final_conv"], x)

@@ -28,7 +28,9 @@ the batcher owns, drawn per block on the device (JAX's threefry bits cannot
 be reproduced, so the two packages agree at temperature 0 only).
 
 Not ported yet (ROADMAP.md): streaming lanes (``submit_stream``),
-sessions, ``prewarm``, dp/tp meshes, voice conditioning.
+sessions, ``prewarm``, dp/tp meshes, voice conditioning (a request whose
+config carries a voice fails with a ``ValueError`` rather than being served
+without it).
 """
 
 from __future__ import annotations
@@ -52,6 +54,7 @@ from go_pocket_tts_tpu_torch.models.model import PocketTTSModel
 from go_pocket_tts_tpu_torch.models.quantize import quantize_kv_rows
 from go_pocket_tts_tpu_torch.runtime.generate import (
     GenerateConfig,
+    HostCopy,
     _full_f32,
     decode_pcm16,
     estimate_max_frames,
@@ -77,27 +80,6 @@ def _try_resolve(fut: Future, result=None, exc: Optional[Exception] = None) -> N
             fut.set_result(result)
     except Exception:  # InvalidStateError: the other side resolved it first
         pass
-
-
-class _HostCopy:
-    """A device tensor on its way to the host: the copy is enqueued now (into
-    pinned memory, behind the work that produces the tensor) and waited for
-    in :meth:`numpy`, from any thread."""
-
-    def __init__(self, t: torch.Tensor) -> None:
-        self._event = None
-        if t.is_cuda:
-            self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            self._host.copy_(t, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record()
-        else:
-            self._host = t
-
-    def numpy(self) -> np.ndarray:
-        if self._event is not None:
-            self._event.synchronize()
-        return self._host.numpy()
 
 
 # -- the device side: state, AR block, admission, harvest decode -------------
@@ -367,6 +349,15 @@ class ContinuousBatcher:
 
     def submit(self, tokens, cfg: GenerateConfig) -> "Future[np.ndarray]":
         fut: Future = Future()
+        if cfg.voice_embedding is not None or cfg.voice_model_state is not None:
+            fut.set_exception(
+                ValueError(
+                    "ContinuousBatcher: voice conditioning is not ported to the batcher yet "
+                    "(it comes with the batcher's streaming lanes and sessions); "
+                    "use GPURuntime for a voiced request"
+                )
+            )
+            return fut
         if self._crashed is not None:
             fut.set_exception(self._crashed)
             return fut
@@ -505,7 +496,7 @@ class ContinuousBatcher:
             bucket,
         )
         # Padding lanes are dropped before the copy to the host.
-        pcm = _HostCopy(pcm[: len(to_decode)])
+        pcm = HostCopy(pcm[: len(to_decode)])
         items = [(self._slot_info[s].request, n) for s, n in to_decode]
         self._release_slots([s for s, _n in to_decode])
         self._harvest_pool.submit(self._drain_harvest, pcm, items)
@@ -585,7 +576,7 @@ class ContinuousBatcher:
             self._state, flags = _batched_ar_multi_step(
                 params, cfg, self._state, k, 1, self._gen, self._time_cond, self._fused_ada
             )
-            flags = _HostCopy(flags)
+            flags = HostCopy(flags)
             # Admission after the block is enqueued: the host prepares it
             # while the device runs the block, and admitted lanes join from
             # the next block on.

@@ -17,7 +17,16 @@ driven from the host, but its state stays on the device: frame buffer,
 ``n_frames``, countdown, ``done`` and the cache offset. The host reads
 ``done`` only every ``SYNC_EVERY`` steps. Steps run after every lane is done
 change nothing the decode reads (their frames lie past ``n_frames`` and are
-masked), so the audio is the while_loop's exactly.
+masked), and the loop ends by setting the cache offset to where the
+while_loop stops (the K/V rows those steps wrote lie past it, unread), so
+the audio and the carried cache are the while_loop's exactly. The loop takes and returns its carry
+(cache, frame, countdown, done, generator), so the streaming path runs it
+in segments and a continuity session carries the cache into the next chunk.
+
+Voice conditioning (``GenerateConfig.voice_embedding`` or
+``voice_model_state``) and continuity sessions (``generate_audio_session``,
+``ContinuationState``) follow the reference's bucketing and capacity rules;
+frame streaming lives in :mod:`runtime.streaming`.
 
 Shapes are bucketed as in the reference (``utils/buckets.py``), so caches
 and buffers keep a few static sizes.
@@ -30,7 +39,7 @@ import logging
 import math
 import time
 from dataclasses import dataclass
-from typing import Callable, Iterator, Optional, Tuple, Union
+from typing import Callable, Dict, Iterator, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -41,10 +50,19 @@ from go_pocket_tts_tpu_torch.models import flow_transformer as ftr
 from go_pocket_tts_tpu_torch.models.model import PocketTTSModel
 from go_pocket_tts_tpu_torch.models.quantize import quantize_model_params
 from go_pocket_tts_tpu_torch.utils import buckets as bk
+from go_pocket_tts_tpu_torch.utils.safetensors import VoiceModelState
 
 log = logging.getLogger("pockettts.torch.runtime")
 
-__all__ = ["GenerateConfig", "GPURuntime", "decode_pcm16", "estimate_max_frames", "quantized_model"]
+__all__ = [
+    "ContinuationState",
+    "GenerateConfig",
+    "GPURuntime",
+    "HostCopy",
+    "decode_pcm16",
+    "estimate_max_frames",
+    "quantized_model",
+]
 
 DEFAULT_MIMI_FRAME_RATE = 12.5
 
@@ -59,9 +77,22 @@ def estimate_max_frames(token_count: int, frame_rate: float = DEFAULT_MIMI_FRAME
 
 
 @dataclass
+class ContinuationState:
+    """Cross-chunk prosody state: the FlowLM KV cache carried from one text
+    chunk into the next. Single use: the next chunk's prefill writes into
+    the cache buffers in place, so always pass the state the latest call
+    returned."""
+
+    cache: Dict
+    capacity: int
+    # Host-side upper bound on the written cache slots (the true offset is
+    # on the device; EOS can end a chunk early, so this over-counts).
+    used_ub: int
+
+
+@dataclass
 class GenerateConfig:
-    """Per-chunk generation parameters (the reference's, without the voice
-    conditioning fields, which this slice does not port)."""
+    """Per-chunk generation parameters (the reference's)."""
 
     temperature: float = 0.7
     eos_threshold: float = -4.0
@@ -69,8 +100,31 @@ class GenerateConfig:
     estimated_max_steps: int = 0
     lsd_decode_steps: int = 1
     frames_after_eos: int = 3
+    voice_embedding: Optional[np.ndarray] = None  # [1, Tv, D]
+    voice_model_state: Optional[VoiceModelState] = None
     # Called after generation with (frames, max_steps).
     step_callback: Optional[Callable[[int, int], None]] = None
+
+
+class HostCopy:
+    """A device tensor on its way to the host: the copy is enqueued now (into
+    pinned memory, behind the work that produces the tensor) and waited for
+    in :meth:`numpy`, from any thread."""
+
+    def __init__(self, t: torch.Tensor) -> None:
+        self._event = None
+        if t.is_cuda:
+            self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._host.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = t
+
+    def numpy(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy()
 
 
 @contextlib.contextmanager
@@ -160,6 +214,15 @@ class GPURuntime:
         self._fused_ada = flm.fnet.precompute_fused_adaln(flow["flow_net"])
         self._time_cond = {}
 
+    def _compute(self) -> contextlib.ExitStack:
+        """The context of the runtime's device work: inference mode, and
+        full float32 products on the float32 path. The streaming paths
+        enter it around each segment's work, never across a ``yield``."""
+        stack = contextlib.ExitStack()
+        stack.enter_context(torch.inference_mode())
+        stack.enter_context(_full_f32(self.dtype == torch.float32))
+        return stack
+
     def mimi_timing(self) -> Tuple[float, float, int]:
         """(frame rate, encoder frame rate, steps per latent)."""
         cfg = self.model.config.mimi
@@ -179,20 +242,47 @@ class GPURuntime:
 
     # -- the three stages --------------------------------------------------
 
-    def _prefill(self, tokens_padded: torch.Tensor, n_tokens: int, capacity: int):
+    def _prefill(
+        self,
+        tokens_padded: torch.Tensor,
+        n_tokens: int,
+        capacity: int,
+        cache: Optional[Dict] = None,
+        voice_emb: Optional[torch.Tensor] = None,
+    ):
+        """Embed ``tokens_padded`` (behind ``voice_emb``, if given) and
+        prefill them into ``cache`` (a hydrated voice or session cache,
+        written in place) or a new zero cache of ``capacity``."""
         flow = self.model.params["flow_lm"]
         flow_cfg = self.model.config.flow_lm
         emb = flm.text_embeddings(flow, tokens_padded).to(self.dtype)
-        cache = ftr.init_kv_cache(
-            flow_cfg.transformer, tokens_padded.shape[0], capacity, self.dtype, self.device
-        )
+        valid = n_tokens
+        if voice_emb is not None:
+            emb = torch.cat([voice_emb.to(self.dtype), emb], dim=1)
+            valid += voice_emb.shape[1]
+        if cache is None:
+            cache = ftr.init_kv_cache(
+                flow_cfg.transformer, tokens_padded.shape[0], capacity, self.dtype, self.device
+            )
         # Padded token slots embed row 0 of the LUT; they sit past the
         # offset and are never visible.
-        return flm.prompt(flow, flow_cfg, cache, emb, n_tokens)
+        return flm.prompt(flow, flow_cfg, cache, emb, valid)
 
-    def _ar_loop(self, cache, cfg: GenerateConfig, max_steps: int, decode_steps: int, max_frames: int):
-        """Up to ``min(max_steps, max_frames)`` AR steps; returns
-        (frames [B, max_frames, L], n_frames [B] int32), both on the device."""
+    def _ar_loop(
+        self,
+        cache,
+        cfg: GenerateConfig,
+        max_steps: int,
+        decode_steps: int,
+        max_frames: int,
+        carry: Optional[Dict] = None,
+    ):
+        """Up to ``min(max_steps, max_frames)`` AR steps, resuming from
+        ``carry`` (None: a new request, from the BOS frame). Returns
+        (frames [B, max_frames, L], n_frames [B] int32, carry), all on the
+        device; ``n_frames`` counts this call's frames, and ``carry`` holds
+        the cache, the last frame, the countdown, ``done`` and the noise
+        generator."""
         flow = self.model.params["flow_lm"]
         flow_cfg = self.model.config.flow_lm
         batch = cache["k"].shape[1]
@@ -200,18 +290,23 @@ class GPURuntime:
         dev, dtype = self.device, self.dtype
 
         sigma = math.sqrt(max(float(cfg.temperature), 0.0))
-        gen = self._request_generator() if sigma > 0 else None
         time_cond = self._time_conditioning(decode_steps)
-
-        # BOS sentinel: a NaN frame, replaced by bos_emb inside the step.
-        frame = torch.full((batch, 1, latent_dim), float("nan"), dtype=dtype, device=dev)
+        if carry is None:
+            carry = {
+                # BOS sentinel: a NaN frame, replaced by bos_emb inside the step.
+                "frame": torch.full((batch, 1, latent_dim), float("nan"), dtype=dtype, device=dev),
+                "countdown": torch.full((batch,), -1, dtype=torch.int32, device=dev),  # -1: no EOS yet
+                "done": torch.zeros((batch,), dtype=torch.bool, device=dev),
+                "gen": self._request_generator() if sigma > 0 else None,
+            }
+        frame, countdown, done, gen = carry["frame"], carry["countdown"], carry["done"], carry["gen"]
         frames = torch.zeros((batch, max_frames, latent_dim), dtype=dtype, device=dev)
         n_frames = torch.zeros((batch,), dtype=torch.int32, device=dev)
-        countdown = torch.full((batch,), -1, dtype=torch.int32, device=dev)  # -1: no EOS yet
-        done = torch.zeros((batch,), dtype=torch.bool, device=dev)
         zero_noise = torch.zeros((batch, latent_dim), dtype=dtype, device=dev)
 
-        for step in range(min(max_steps, max_frames)):
+        n_steps = min(max_steps, max_frames)
+        offset0 = cache["offset"]
+        for step in range(n_steps):
             if gen is None:
                 noise = zero_noise
             else:
@@ -231,52 +326,195 @@ class GPURuntime:
             n_frames = torch.where(done, n_frames, step + 1).to(torch.int32)
             done = done | (countdown == 0)
             countdown = torch.where((countdown > 0) & ~done, countdown - 1, countdown)
-            if (step + 1) % self.SYNC_EVERY == 0 and bool(done.all()):
+            if (step + 1) % self.SYNC_EVERY == 0 and step + 1 < n_steps and bool(done.all()):
                 break
-        return frames, n_frames
+        # The reference's loop stops at the step on which every lane is
+        # done: it runs as many steps as the longest lane has frames. Steps
+        # past that wrote K/V rows beyond this offset, which are never read.
+        cache["offset"] = offset0 + n_frames.max()
+        carry = {"cache": cache, "frame": frame, "countdown": countdown, "done": done, "gen": gen}
+        return frames, n_frames, carry
 
     def _decode_pcm16(self, frames: torch.Tensor, n_frames: torch.Tensor, decode_frames: int):
         return decode_pcm16(self.model, frames, n_frames, decode_frames)
 
-    # -- entry point -------------------------------------------------------
+    # -- voice conditioning and bucketing ---------------------------------
 
-    def generate_audio(self, tokens, cfg: GenerateConfig) -> np.ndarray:
-        """Synthesize one chunk of token ids → float32 PCM at 24 kHz."""
-        t0 = time.perf_counter()
+    def _hydrate_voice_cache(self, state: VoiceModelState, capacity: int) -> Dict:
+        return ftr.kv_cache_from_voice_state(
+            self.model.config.flow_lm.transformer, state.modules, capacity, self.dtype, self.device
+        )
+
+    def _voice(self, cfg: GenerateConfig):
+        """(voice embedding on the device or None, its length, the voice
+        model state's frames); raises on a bad voice."""
+        if cfg.voice_embedding is not None and cfg.voice_model_state is not None:
+            raise ValueError("generate: voice embedding and voice model state are mutually exclusive")
+        voice_emb, voice_len = None, 0
+        if cfg.voice_embedding is not None:
+            voice_emb = torch.as_tensor(np.asarray(cfg.voice_embedding, np.float32), device=self.device).to(self.dtype)
+            d_model = self.model.params["flow_lm"]["conditioner_embed"].shape[1]
+            if voice_emb.ndim != 3 or voice_emb.shape[2] != d_model:
+                raise ValueError(
+                    f"voice embedding shape {tuple(voice_emb.shape)} incompatible with d_model {d_model}"
+                )
+            voice_len = voice_emb.shape[1]
+        voice_frames = 0
+        if cfg.voice_model_state is not None:
+            first = next(iter(cfg.voice_model_state.modules.values()))
+            voice_frames = int(np.asarray(first["offset"]).reshape(-1)[0])
+        return voice_emb, voice_len, voice_frames
+
+    def _request(self, tokens, cfg: GenerateConfig):
+        """Validate one chunk: (token ids, max_steps, decode_steps,
+        frame_bucket, token_bucket, ids padded to the token bucket on the
+        device)."""
         if len(tokens) == 0:
             raise ValueError("generate: token slice must not be empty")
         max_steps = cfg.max_steps or cfg.estimated_max_steps or estimate_max_frames(len(tokens))
-        decode_steps = max(cfg.lsd_decode_steps, 1)
-
         tok_np = np.asarray(tokens, np.int64)
         n_bins = self.model.params["flow_lm"]["conditioner_embed"].shape[0]
         if np.any(tok_np < 0) or np.any(tok_np >= n_bins):
             raise ValueError(f"token id out of range [0,{n_bins})")
-
         frame_bucket = bk.pick_bucket(max_steps + 1, (self.frame_bucket, 512, 1024))
         token_bucket = bk.pick_bucket(len(tok_np), bk.PROMPT_BUCKETS)
-        capacity = bk.round_up(token_bucket, 64) + frame_bucket
-        tokens_padded = np.zeros((1, token_bucket), np.int64)
-        tokens_padded[0, : len(tok_np)] = tok_np
+        padded = np.zeros((1, token_bucket), np.int64)
+        padded[0, : len(tok_np)] = tok_np
+        ids = torch.from_numpy(padded).to(self.device)
+        return tok_np, max_steps, max(cfg.lsd_decode_steps, 1), frame_bucket, token_bucket, ids
 
-        with torch.inference_mode(), _full_f32(self.dtype == torch.float32):
-            cache = self._prefill(
-                torch.from_numpy(tokens_padded).to(self.device), len(tok_np), capacity
-            )
-            frames, n_frames = self._ar_loop(cache, cfg, max_steps, decode_steps, frame_bucket)
-            pcm = self._decode_pcm16(
-                frames, n_frames, min(bk.round_up(max_steps, 32), frame_bucket)
-            )
-            n = int(n_frames[0])
-            samples_per = self.model.config.mimi.samples_per_latent
-            audio = pcm[0, 0, : n * samples_per].cpu().numpy().astype(np.float32) / 32767.0
+    def _setup(self, tokens, cfg: GenerateConfig):
+        """Validation, bucketing, voice and prefill of one chunk (the
+        reference's ``_dispatch`` rules): (cache, max_steps, decode_steps,
+        frame_bucket, n_tokens)."""
+        tok_np, max_steps, decode_steps, frame_bucket, token_bucket, ids = self._request(tokens, cfg)
+        voice_emb, voice_len, voice_frames = self._voice(cfg)
+        # A hydrated voice cache advances the offset before prefill; its
+        # length counts in the capacity, not in the prompt pad.
+        capacity = bk.round_up(voice_frames + voice_len + token_bucket, 64) + frame_bucket
+        voice_cache = None
+        if cfg.voice_model_state is not None:
+            voice_cache = self._hydrate_voice_cache(cfg.voice_model_state, capacity)
+        cache = self._prefill(ids, len(tok_np), capacity, voice_cache, voice_emb)
+        return cache, max_steps, decode_steps, frame_bucket, len(tok_np)
 
+    def _pcm(self, frames, n_frames, max_steps: int, frame_bucket: int) -> np.ndarray:
+        pcm = self._decode_pcm16(frames, n_frames, min(bk.round_up(max_steps, 32), frame_bucket))
+        n = int(n_frames[0])
+        samples_per = self.model.config.mimi.samples_per_latent
+        return pcm[0, 0, : n * samples_per].cpu().numpy().astype(np.float32) / 32767.0
+
+    # -- entry points ------------------------------------------------------
+
+    def generate_audio(self, tokens, cfg: GenerateConfig) -> np.ndarray:
+        """Synthesize one chunk of token ids → float32 PCM at 24 kHz."""
+        t0 = time.perf_counter()
+        with self._compute():
+            cache, max_steps, decode_steps, frame_bucket, n_tokens = self._setup(tokens, cfg)
+            frames, n_frames, _ = self._ar_loop(cache, cfg, max_steps, decode_steps, frame_bucket)
+            audio = self._pcm(frames, n_frames, max_steps, frame_bucket)
+        n = len(audio) // self.model.config.mimi.samples_per_latent
         if cfg.step_callback is not None:
             cfg.step_callback(n, max_steps)
         log.debug(
             "generation complete: tokens=%d frames=%d total=%.1fms",
-            len(tok_np),
+            n_tokens,
             n,
             (time.perf_counter() - t0) * 1e3,
         )
         return audio
+
+    # Cache size ceiling of a continuity session: a session that fills it
+    # resets rather than run past the context the model was trained at.
+    SESSION_CAPACITY = 1024
+
+    def _session_ladder(self, max_capacity: int) -> tuple:
+        """Ascending KV capacities of a continuity session: a session starts
+        in the smallest that fits its first chunk and its carried cache
+        grows up the ladder at chunk boundaries."""
+        return tuple(b for b in (384, 640) if b < max_capacity) + (max_capacity,)
+
+    @staticmethod
+    def _grow_cache(cache: Dict, capacity: int) -> Dict:
+        """Zero-pad a carried KV cache ``{k, v: [L,B,H,C,Dh]}`` to a larger
+        capacity."""
+        pad = capacity - cache["k"].shape[3]
+        return {
+            **cache,
+            "k": torch.nn.functional.pad(cache["k"], (0, 0, 0, pad)),
+            "v": torch.nn.functional.pad(cache["v"], (0, 0, 0, pad)),
+        }
+
+    def _session_setup(
+        self,
+        tokens,
+        cfg: GenerateConfig,
+        cont: Optional[ContinuationState],
+    ):
+        """Per-chunk session setup shared by :meth:`generate_audio_session`
+        and the streamed session: validation, the capacity ladder and reset
+        bookkeeping, voice hydration and the prefill. Returns (cache,
+        capacity, used0, max_steps, decode_steps, frame_bucket, n_tokens)."""
+        tok_np, max_steps, decode_steps, frame_bucket, token_bucket, ids = self._request(tokens, cfg)
+        voice_emb, voice_len, voice_frames = self._voice(cfg)
+        # Peak write index of this chunk: prefill pads to the token bucket;
+        # the AR loop writes at offset + len(tokens) + step. Grow the carried
+        # cache up the ladder when the chunk does not fit; reset only once
+        # the ceiling is reached.
+        chunk_extent = max(token_bucket, len(tok_np) + max_steps)
+        ladder = self._session_ladder(self.SESSION_CAPACITY)
+        if cont is not None and cont.used_ub + chunk_extent > cont.capacity:
+            needed = cont.used_ub + chunk_extent
+            grow_to = next((b for b in ladder if b >= needed and b > cont.capacity), None)
+            if grow_to is None:
+                log.info(
+                    "continuity session full (%d + %d > %d): resetting", cont.used_ub, chunk_extent, cont.capacity
+                )
+                cont = None
+            else:
+                log.debug("continuity session growing %d -> %d", cont.capacity, grow_to)
+                cont = ContinuationState(self._grow_cache(cont.cache, grow_to), grow_to, cont.used_ub)
+
+        if cont is not None:
+            # Voice conditioning applies on a session's first chunk only;
+            # later chunks inherit it through the carried cache.
+            capacity, cache, voice_emb, used0 = cont.capacity, cont.cache, None, cont.used_ub
+        else:
+            min_needed = bk.round_up(voice_frames + voice_len + token_bucket, 64) + frame_bucket
+            capacity = next((b for b in ladder if b >= min_needed), bk.round_up(min_needed, 64))
+            cache = None
+            if cfg.voice_model_state is not None:
+                cache = self._hydrate_voice_cache(cfg.voice_model_state, capacity)
+            used0 = voice_frames + voice_len
+        cache = self._prefill(ids, len(tok_np), capacity, cache, voice_emb)
+        return cache, capacity, used0, max_steps, decode_steps, frame_bucket, len(tok_np)
+
+    def generate_audio_session(
+        self,
+        tokens,
+        cfg: GenerateConfig,
+        cont: Optional[ContinuationState] = None,
+    ) -> Tuple[np.ndarray, ContinuationState]:
+        """Synthesize one chunk, carrying the KV cache across calls.
+
+        Pass the returned :class:`ContinuationState` as ``cont`` for the
+        next chunk: its text is appended to the live cache after the
+        previous chunk's frames, so prosody flows across the boundary. A
+        chunk that does not fit the session's ceiling resets the session."""
+        with self._compute():
+            cache, capacity, used0, max_steps, decode_steps, frame_bucket, n_tokens = self._session_setup(
+                tokens, cfg, cont
+            )
+            frames, n_frames, carry = self._ar_loop(cache, cfg, max_steps, decode_steps, frame_bucket)
+            audio = self._pcm(frames, n_frames, max_steps, frame_bucket)
+        n = len(audio) // self.model.config.mimi.samples_per_latent
+        if cfg.step_callback is not None:
+            cfg.step_callback(n, max_steps)
+        return audio, ContinuationState(carry["cache"], capacity, used0 + n_tokens + n)
+
+    def stream_generate_session(self, tokens, cfg: GenerateConfig, cont: Optional[ContinuationState] = None):
+        """Frame streaming with continuity for one chunk → ``(blocks,
+        next_state)`` (see :func:`runtime.streaming.stream_generate_session`)."""
+        from go_pocket_tts_tpu_torch.runtime.streaming import stream_generate_session
+
+        return stream_generate_session(self, tokens, cfg, cont)

@@ -1,0 +1,132 @@
+"""Frame-level streaming synthesis on the GPU (counterpart of
+``go_pocket_tts_tpu/runtime/streaming.py``).
+
+The AR loop runs in short segments (4 latent frames = 320 ms of audio
+first, then 8, then 16, capped by the runtime's ``frame_bucket``), and each
+segment goes through the stateful block decoder (``models/mimi_stream.py``,
+whose last two SEANet stages are the cascade kernel), so PCM reaches the
+caller while the utterance is still being generated. Time to first audio
+becomes prefill + one segment of AR steps + one block decode.
+
+Exactness: the block decoder is sample-exact with the whole-sequence
+decoder, and the segments thread the AR carry (cache, frame, countdown,
+``done``, noise generator), so the frames are those of
+``GPURuntime.generate_audio`` for the same seed.
+
+Dispatch is the cost here (the host enqueues an AR step in a few
+milliseconds, longer than the card takes to run it), so unlike the
+reference, which dispatches segment k+1 before it fetches segment k, each
+segment's block is copied to pinned host memory and handed to the caller
+before the next segment is enqueued: the first block is never held back
+behind a second segment's launches.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterator, Optional
+
+import numpy as np
+import torch
+
+from go_pocket_tts_tpu_torch.models import mimi_stream
+from go_pocket_tts_tpu_torch.runtime.generate import ContinuationState, GenerateConfig, HostCopy
+
+__all__ = ["stream_generate", "stream_generate_session"]
+
+SEGMENT_FRAMES = 4  # the first segment: 320 ms of audio
+MAX_SEGMENT_FRAMES = 16  # segments double up to this (and the frame bucket)
+
+
+def stream_generate(runtime, tokens, cfg: GenerateConfig) -> Iterator[np.ndarray]:
+    """Yield float32 PCM blocks for one chunk. ``runtime`` is a
+    :class:`runtime.GPURuntime`; validation, voice conditioning and
+    bucketing are those of its ``generate_audio``."""
+    with runtime._compute():
+        cache, max_steps, decode_steps, frame_bucket, _ = runtime._setup(tokens, cfg)
+    yield from _segment_loop(runtime, cfg, cache, max_steps, decode_steps, frame_bucket)
+
+
+def _segment_loop(runtime, cfg: GenerateConfig, cache: Dict, max_steps: int, decode_steps: int, frame_budget: int):
+    """Run the AR loop in adaptive segments over a prefilled ``cache``,
+    yielding PCM blocks; generator-returns ``(cache, emitted_frames)`` so
+    a session can carry the final KV cache (``yield from``)."""
+    model = runtime.model
+    mimi_cfg = model.config.mimi
+    samples_per = mimi_cfg.samples_per_latent
+    # Every segment is decoded at its full size, so the decoded frames may
+    # pass max_steps by up to one segment: the decoder's K/V capacity
+    # counts that segment too.
+    with runtime._compute():
+        state = mimi_stream.init_stream_state(
+            model.params["mimi"],
+            mimi_cfg,
+            1,
+            (frame_budget + MAX_SEGMENT_FRAMES) * mimi_cfg.steps_per_latent,
+            runtime.dtype,
+        )
+    carry, dispatched, emitted = None, 0, 0
+    seg = SEGMENT_FRAMES
+    while dispatched < max_steps:
+        steps = min(seg, max_steps - dispatched)
+        with runtime._compute():
+            frames, n, carry = runtime._ar_loop(cache, cfg, steps, decode_steps, seg, carry)
+            cache = carry["cache"]
+            mask = (torch.arange(seg, device=frames.device) < n[:, None])[:, :, None]
+            latent = torch.where(mask, frames, torch.zeros((), dtype=frames.dtype, device=frames.device))
+            pcm, state = mimi_stream.decode_block(model.params["mimi"], mimi_cfg, state, model.latent_to_mimi(latent))
+            fetched = [HostCopy(t) for t in (pcm.float(), n, carry["done"])]
+        dispatched += steps
+        pcm_np, n_np, done_np = (h.numpy() for h in fetched)
+        n = int(n_np[0])
+        if n > 0:
+            emitted += n
+            if cfg.step_callback is not None:
+                cfg.step_callback(emitted, max_steps)
+            yield pcm_np[0, 0, : n * samples_per].astype(np.float32)
+        if bool(done_np[0]) or n == 0:
+            break
+        seg = min(seg * 2, MAX_SEGMENT_FRAMES, runtime.frame_bucket)
+    return cache, emitted
+
+
+def stream_generate_session(
+    runtime,
+    tokens,
+    cfg: GenerateConfig,
+    cont: Optional[ContinuationState] = None,
+):
+    """Frame streaming with continuity: one chunk's PCM blocks, resuming
+    from (and handing back) the session's KV cache. Returns ``(blocks,
+    next_state)``: drain ``blocks``, then call ``next_state()`` for the
+    :class:`ContinuationState` of the next chunk (single use). The frames
+    are those of ``GPURuntime.generate_audio_session`` (same setup and
+    prefill, the same AR steps in segments), so at temperature 0 the blocks
+    concatenate to its PCM."""
+    holder: Dict = {}
+    blocks = _stream_session_blocks(runtime, tokens, cfg, cont, holder)
+
+    def next_state() -> ContinuationState:
+        if "cont" not in holder:
+            raise RuntimeError(
+                "stream_generate_session: drain the block iterator before reading the continuation state"
+            )
+        return holder["cont"]
+
+    return blocks, next_state
+
+
+def _stream_session_blocks(
+    runtime,
+    tokens,
+    cfg: GenerateConfig,
+    cont: Optional[ContinuationState],
+    holder: Dict,
+) -> Iterator[np.ndarray]:
+    """Session variant of :func:`stream_generate`; its setup is
+    ``GPURuntime._session_setup``, the plain session's."""
+    with runtime._compute():
+        cache, capacity, used0, max_steps, decode_steps, frame_budget, n_tokens = runtime._session_setup(
+            tokens, cfg, cont
+        )
+    cache, emitted = yield from _segment_loop(runtime, cfg, cache, max_steps, decode_steps, frame_budget)
+    holder["cont"] = ContinuationState(cache, capacity, used0 + n_tokens + emitted)

@@ -1,5 +1,5 @@
-"""safetensors reader and writer (NumPy; counterpart of the tensor part of
-``go_pocket_tts_tpu/utils/safetensors.py``).
+"""safetensors reader and writer (NumPy; counterpart of the tensor and
+voice-file parts of ``go_pocket_tts_tpu/utils/safetensors.py``).
 
 Format: ``[8-byte LE header length][JSON header][raw tensor data]``, with an
 optional ``__metadata__`` entry of string pairs. The reader widens F16 and
@@ -18,7 +18,8 @@ from __future__ import annotations
 import json
 import os
 import struct
-from typing import Dict, List, Mapping, Optional, Union
+from dataclasses import dataclass, field
+from typing import Dict, Iterable, List, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -32,6 +33,14 @@ __all__ = [
     "write_file",
     "pack_nibbles",
     "unpack_nibbles",
+    "VoiceFileKind",
+    "VoiceModelState",
+    "inspect_voice_file",
+    "inspect_voice_file_bytes",
+    "load_voice_embedding",
+    "load_voice_embedding_from_bytes",
+    "load_voice_model_state",
+    "load_voice_model_state_from_bytes",
 ]
 
 _DTYPES = {
@@ -192,3 +201,102 @@ def unpack_nibbles(packed: np.ndarray) -> np.ndarray:
     out[..., 0::2] = low
     out[..., 1::2] = high
     return out
+
+
+# -- voice files ----------------------------------------------------------
+#
+# A voice file is either a legacy prompt embedding (``audio_prompt`` or the
+# first tensor, ``[T, D]`` or ``[1, T, D]``) or upstream model state: per
+# module ``<module>/cache`` ``[2, B, T, H, Dh]`` and ``<module>/offset``
+# (older files name the offset ``current_end``; its first dimension is the
+# offset). Tensors are read as float32.
+
+
+class VoiceFileKind:
+    UNKNOWN = "unknown"
+    EMBEDDING = "embedding"
+    MODEL_STATE = "model_state"
+
+
+@dataclass
+class VoiceModelState:
+    """Upstream voice model state: ``modules[module][key]`` with key
+    ``cache`` ``[2, B, T, H, Dh]`` or ``offset``, as float32 NumPy arrays."""
+
+    modules: Dict[str, Dict[str, np.ndarray]] = field(default_factory=dict)
+
+
+def _is_model_state_tensor_name(name: str) -> bool:
+    slash = name.rfind("/")
+    if slash <= 0 or slash == len(name) - 1:
+        return False
+    return name[slash + 1 :] in ("cache", "offset", "current_end")
+
+
+def _classify_voice_tensor_names(names: Iterable[str]) -> str:
+    names = list(names)
+    if any(_is_model_state_tensor_name(n) for n in names):
+        return VoiceFileKind.MODEL_STATE
+    return VoiceFileKind.EMBEDDING if names else VoiceFileKind.UNKNOWN
+
+
+def _read(path: str | os.PathLike) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def _voice_tensors(data: bytes) -> Dict[str, np.ndarray]:
+    """Every tensor of a voice file as float32, in name order."""
+    tensors = load_bytes(data)
+    return {name: tensors[name].astype(np.float32, copy=False) for name in sorted(tensors)}
+
+
+def inspect_voice_file_bytes(data: bytes) -> str:
+    return _classify_voice_tensor_names(load_bytes(data))
+
+
+def inspect_voice_file(path: str | os.PathLike) -> str:
+    return inspect_voice_file_bytes(_read(path))
+
+
+def load_voice_embedding_from_bytes(data: bytes) -> np.ndarray:
+    """A legacy voice embedding as float32 ``[1, T, D]``."""
+    tensors = _voice_tensors(data)
+    if _classify_voice_tensor_names(tensors) == VoiceFileKind.MODEL_STATE:
+        raise SafetensorsError(
+            "safetensors: voice file contains upstream model state, not a legacy audio_prompt embedding"
+        )
+    if not tensors:
+        raise SafetensorsError("safetensors: no tensors found")
+    arr = tensors["audio_prompt"] if "audio_prompt" in tensors else next(iter(tensors.values()))
+    if arr.ndim == 2:
+        return arr[None, :, :]
+    if arr.ndim == 3:
+        return arr
+    raise SafetensorsError(f"safetensors: voice embedding has {arr.ndim}D shape {arr.shape}, expected 2D or 3D")
+
+
+def load_voice_embedding(path: str | os.PathLike) -> np.ndarray:
+    return load_voice_embedding_from_bytes(_read(path))
+
+
+def load_voice_model_state_from_bytes(data: bytes) -> VoiceModelState:
+    tensors = _voice_tensors(data)
+    kind = _classify_voice_tensor_names(tensors)
+    if kind != VoiceFileKind.MODEL_STATE:
+        raise SafetensorsError(f"safetensors: voice file kind {kind!r} is not upstream model state")
+    state = VoiceModelState()
+    for name, arr in tensors.items():
+        slash = name.rfind("/")
+        if slash <= 0 or slash == len(name) - 1:
+            raise SafetensorsError(f"safetensors: invalid model-state tensor name {name!r}")
+        module_name, key = name[:slash], name[slash + 1 :]
+        if key == "current_end":
+            key = "offset"
+            arr = np.array([float(arr.shape[0] if arr.ndim else 0)], dtype=np.float32)
+        state.modules.setdefault(module_name, {})[key] = arr
+    return state
+
+
+def load_voice_model_state(path: str | os.PathLike) -> VoiceModelState:
+    return load_voice_model_state_from_bytes(_read(path))

@@ -245,3 +245,97 @@ def test_tiny_int4_batcher_kernels_match_plain(card, monkeypatch):
     for g, w in zip(got, want):
         assert g.shape == w.shape == (8 * 1920,)
         assert np.sqrt(np.mean((g - w) ** 2)) < 1e-3
+
+
+def _up2_weights(gen, card, dtype):
+    """up2 + res2, then up3 + res3 + final conv, at the kernels' widths."""
+
+    def rnd(*shape, scale=0.1):
+        return (torch.randn(shape, generator=gen, device=card) * scale).to(dtype)
+
+    wu2 = repack_conv_transpose_kernel(torch.randn((256, 128, 10), generator=gen, device=card) * 0.05).to(dtype)
+    wu3 = repack_conv_transpose_kernel(torch.randn((128, 64, 8), generator=gen, device=card) * 0.1).to(dtype)
+    up2 = [wu2, rnd(128), rnd(64, 128, 3), rnd(64), rnd(128, 64, 1), rnd(128)]
+    rest = [wu3, rnd(64), rnd(32, 64, 3), rnd(32), rnd(64, 32, 1), rnd(64), rnd(1, 64, 7), rnd(1)]
+    return up2, up2 + rest
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_up2_kernels(card, dtype):
+    """Kernels 7 and 8 at 96 input columns (one latent frame), a length the
+    reference gates refuse (they take multiples of 128)."""
+    gen = torch.Generator(device=card).manual_seed(4)
+    up2, weights = _up2_weights(gen, card, dtype)
+    x = (torch.randn((2, 256, 96), generator=gen, device=card) * 0.5).to(dtype)
+    assert not st.supports_up2(256, 96, 10) and not st.supports_cascade(256, 96, 10, 8)
+    kernels.reset_launches()
+    _close(st.fused_up2_res(x, *up2), st.fused_up2_res_plain(x, *up2), dtype)
+    _close(st.fused_up2_up3_tail(x, *weights), st.fused_up2_up3_tail_plain(x, *weights), dtype)
+    assert st.fused_up2_res.launches == st.fused_up2_up3_tail.launches == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cascade_stream_with_mixed_starts(card, dtype):
+    """One block of the streaming cascade on lanes at start 0 (zero halo),
+    2 (a halo that reaches before the stream), 96 and 960, against the plain
+    streaming version."""
+    gen = torch.Generator(device=card).manual_seed(5)
+    _, weights = _up2_weights(gen, card, dtype)
+    x = (torch.randn((4, 256, 192), generator=gen, device=card) * 0.5).to(dtype)
+    halo = (torch.randn((4, 256, st.HALO), generator=gen, device=card) * 0.5).to(dtype)
+    halo[0] = 0
+    start = torch.tensor([0, 2, 96, 960], dtype=torch.int32, device=card)
+    got = st.fused_up2_up3_tail_stream(x, halo, start, *weights)
+    _close(got, st.fused_up2_up3_tail_stream_plain(x, halo, start, *weights), dtype)
+    # Lane 0 is the whole-sequence function of its block.
+    _close(got[:1], st.fused_up2_up3_tail(x[:1].contiguous(), *weights), dtype)
+
+
+def test_up2_wrappers_raise_on_what_the_kernels_do_not_take(card):
+    gen = torch.Generator(device=card).manual_seed(6)
+    up2, weights = _up2_weights(gen, card, torch.float32)
+    x16 = torch.zeros((1, 256, 96), device=card, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        st.fused_up2_res(x16, *(w.half() for w in up2))
+    with pytest.raises(TypeError):
+        st.fused_up2_up3_tail(x16, *(w.half() for w in weights))
+    with pytest.raises(ValueError):
+        st.fused_up2_res(torch.zeros((1, 256, 100), device=card), *up2)  # not a multiple of 8
+    with pytest.raises(ValueError):
+        st.fused_up2_up3_tail(torch.zeros((1, 256, 48), device=card), *weights)  # not a multiple of 32
+    x = torch.zeros((2, 256, 96), device=card)
+    with pytest.raises(ValueError, match="start"):
+        st.fused_up2_up3_tail_stream(x, torch.zeros((2, 256, st.HALO), device=card), torch.zeros(2, device=card), *weights)
+    with pytest.raises(ValueError):
+        st.fused_up2_up3_tail_stream(x, torch.zeros((2, 256, 4), device=card), torch.zeros(2, dtype=torch.int32, device=card), *weights)
+
+
+def test_stream_decoder_on_card_matches_plain(card, monkeypatch):
+    """A SEANet at the kernels' widths on the card: the whole decode runs
+    kernel 7 (then kernel 2), the block decoder runs kernel 8, each block
+    agrees with the plain run and the blocks with the whole decode."""
+    from go_pocket_tts_tpu_torch.models import mimi_stream
+
+    arch = dataclasses.replace(synthetic.tiny_arch(), seanet_channels=(32, 256, 128, 64))
+    model = load_model_from_tensors(synthetic.build_checkpoint(arch, seed=3), num_heads=arch.num_heads, device=card)
+    params, cfg = model.params["mimi"], model.config.mimi
+    latent = torch.randn((1, arch.mimi_dim, 16), generator=torch.Generator(device=card).manual_seed(1), device=card) * 0.1
+
+    def stream():
+        state = mimi_stream.init_stream_state(params, cfg, 1, 16 * cfg.steps_per_latent)
+        outs, pos = [], 0
+        for n in (1, 3, 4, 8):
+            pcm, state = mimi_stream.decode_block(params, cfg, state, latent[:, :, pos : pos + n])
+            outs.append(pcm)
+            pos += n
+        return torch.cat(outs, dim=2)
+
+    kernels.reset_launches()
+    whole = model.mimi_decode(latent)
+    got = stream()
+    assert st.fused_up2_res.launches == 1 and st.fused_seanet_up_tail.launches == 1
+    assert st.fused_up2_up3_tail.launches == 4
+    monkeypatch.setattr(st, "fused_up2_up3_tail_stream", st.fused_up2_up3_tail_stream_plain)
+    plain = stream()
+    _close(got, plain, torch.float32)
+    _close(got, whole, torch.float32)

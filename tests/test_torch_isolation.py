@@ -92,6 +92,48 @@ print("NO-JAX-INT4-OK", len(quantized))
 """
 
 
+_STREAM_SCRIPT = _SCRIPT[: _SCRIPT.index("import numpy as np")] + r"""
+import os, tempfile
+import numpy as np
+from go_pocket_tts_tpu_torch.models import synthetic
+from go_pocket_tts_tpu_torch.models.model import load_model_from_tensors
+from go_pocket_tts_tpu_torch.runtime import GenerateConfig, GPURuntime, stream_generate, stream_generate_session
+from go_pocket_tts_tpu_torch.utils.safetensors import load_voice_embedding, load_voice_model_state, write_file
+
+arch = synthetic.tiny_arch()
+model = load_model_from_tensors(synthetic.build_checkpoint(arch, seed=4), num_heads=arch.num_heads, device="cpu")
+rt = GPURuntime(model, seed=1, frame_bucket=64, device="cpu")
+cfg = GenerateConfig(temperature=0.7, eos_threshold=1e9, max_steps=6)
+blocks = list(stream_generate(rt, [3, 17, 41], cfg))
+assert [len(b) for b in blocks] == [4 * 1920, 2 * 1920], [len(b) for b in blocks]
+cont = None
+for chunk in ([3, 17, 41], [5, 9]):
+    blocks, next_state = stream_generate_session(rt, chunk, cfg, cont)
+    assert sum(len(b) for b in blocks) == 6 * 1920
+    cont = next_state()
+audio, cont = rt.generate_audio_session([7, 1], cfg, cont)
+assert audio.shape == (6 * 1920,) and cont.used_ub == 3 + 6 + 2 + 6 + 2 + 6, cont.used_ub
+rng = np.random.RandomState(0)
+head_dim = arch.d_model // arch.num_heads
+state = {}
+for i in range(arch.num_layers):
+    state[f"transformer.layers.{i}.self_attn/cache"] = rng.randn(2, 1, 5, arch.num_heads, head_dim).astype(np.float32)
+    state[f"transformer.layers.{i}.self_attn/offset"] = np.array([5.0], np.float32)
+with tempfile.TemporaryDirectory() as tmp:
+    write_file(os.path.join(tmp, "emb.safetensors"), {"audio_prompt": rng.randn(4, arch.d_model).astype(np.float32)})
+    write_file(os.path.join(tmp, "state.safetensors"), state)
+    voices = [
+        GenerateConfig(temperature=0.0, eos_threshold=1e9, max_steps=3, voice_embedding=load_voice_embedding(os.path.join(tmp, "emb.safetensors"))),
+        GenerateConfig(temperature=0.0, eos_threshold=1e9, max_steps=3, voice_model_state=load_voice_model_state(os.path.join(tmp, "state.safetensors"))),
+    ]
+for vcfg in voices:
+    voiced = rt.generate_audio([3, 17, 41], vcfg)
+    assert voiced.shape == (3 * 1920,) and np.isfinite(voiced).all()
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "go_pocket_tts_tpu") for m in sys.modules)
+print("NO-JAX-STREAM-OK")
+"""
+
+
 def _run_blocked(script: str) -> str:
     proc = subprocess.run(
         [sys.executable, "-c", script],
@@ -113,6 +155,13 @@ def test_port_serves_an_int4_artifact_with_jax_blocked():
     """Export an int4 artifact, write it, load it and serve it on both
     runtimes, with jax and the JAX package unimportable."""
     assert "NO-JAX-INT4-OK" in _run_blocked(_INT4_SCRIPT)
+
+
+def test_port_streams_runs_sessions_and_takes_a_voice_with_jax_blocked():
+    """Frame streaming, a streamed and a plain session, and both kinds of
+    voice file (written, loaded and conditioned on), with jax and the JAX
+    package unimportable."""
+    assert "NO-JAX-STREAM-OK" in _run_blocked(_STREAM_SCRIPT)
 
 
 PORT_FILES = sorted(str(p.relative_to(ROOT)) for p in (ROOT / "go_pocket_tts_tpu_torch").rglob("*.py"))

@@ -243,6 +243,8 @@ def test_wrappers_and_meta_line_up():
         "batched_decode_attention_int8",
         "quantized_matmul",
         "int4_matmul",
+        "fused_up2_res",
+        "fused_up2_up3_tail",
     ]
     assert len(kernels.META) == len(kernels.WRAPPERS)
     for meta in kernels.META:
@@ -267,3 +269,107 @@ def test_build_without_nvcc_raises(monkeypatch):
     monkeypatch.setattr(build.os.path, "exists", lambda p: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build._nvcc()
+
+
+def _up2_inputs(rng, batch, t_in):
+    x = (rng.randn(batch, 256, t_in) * 0.5).astype(np.float32)
+    wu2 = _np(j_repack(jnp.asarray((rng.randn(256, 128, 10) * 0.05).astype(np.float32))))
+    up2 = [wu2] + [
+        (rng.randn(*shape) * 0.1).astype(np.float32) for shape in ((128,), (64, 128, 3), (64,), (128, 64, 1), (128,))
+    ]
+    return x, up2
+
+
+def _up3_tail_inputs(rng):
+    wu3 = _np(j_repack(jnp.asarray((rng.randn(128, 64, 8) * 0.1).astype(np.float32))))
+    return [wu3, (rng.randn(64) * 0.1).astype(np.float32)] + _tail_weights(rng)
+
+
+@pytest.mark.parametrize("blocks,batch", [(1, 1), (2, 2)])
+def test_fused_up2_res_plain_matches_pallas(blocks, batch):
+    rng = np.random.RandomState(blocks + 7 * batch)
+    x, up2 = _up2_inputs(rng, batch, 128 * blocks)
+    want = j_st.fused_up2_res(*(jnp.asarray(a) for a in (x, *up2)), interpret=True)
+    got = t_st.fused_up2_res(*(torch.from_numpy(a) for a in (x, *up2)))
+    assert got.shape == (batch, 128, 5 * 128 * blocks) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=CONV_ATOL, rtol=CONV_RTOL)
+
+
+def test_fused_up2_up3_tail_plain_matches_pallas():
+    rng = np.random.RandomState(13)
+    x, up2 = _up2_inputs(rng, 1, 128)
+    rest = _up3_tail_inputs(rng)
+    want = j_st.fused_up2_up3_tail(*(jnp.asarray(a) for a in (x, *up2, *rest)), interpret=True)
+    got = t_st.fused_up2_up3_tail(*(torch.from_numpy(a) for a in (x, *up2, *rest)))
+    assert got.shape == (1, 1, 20 * 128)
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=CONV_ATOL, rtol=CONV_RTOL)
+
+
+def test_fused_up2_up3_tail_plain_matches_xla_chain():
+    """Blocks 3, batch 2 against the JAX package's five-stage op chain (the
+    reference the Pallas cascade is held to)."""
+    import jax
+
+    from go_pocket_tts_tpu.ops.conv import causal_conv1d, conv_transpose1d_trim
+
+    rng = np.random.RandomState(3 + 13 * 2)
+    x, up2 = _up2_inputs(rng, 2, 3 * 128)
+    rest = _up3_tail_inputs(rng)
+    wu2, bu2, w1r2, b1r2, w2r2, b2r2 = (jnp.asarray(a) for a in up2)
+    wu3, bu3, w1r3, b1r3, w2r3, b2r3, wf, bf = (jnp.asarray(a) for a in rest)
+    y2 = conv_transpose1d_trim(jnp.asarray(x), wu2, bu2, 5, 1)
+    h = causal_conv1d(jax.nn.elu(causal_conv1d(jax.nn.elu(y2), w1r2, b1r2)), w2r2, b2r2)
+    y3 = conv_transpose1d_trim(jax.nn.elu(y2 + h), wu3, bu3, 4, 1)
+    r = causal_conv1d(jax.nn.elu(causal_conv1d(jax.nn.elu(y3), w1r3, b1r3)), w2r3, b2r3)
+    want = causal_conv1d(jax.nn.elu(y3 + r), wf, bf)
+    got = t_st.fused_up2_up3_tail(*(torch.from_numpy(a) for a in (x, *up2, *rest)))
+    assert got.shape == want.shape == (2, 1, 20 * 3 * 128)
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=CONV_ATOL, rtol=CONV_RTOL)
+
+
+def test_fused_up2_up3_tail_stream_concatenates_to_whole():
+    """Blocks of 1, 3 and 4 latent frames (96 up2-input columns each) with a
+    carried halo and per-lane ``start``: lane 1 joins at the second block
+    (start 0, zero halo) beside lane 0 (start 96), so a batch mixes both
+    kinds of lane; each lane's blocks concatenate to its whole-sequence
+    output."""
+    rng = np.random.RandomState(5)
+    x, up2 = _up2_inputs(rng, 2, 96 * 8)
+    weights = [torch.from_numpy(a) for a in (*up2, *_up3_tail_inputs(rng))]
+    xt = torch.from_numpy(x)
+    whole = [t_st.fused_up2_up3_tail(xt[i : i + 1], *weights) for i in range(2)]
+    halo = torch.zeros((2, 256, t_st.HALO))
+    start = torch.zeros((2,), dtype=torch.int32)
+    pos = [0, 0]
+    outs = [[], []]
+    for frames, lanes_live in ((1, (True, False)), (3, (True, True)), (4, (True, True))):
+        n = 96 * frames
+        blk = torch.stack([xt[i, :, pos[i] : pos[i] + n] for i in range(2)])
+        pcm = t_st.fused_up2_up3_tail_stream(blk, halo, start, *weights)
+        assert pcm.shape == (2, 1, 20 * n)
+        for i, live in enumerate(lanes_live):
+            if live:
+                outs[i].append(pcm[i : i + 1])
+                pos[i] += n
+        keep = torch.tensor(lanes_live)
+        halo = torch.where(keep[:, None, None], torch.cat([halo, blk], dim=2)[:, :, -t_st.HALO :], halo)
+        start = torch.where(keep, start + n, start)
+    for i in range(2):
+        got = torch.cat(outs[i], dim=2)
+        np.testing.assert_allclose(got.numpy(), whole[i][..., : got.shape[-1]].numpy(), atol=1e-5, rtol=1e-5)
+    assert pos == [96 * 8, 96 * 7]
+
+
+@pytest.mark.parametrize("c_in,t_in,k", [(256, 128, 10), (256, 1536, 10), (256, 96, 10), (128, 128, 10), (256, 128, 8), (256, 0, 10)])
+def test_up2_gate_matches_reference(c_in, t_in, k):
+    assert t_st.supports_up2(c_in, t_in, k) == j_st.supports_up2(c_in, t_in, k)
+
+
+@pytest.mark.parametrize(
+    "c_in,t_in,k2,k3",
+    [(256, 128, 10, 8), (256, 384, 10, 8), (256, 96, 10, 8), (128, 128, 10, 8), (256, 128, 8, 8), (256, 128, 10, 10)],
+)
+def test_cascade_gate_matches_reference(c_in, t_in, k2, k3):
+    assert t_st.supports_cascade(c_in, t_in, k2, k3) == j_st.supports_cascade(c_in, t_in, k2, k3)
+    # The CUDA cascade's own gate takes every block of whole latent frames.
+    assert t_st.supports_stream(c_in, t_in, k2, k3) == (c_in == 256 and (k2, k3) == (10, 8) and t_in % 32 == 0)

@@ -226,3 +226,21 @@ def test_safetensors_reader_reads_the_reference_encoding(tmp_path):
         np.testing.assert_array_equal(decoded[name], arr.astype(np.float32))
     with pytest.raises(t_st_io.SafetensorsError):
         t_st_io.load_bytes(b"\x00" * 4)
+
+
+def test_mimi_decode_takes_the_up2_kernel(monkeypatch):
+    """Under a SEANet whose up2 stage has the kernel's widths (256 → 128),
+    the port's decode runs ``fused_up2_res`` (then the fused up3 tail) and
+    matches the JAX package's decode, which runs the same stages as ops."""
+    arch = dataclasses.replace(ARCH, seanet_channels=(32, 256, 128, 64))
+    jm = jax_model(arch, seed=5)
+    tm = load_model_from_tensors(t_syn.build_checkpoint(arch, seed=5), num_heads=arch.num_heads, device="cpu")
+    latent = np.random.RandomState(4).randn(1, arch.mimi_dim, 32).astype(np.float32) * 0.3
+    calls = []
+    real = t_st.fused_up2_res
+    monkeypatch.setattr(t_st, "fused_up2_res", lambda *a: calls.append(a[0].shape) or real(*a))
+    got = t_mimi.mimi_decode(tm.params["mimi"], tm.config.mimi, torch.from_numpy(latent))
+    assert calls == [torch.Size([1, 256, 32 * 96])]
+    want = j_mimi.mimi_decode(jm.params["mimi"], jm.config.mimi, jnp.asarray(latent))
+    assert got.shape == (1, 1, 32 * 1920)
+    close(got, want, *TOLERANCES["conv1d"])
