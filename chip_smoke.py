@@ -11,11 +11,15 @@ failure exits non-zero:
 2. hold each kernel against its plain PyTorch version on the card, at the
    main paths' shapes, and time both (CUDA events, device time from
    CUDA-graph replay) beside its bound and a library call where one exists:
-   decode attention and the SEANet tails (float32 and bfloat16), batched
-   decode attention at 8 lanes x 16 heads x 384 slots with random lane
-   offsets (float and int8 caches), and the int8 and int4 matmuls at the
-   real model's linear shapes with 1, 8 and 64 rows (the int4 one beside
-   the int8 one and a matmul on the dequantized weight);
+   decode attention (also at every split boundary of its split-KV plan) and
+   the SEANet tails (float32 and bfloat16), batched decode attention at 8
+   lanes x 16 heads x 384 slots with random lane offsets and at the split
+   boundaries (float and int8 caches), beside the fused step the batcher
+   runs (RoPE, int8 row quantization, row write and attention, its written
+   rows and scales bit-equal to its plain version's), and the int8 and
+   int4 matmuls at the real model's linear shapes with 1, 8 and 64 rows
+   (the int4 one beside the int8 one and a matmul on the dequantized
+   weight);
 3. the single-utterance path: ``real_arch()`` weights from a fixed seed,
    bfloat16 on the card, ``GPURuntime.generate_audio`` on three requests (a
    warm-up request first), then one ``PocketTTSModel.mimi_decode`` of a
@@ -166,8 +170,19 @@ def dname(dtype: torch.dtype) -> str:
 # -- phase 2: kernels against their plain versions -------------------------------
 
 
+# Times of the first designs of kernels 1 and 4 (one block per pair), from
+# this phase on an NVIDIA H100 80GB HBM3 at 700.00 W, printed beside this
+# run's for reference.
+FIRST_DESIGN_MS = {
+    "decode_attention_step": 0.01636,
+    "batched_decode_attention": 0.01310,
+    "batched_decode_attention_int8": 0.01266,
+}
+
+
 def check_decode_attention(rows: dict) -> None:
     from go_pocket_tts_tpu_torch.kernels import decode_attention as da
+    from go_pocket_tts_tpu_torch.kernels.split_kv import boundary_offsets
     from go_pocket_tts_tpu_torch.ops import build_rope_tables
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -180,7 +195,9 @@ def check_decode_attention(rows: dict) -> None:
 
             q, k_new, v_new = rnd(b, h, 1, d), rnd(b, h, 1, d), rnd(b, h, 1, d)
             kc, vc = rnd(n_layers, b, h, cap, d, scale=0.3), rnd(n_layers, b, h, cap, d, scale=0.3)
-            for off in (0, cap // 2, cap - 1):
+            timed = (0, cap // 2, cap - 1)
+            edges = boundary_offsets(cap, b * h)
+            for off in sorted(set(timed) | set(edges)):
                 offset = torch.tensor(off, dtype=torch.int32, device="cuda")
                 kk, vk = kc.clone(), vc.clone()
                 kp, vp = kc.clone(), vc.clone()
@@ -194,6 +211,9 @@ def check_decode_attention(rows: dict) -> None:
                     max_err(kk, kp, dtype, what + " k_cache"),
                     max_err(vk, vp, dtype, what + " v_cache"),
                 )
+                if off not in timed:
+                    continue
+
                 def run():
                     return da.decode_attention_step(q, k_new, kk, vk, v_new, offset, cos, sin, layer)
 
@@ -211,8 +231,11 @@ def check_decode_attention(rows: dict) -> None:
                 bytes_moved = es * bh * d * (3 + 2 * (off + 1) + 2 + 1) + 2 * 4 * (d // 2)
                 flops = 4.0 * bh * (off + 1) * d
                 b_ms, b_by = bound(bytes_moved, flops, dtype)
+                first = ""
+                if dtype == torch.bfloat16 and cap == 320 and off == cap - 1:
+                    first = f" (first design {FIRST_DESIGN_MS['decode_attention_step']:.5f} ms)"
                 print(
-                    f"  {what}: max_abs_err {err:.3e}  kernel {ms:.5f} ms (eager call {call_ms:.4f} ms)  "
+                    f"  {what}: max_abs_err {err:.3e}  kernel {ms:.5f} ms{first} (eager call {call_ms:.4f} ms)  "
                     f"plain {plain_ms:.5f} ms  sdpa {lib_ms:.5f} ms  bound {b_ms:.5f} ms ({b_by})  [{CARD}]"
                 )
                 if dtype == torch.bfloat16 and cap == 320 and off == cap - 1:
@@ -220,6 +243,7 @@ def check_decode_attention(rows: dict) -> None:
                         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                         bound_by=b_by, library_ms=lib_ms,
                     )
+            print(f"  decode_attention {dname(dtype)} C={cap}: kernel = plain at offsets {edges}")
 
 
 def _tail_inputs(gen, dtype, up: bool):
@@ -364,8 +388,15 @@ def check_up2(rows: dict) -> None:
 
 
 def check_batched_decode_attention(rows: dict) -> None:
+    """Kernel 4's attention-only entries (the Pallas kernel's counterparts)
+    at random lane offsets and at the split boundaries, and the fused step
+    the batcher runs (RoPE, row quantization and row write, then the same
+    attention), whose written rows and scales must be bit-equal to its
+    plain version's."""
     from go_pocket_tts_tpu_torch.kernels import batched_decode_attention as bda
+    from go_pocket_tts_tpu_torch.kernels.split_kv import boundary_offsets
     from go_pocket_tts_tpu_torch.models.quantize import quantize_kv_rows
+    from go_pocket_tts_tpu_torch.ops import build_rope_tables
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     n_layers, b, h, c, d, layer = 6, 8, 16, 384, 64, 3
@@ -373,7 +404,14 @@ def check_batched_decode_attention(rows: dict) -> None:
     offsets[0] = c - 1  # one lane reads its whole cache
     visible = int((offsets.long() + 1).sum())  # rows a head reads, over the lanes
     lane_mask = (torch.arange(c, device="cuda")[None, :] <= offsets.long()[:, None])[:, None, None, :]
-    print(f"  batched decode attention: lane offsets {offsets.tolist()}")
+    cos, sin = (t.cuda() for t in build_rope_tables(8192, d))
+    # Lanes 1..7 of each set take the boundary offsets; lane 0 reads all.
+    edges = boundary_offsets(c, b * h)
+    edge_sets = [
+        torch.tensor(([c - 1] + edges[i : i + b - 1] + [0] * b)[:b], dtype=torch.int32, device="cuda")
+        for i in range(0, len(edges), b - 1)
+    ]
+    print(f"  batched decode attention: lane offsets {offsets.tolist()}; boundary offsets {edges}")
     for int8 in (False, True):
         name = "batched_decode_attention_int8" if int8 else "batched_decode_attention"
         kernel, plain = getattr(bda, name), getattr(bda, name + "_plain")
@@ -382,11 +420,20 @@ def check_batched_decode_attention(rows: dict) -> None:
             k, v = ((torch.randn((n_layers, b, h, c, d), generator=gen, device="cuda") * 0.3).to(dtype) for _ in range(2))
             if int8:
                 (kq, ks), (vq, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
-                args = (q, kq, ks, vq, vs, offsets, layer)
+                bufs, buf_names = [kq, ks, vq, vs], ("k", "k_scale", "v", "v_scale")
+
+                def attend(offs):
+                    return (q, kq, ks, vq, vs, offs, layer)
             else:
-                args = (q, k, v, offsets, layer)
+                bufs, buf_names = [k, v], ("k", "v")
+
+                def attend(offs):
+                    return (q, k, v, offs, layer)
             what = f"{name} {dname(dtype)} B={b} H={h} C={c}"
+            args = attend(offsets)
             err = max_err(kernel(*args), plain(*args), dtype, what)
+            for offs in edge_sets:
+                err = max(err, max_err(kernel(*attend(offs)), plain(*attend(offs)), dtype, f"{what} offsets {offs.tolist()}"))
             ms, plain_ms = device_ms(lambda: kernel(*args)), device_ms(lambda: plain(*args))
             lib_ms = None
             if not int8:  # yardstick: SDPA with a per-lane boolean mask
@@ -398,13 +445,42 @@ def check_batched_decode_attention(rows: dict) -> None:
             bytes_moved = 2 * es * b * h * d + 4 * b + 2 * h * visible * row_bytes
             b_ms, b_by = bound(bytes_moved, 4.0 * h * visible * d, dtype)
             lib = "none" if lib_ms is None else f"{lib_ms:.5f} ms"
+            first = f" (first design {FIRST_DESIGN_MS[name]:.5f} ms)" if dtype == torch.bfloat16 else ""
             print(
-                f"  {what}: max_abs_err {err:.3e}  kernel {ms:.5f} ms  plain {plain_ms:.5f} ms  "
+                f"  {what}: max_abs_err {err:.3e}  kernel {ms:.5f} ms{first}  plain {plain_ms:.5f} ms  "
                 f"sdpa {lib}  bound {b_ms:.5f} ms ({b_by})  [{CARD}]"
+            )
+
+            # The fused step, with q, k_new, v_new views into one QKV projection.
+            qv, kv, vv = torch.randn((b, 1, 3 * h * d), generator=gen, device="cuda").to(dtype).reshape(
+                b, 1, 3, h, d
+            ).permute(2, 0, 3, 1, 4)
+
+            def step(fn, bb, offs):
+                scales = (bb[1], bb[3]) if int8 else (None, None)
+                kc, vc = (bb[0], bb[2]) if int8 else (bb[0], bb[1])
+                return fn(qv, kv, vv, kc, vc, offs, cos, sin, layer, *scales)
+
+            step_err = 0.0
+            for offs in [offsets] + edge_sets:
+                mine, ref = [x.clone() for x in bufs], [x.clone() for x in bufs]
+                got = step(bda.batched_decode_attention_step, mine, offs)
+                want = step(bda.batched_decode_attention_step_plain, ref, offs)
+                step_err = max(step_err, max_err(got, want, dtype, f"{what} fused step offsets {offs.tolist()}"))
+                for buf_name, x, y in zip(buf_names, mine, ref):
+                    if not torch.equal(x, y):
+                        fail(f"{what} fused step: {buf_name} not bit-equal to the plain version's ({offs.tolist()})")
+            step_ms = device_ms(lambda: step(bda.batched_decode_attention_step, mine, offsets))
+            step_plain_ms = device_ms(lambda: step(bda.batched_decode_attention_step_plain, ref, offsets))
+            print(
+                f"  {what} fused step (RoPE, {'row quantization, ' if int8 else ''}row write, attention): "
+                f"max_abs_err {step_err:.3e}, written {'/'.join(buf_names)} bit-equal to plain  "
+                f"kernel {step_ms:.5f} ms (attention alone {ms:.5f} ms)  plain {step_plain_ms:.5f} ms  [{CARD}]"
             )
             if dtype == torch.bfloat16:
                 rows[name].update(
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms
+                    max_abs_err=max(err, step_err), ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=lib_ms, fused_step_ms=step_ms, fused_step_plain_ms=step_plain_ms,
                 )
 
 
@@ -661,6 +737,7 @@ def plain_versions():
         (st, "fused_seanet_tail", st.fused_seanet_tail_plain),
         (bda, "batched_decode_attention", bda.batched_decode_attention_plain),
         (bda, "batched_decode_attention_int8", bda.batched_decode_attention_int8_plain),
+        (bda, "batched_decode_attention_step", bda.batched_decode_attention_step_plain),
         (qmm, "quantized_matmul", qmm.quantized_matmul_plain),
         (i4mm, "int4_matmul", i4mm.int4_matmul_plain),
         (st, "fused_up2_res", st.fused_up2_res_plain),

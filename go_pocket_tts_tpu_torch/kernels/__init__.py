@@ -17,6 +17,11 @@ seanet_tail.fused_up2_up3_tail (and its stream)    seanet_tail.py: fused_up2_up3
 
 Each wrapper runs its plain PyTorch version for CPU tensors and launches its
 kernel for CUDA tensors (or raises), counting launches in ``.launches``.
+The batcher calls ``batched_decode_attention.batched_decode_attention_step``,
+the same kernel with the step's RoPE, int8 row quantization and row write
+fused in; its launches count under the attention wrapper of its cache kind.
+Kernels 1 and 4 share ``csrc/split_kv_attention.cuh`` and
+``split_kv.split_plan``.
 """
 
 from go_pocket_tts_tpu_torch.kernels import (

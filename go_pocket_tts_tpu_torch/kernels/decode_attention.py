@@ -16,6 +16,11 @@ Counterpart of ``go_pocket_tts_tpu/ops/pallas/decode_attention.py``
 there, so the AR loop launches it without a host sync. Out-of-range offsets
 clamp as the reference's dynamic slices do.
 
+The kernel splits each (b, h) pair's rows among a cluster of blocks
+(:func:`~go_pocket_tts_tpu_torch.kernels.split_kv.split_plan`, chosen from
+the capacity and ``B·H``) and merges their partial softmaxes on the card,
+in the same launch.
+
 :func:`decode_attention_step` runs the plain version for CPU tensors and the
 CUDA kernel for CUDA tensors (or raises); it counts kernel launches in
 ``decode_attention_step.launches``.
@@ -29,14 +34,15 @@ from typing import Tuple
 import torch
 
 from go_pocket_tts_tpu_torch.kernels import build
+from go_pocket_tts_tpu_torch.kernels.split_kv import split_plan
 from go_pocket_tts_tpu_torch.ops.attention import masked_softmax
 
 __all__ = ["decode_attention_step", "decode_attention_step_plain", "HEAD_DIM"]
 
 HEAD_DIM = 64  # the only head width the CUDA kernel is built for
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# Scores live in dynamic shared memory (4 B a slot); with the 2.3 KB of
-# static shared memory they must stay under the 48 KB a launch gets unasked.
+# The longest cache the split plan and the card tests cover (the model's
+# max_seq).
 _MAX_CAPACITY = 8192
 
 Out = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -107,6 +113,9 @@ def _check(q, k_new, k_cache, v_cache, v_new, offset, rope_cos, rope_sin, layer)
             )
     if d != HEAD_DIM:
         raise ValueError(f"decode_attention_step: head dim {d} != {HEAD_DIM}")
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"decode_attention_step: {name} must be 16-byte aligned (bulk copies)")
     if not 0 < c_cap <= _MAX_CAPACITY:
         raise ValueError(f"decode_attention_step: capacity {c_cap} outside (0, {_MAX_CAPACITY}]")
     if not 0 <= layer < n_layers:
@@ -129,7 +138,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.decode_attention_step
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     return lib
 
 
@@ -152,6 +161,7 @@ def decode_attention_step(
         )
     _check(q, k_new, k_cache, v_cache, v_new, offset, rope_cos, rope_sin, layer)
     n_layers, b, h, c_cap, d = k_cache.shape
+    splits, rows = split_plan(c_cap, b * h)
     out = torch.empty_like(q)
     err = _lib().decode_attention_step(
         _DTYPE_CODES[q.dtype],
@@ -169,6 +179,8 @@ def decode_attention_step(
         d,
         layer,
         rope_cos.shape[0],
+        splits,
+        rows,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:

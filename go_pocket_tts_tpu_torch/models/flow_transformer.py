@@ -20,8 +20,8 @@ use plain PyTorch.
 The continuous batcher's step, :func:`transformer_step_batched`, keeps one
 offset per lane (``offset`` int32 ``[B]``) and, optionally, an int8 cache
 with per-row float32 scales (``k_scale``/``v_scale`` ``[L,B,H,C]``); its
-attention goes through the batched decode-attention kernel wrappers
-(``kernels/batched_decode_attention.py``).
+RoPE, row quantization, row writes and attention go through the fused
+batched decode-attention step (``kernels/batched_decode_attention.py``).
 """
 
 from __future__ import annotations
@@ -40,7 +40,6 @@ from go_pocket_tts_tpu_torch.models.params import (
     layer_norm_params,
     linear_params,
 )
-from go_pocket_tts_tpu_torch.models.quantize import quantize_kv_rows
 from go_pocket_tts_tpu_torch.ops import (
     apply_rope_rows,
     attention_with_positions,
@@ -259,16 +258,6 @@ def transformer_forward_cached(
     return x, {"k": k_all, "v": v_all, "offset": offset + valid}
 
 
-def _write_rows(buf: torch.Tensor, lanes: torch.Tensor, rows: torch.Tensor, keep: torch.Tensor, vals: torch.Tensor) -> None:
-    """``buf[b, :, rows[b]] = vals[b]`` for every lane ``b`` whose ``keep[b]``
-    holds, in place (``buf`` ``[B,H,C,...]``, ``vals`` ``[B,H,...]``). The
-    reference's scatter drops writes past the capacity; ``rows`` is clamped
-    into range and a dropped lane writes back what the slot held."""
-    old = buf[lanes, :, rows]
-    mask = keep.reshape(-1, *([1] * (vals.ndim - 1)))
-    buf[lanes, :, rows] = torch.where(mask, vals.to(buf.dtype), old)
-
-
 def transformer_step_batched(
     params: Params,
     cfg: TransformerConfig,
@@ -279,56 +268,38 @@ def transformer_step_batched(
     batcher's counterpart of :func:`transformer_forward_cached`.
 
     ``cache['offset']`` is int32 ``[B]``; each lane rotates q and k by its
-    own position, writes its K/V row at its own offset (one in-place
-    scatter per layer, after quantizing the rows when the cache is int8)
-    and attends to slots ``0..offset``. A lane whose offset has reached the
-    capacity (a finished lane that filled it) writes nothing. Returns
-    ``(y, cache)``: the buffers are the input's, updated in place, with
-    offsets ``+ 1``.
+    own position, writes its K/V row at its own offset (after quantizing
+    the rows when the cache is int8) and attends to slots ``0..offset``. A
+    lane whose offset has reached the capacity (a finished lane that filled
+    it) writes nothing. A causal config does all of that in one fused
+    kernel launch per layer
+    (:func:`~go_pocket_tts_tpu_torch.kernels.batched_decode_attention.batched_decode_attention_step`);
+    a windowed one runs it as separate ops. Returns ``(y, cache)``: the
+    buffers are the input's, updated in place, with offsets ``+ 1``.
     """
     offsets = cache["offset"]
     batch, capacity = x.shape[0], cache["k"].shape[3]
-    quantized = "k_scale" in cache
-    device = x.device
-
-    pos = offsets.long()
-    rope_idx = pos.clamp(0, params["rope_cos"].shape[0] - 1)
-    cos_rows = params["rope_cos"].index_select(0, rope_idx)[:, None, None, :]  # [B,1,1,half]
-    sin_rows = params["rope_sin"].index_select(0, rope_idx)[:, None, None, :]
-    lanes = torch.arange(batch, device=device)
-    rows = pos.clamp(0, capacity - 1)
-    in_range = pos < capacity
     use_kernel = cfg.context is None
     if not use_kernel:
         pos_q = offsets[:, None]
-        pos_k = torch.arange(capacity, dtype=torch.int32, device=device).expand(batch, capacity)
+        pos_k = torch.arange(capacity, dtype=torch.int32, device=x.device).expand(batch, capacity)
 
     k_all, v_all = cache["k"], cache["v"]
     ks_all, vs_all = cache.get("k_scale"), cache.get("v_scale")
+    rope = (params["rope_cos"], params["rope_sin"])
     for i, layer in enumerate(params["layers"]):
         n1 = layer_norm(x, layer["norm1"]["weight"], layer["norm1"]["bias"])
         qkv = apply_linear(layer["in_proj"], n1)
-        q, k, v = (
-            _split_heads(part, cfg.num_heads, cfg.head_dim) for part in qkv.chunk(3, dim=-1)
-        )
-        q = apply_rope_rows(q, cos_rows, sin_rows)
-        k = apply_rope_rows(k, cos_rows, sin_rows)
-        if quantized:
-            kq, ks = quantize_kv_rows(k[:, :, 0, :])  # [B,H,Dh] / [B,H]
-            vq, vs = quantize_kv_rows(v[:, :, 0, :])
-            for buf, val in ((k_all[i], kq), (v_all[i], vq), (ks_all[i], ks), (vs_all[i], vs)):
-                _write_rows(buf, lanes, rows, in_range, val)
-            if use_kernel:
-                attn = bda.batched_decode_attention_int8(q, k_all, ks_all, v_all, vs_all, offsets, layer=i)
-            else:
+        # [B,H,1,Dh] views into the projection: the kernel takes their strides.
+        q, k, v = qkv.reshape(batch, 1, 3, cfg.num_heads, cfg.head_dim).permute(2, 0, 3, 1, 4)
+        if use_kernel:
+            attn = bda.batched_decode_attention_step(q, k, v, k_all, v_all, offsets, *rope, i, ks_all, vs_all)
+        else:
+            q = bda.write_step_rows(q, k, v, k_all, v_all, offsets, *rope, i, ks_all, vs_all)
+            if ks_all is not None:
                 attn = attention_with_positions_int8kv(
                     q, k_all[i], ks_all[i], v_all[i], vs_all[i], pos_q, pos_k, cfg.context
                 )
-        else:
-            _write_rows(k_all[i], lanes, rows, in_range, k[:, :, 0, :])
-            _write_rows(v_all[i], lanes, rows, in_range, v[:, :, 0, :])
-            if use_kernel:
-                attn = bda.batched_decode_attention(q, k_all, v_all, offsets, layer=i)
             else:
                 attn = attention_with_positions(q, k_all[i], v_all[i], pos_q, pos_k, cfg.context)
         x = x + apply_linear(layer["out_proj"], _merge_heads(attn))
@@ -336,6 +307,6 @@ def transformer_step_batched(
         x = x + apply_linear(layer["linear2"], gelu_erf(apply_linear(layer["linear1"], n2)))
 
     new_cache = {"k": k_all, "v": v_all, "offset": offsets + 1}
-    if quantized:
+    if ks_all is not None:
         new_cache["k_scale"], new_cache["v_scale"] = ks_all, vs_all
     return x, new_cache

@@ -23,9 +23,13 @@ from go_pocket_tts_tpu.ops.attention import attention_with_positions_int8kv as j
 from go_pocket_tts_tpu.parallel import ContinuousBatcher as JBatcher
 from go_pocket_tts_tpu.runtime import GenerateConfig as JConfig
 from go_pocket_tts_tpu.utils.safetensors import encode_tensors, open_store_from_bytes
+from go_pocket_tts_tpu_torch import kernels
+from go_pocket_tts_tpu_torch.kernels import batched_decode_attention as t_bda
 from go_pocket_tts_tpu_torch.models import flow_transformer as t_ftr
 from go_pocket_tts_tpu_torch.models import synthetic
 from go_pocket_tts_tpu_torch.models.model import load_model_from_tensors
+from go_pocket_tts_tpu_torch.models.quantize import quantize_kv_rows
+from go_pocket_tts_tpu_torch.ops import apply_rope_rows, build_rope_tables
 from go_pocket_tts_tpu_torch.ops.attention import attention_with_positions_int8kv
 from go_pocket_tts_tpu_torch.parallel import BatcherRuntime, ContinuousBatcher
 from go_pocket_tts_tpu_torch.parallel import batching as t_batching
@@ -103,8 +107,52 @@ def test_row_scatter_matches_reference_indexing():
     want = jnp.asarray(buf).at[i, jnp.arange(b), :, jnp.asarray(offsets), :].set(jnp.asarray(vals))
     got = torch.from_numpy(buf.copy())
     pos = torch.from_numpy(offsets).long()
-    t_ftr._write_rows(got[i], torch.arange(b), pos.clamp(max=c - 1), pos < c, torch.from_numpy(vals))
+    t_bda.write_rows(got[i], torch.arange(b), pos.clamp(max=c - 1), pos < c, torch.from_numpy(vals))
     np.testing.assert_array_equal(got.numpy(), _np(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+def test_fused_step_plain_is_the_op_sequence(int8, dtype):
+    """On the CPU the fused step runs its plain version: the batched step's
+    former op sequence (RoPE of q and k, row quantization, the four row
+    scatters, then the attention's plain version), to the byte, with q, k
+    and v as views into one QKV projection; no kernel launch is counted."""
+    n_layers, b, h, c, d, layer = 2, 5, 2, 24, 64, 1
+    rng = np.random.RandomState(7 + int8)
+    qkv = torch.from_numpy(rng.randn(b, 1, 3 * h * d).astype(np.float32)).to(dtype)
+    q, k, v = qkv.reshape(b, 1, 3, h, d).permute(2, 0, 3, 1, 4)
+    k_all, v_all = (torch.from_numpy((rng.randn(n_layers, b, h, c, d) * 0.5).astype(np.float32)).to(dtype) for _ in range(2))
+    bufs = [*quantize_kv_rows(k_all), *quantize_kv_rows(v_all)] if int8 else [k_all, v_all]
+    offsets = torch.tensor([0, 9, c - 1, c, c + 3], dtype=torch.int32)  # the last two are past the capacity
+    cos, sin = build_rope_tables(64, d)
+    mine, ref = [x.clone() for x in bufs], [x.clone() for x in bufs]
+
+    pos = offsets.long()
+    idx = pos.clamp(0, cos.shape[0] - 1)
+    cos_rows, sin_rows = cos.index_select(0, idx)[:, None, None, :], sin.index_select(0, idx)[:, None, None, :]
+    lanes, rows, keep = torch.arange(b), pos.clamp(0, c - 1), pos < c
+    q_r, k_r = apply_rope_rows(q.contiguous(), cos_rows, sin_rows), apply_rope_rows(k.contiguous(), cos_rows, sin_rows)
+    if int8:
+        kc, ks, vc, vs = ref
+        (kq, kss), (vq, vss) = quantize_kv_rows(k_r[:, :, 0, :]), quantize_kv_rows(v.contiguous()[:, :, 0, :])
+        for buf, val in ((kc[layer], kq), (vc[layer], vq), (ks[layer], kss), (vs[layer], vss)):
+            t_bda.write_rows(buf, lanes, rows, keep, val)
+        want = t_bda.batched_decode_attention_int8_plain(q_r, kc, ks, vc, vs, offsets, layer)
+        kernels.reset_launches()
+        got = t_bda.batched_decode_attention_step(q, k, v, mine[0], mine[2], offsets, cos, sin, layer, mine[1], mine[3])
+    else:
+        kc, vc = ref
+        t_bda.write_rows(kc[layer], lanes, rows, keep, k_r[:, :, 0, :])
+        t_bda.write_rows(vc[layer], lanes, rows, keep, v.contiguous()[:, :, 0, :])
+        want = t_bda.batched_decode_attention_plain(q_r, kc, vc, offsets, layer)
+        kernels.reset_launches()
+        got = t_bda.batched_decode_attention_step(q, k, v, mine[0], mine[1], offsets, cos, sin, layer)
+    assert [fn.launches for fn in kernels.WRAPPERS] == [0] * len(kernels.WRAPPERS)
+    assert got.dtype == dtype and torch.equal(got, want)
+    for x, y in zip(mine, ref):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    assert not torch.equal(mine[0], bufs[0])  # the in-range lanes wrote their rows
 
 
 @pytest.mark.parametrize("int8", [False, True])
@@ -272,9 +320,9 @@ def test_kernel_failure_mid_block_fails_futures(models, monkeypatch):
     _, tm = models
 
     def broken(*args, **kwargs):
-        raise RuntimeError("batched_decode_attention: CUDA launch failed (cudaError 700)")
+        raise RuntimeError("batched_decode_attention_step: CUDA launch failed (cudaError 700)")
 
-    monkeypatch.setattr(t_ftr.bda, "batched_decode_attention", broken)
+    monkeypatch.setattr(t_ftr.bda, "batched_decode_attention_step", broken)
     batcher = ContinuousBatcher(tm, slots=1, prompt_capacity=64, max_frames=64, seed=3, device="cpu")
     batcher.start()
     futs = [batcher.submit([5, 9], _cfg(max_steps=2)) for _ in range(3)]

@@ -21,6 +21,7 @@ from go_pocket_tts_tpu_torch.kernels import decode_attention as da
 from go_pocket_tts_tpu_torch.kernels import int4_matmul as i4mm
 from go_pocket_tts_tpu_torch.kernels import quantized_matmul as qmm
 from go_pocket_tts_tpu_torch.kernels import seanet_tail as st
+from go_pocket_tts_tpu_torch.kernels.split_kv import boundary_offsets
 from go_pocket_tts_tpu_torch.models import synthetic
 from go_pocket_tts_tpu_torch.models.model import load_model_from_tensors
 from go_pocket_tts_tpu_torch.models.quantize import quantize_kv_rows, quantize_linear
@@ -63,6 +64,109 @@ def test_decode_attention_kernel(card, dtype, offset):
     _close(got, want, dtype)
     _close(kk, kp, dtype)
     _close(vk, vp, dtype)
+
+
+# 37 and 40 are not multiples of 16 (a masked tail); 37 is not one of 4
+# either, so the int8 row scales take the block's own loads, not bulk copies.
+CAPACITIES = (320, 384, 1024, 8192, 40, 37)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cap", CAPACITIES)
+def test_decode_attention_kernel_at_split_boundaries(card, dtype, cap):
+    gen = torch.Generator(device=card).manual_seed(cap)
+    n_layers, b, h, d, layer = 2, 1, 16, 64, 1
+    cos, sin = (t.to(card) for t in build_rope_tables(8192, d))
+    kc, vc = ((torch.randn((n_layers, b, h, cap, d), generator=gen, device=card) * 0.3).to(dtype) for _ in range(2))
+    for off in boundary_offsets(cap, b * h):
+        q, k_new, v_new = (torch.randn((b, h, 1, d), generator=gen, device=card).to(dtype) for _ in range(3))
+        offset = torch.tensor(off, dtype=torch.int32, device=card)
+        kk, vk, kp, vp = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+        got, _, _ = da.decode_attention_step(q, k_new, kk, vk, v_new, offset, cos, sin, layer)
+        want, _, _ = da.decode_attention_step_plain(q, k_new, kp, vp, v_new, offset, cos, sin, layer)
+        torch.cuda.synchronize()
+        _close(got, want, dtype)
+        assert torch.equal(kk, kp) and torch.equal(vk, vp), off  # the appended row, bit for bit
+
+
+def _lane_offsets(cap: int, pairs: int, b: int, card) -> list:
+    """The boundary offsets dealt over ``b`` lanes, lane 0 of every set at
+    its last slot."""
+    offs = boundary_offsets(cap, pairs)
+    sets = []
+    for i in range(0, len(offs), b - 1):
+        chunk = [cap - 1] + offs[i : i + b - 1]
+        sets.append(torch.tensor(chunk + [0] * (b - len(chunk)), dtype=torch.int32, device=card))
+    return sets
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("cap", CAPACITIES)
+def test_batched_decode_attention_kernels_at_split_boundaries(card, dtype, int8, cap):
+    gen = torch.Generator(device=card).manual_seed(cap + int8)
+    n_layers, b, h, d, layer = 2, 8, 16, 64, 1
+    q = torch.randn((b, h, 1, d), generator=gen, device=card).to(dtype)
+    k, v = ((torch.randn((n_layers, b, h, cap, d), generator=gen, device=card) * 0.3).to(dtype) for _ in range(2))
+    (kq, ks), (vq, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
+    for offsets in _lane_offsets(cap, b * h, b, card):
+        if int8:
+            got = bda.batched_decode_attention_int8(q, kq, ks, vq, vs, offsets, layer)
+            want = bda.batched_decode_attention_int8_plain(q, kq, ks, vq, vs, offsets, layer)
+        else:
+            got = bda.batched_decode_attention(q, k, v, offsets, layer)
+            want = bda.batched_decode_attention_plain(q, k, v, offsets, layer)
+        torch.cuda.synchronize()
+        _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("cap", CAPACITIES)
+def test_batched_decode_attention_step_kernel(card, dtype, int8, cap):
+    """The fused step against its plain version (RoPE, quantize_kv_rows and
+    the row scatter as separate ops): the same output within the kernel
+    tolerance and, bit for bit, the same cache rows and row scales. q, k_new
+    and v_new are views into one QKV projection, as the batched step passes
+    them."""
+    gen = torch.Generator(device=card).manual_seed(3 * cap + int8)
+    n_layers, b, h, d, layer = 2, 8, 16, 64, 1
+    cos, sin = (t.to(card) for t in build_rope_tables(8192, d))
+    k, v = ((torch.randn((n_layers, b, h, cap, d), generator=gen, device=card) * 0.3).to(dtype) for _ in range(2))
+    caches = [*quantize_kv_rows(k), *quantize_kv_rows(v)] if int8 else [k, v]
+    for offsets in _lane_offsets(cap, b * h, b, card):
+        qkv = torch.randn((b, 1, 3 * h * d), generator=gen, device=card).to(dtype)
+        q, k_new, v_new = qkv.reshape(b, 1, 3, h, d).permute(2, 0, 3, 1, 4)
+        mine, ref = [c.clone() for c in caches], [c.clone() for c in caches]
+
+        def step(fn, bufs):
+            if int8:
+                kc, ksc, vc, vsc = bufs
+                return fn(q, k_new, v_new, kc, vc, offsets, cos, sin, layer, ksc, vsc)
+            return fn(q, k_new, v_new, bufs[0], bufs[1], offsets, cos, sin, layer)
+
+        counter = bda.batched_decode_attention_int8 if int8 else bda.batched_decode_attention
+        before = counter.launches
+        got = step(bda.batched_decode_attention_step, mine)
+        want = step(bda.batched_decode_attention_step_plain, ref)
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1
+        _close(got, want, dtype)
+        for name, x, y in zip(("k", "k_scale", "v", "v_scale") if int8 else ("k", "v"), mine, ref):
+            assert torch.equal(x, y), (name, offsets.tolist())
+
+
+def test_decode_attention_wrappers_raise_on_misaligned_caches(card):
+    buf = torch.zeros(2 * 16 * 64 * 64 + 8, dtype=torch.bfloat16, device=card)
+    kc = buf[8:].view(2, 1, 16, 64, 64)  # 16 bytes off: fine; 8 elements of bf16
+    vc = buf[4:-4].view(2, 1, 16, 64, 64)  # 8 bytes off: refused
+    q = torch.zeros((1, 16, 1, 64), dtype=torch.bfloat16, device=card)
+    off = torch.zeros((), dtype=torch.int32, device=card)
+    cos, sin = (t.to(card) for t in build_rope_tables(64, 64))
+    with pytest.raises(ValueError, match="aligned"):
+        da.decode_attention_step(q, q, kc, vc, q, off, cos, sin, 0)
+    with pytest.raises(ValueError, match="aligned"):
+        bda.batched_decode_attention(q, kc, vc, torch.zeros(1, dtype=torch.int32, device=card), 0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -207,7 +311,7 @@ def test_tiny_batcher_kernels_match_plain(card, monkeypatch):
     kernels.reset_launches()
     got = serve()
     assert bda.batched_decode_attention_int8.launches > 0 and qmm.quantized_matmul.launches > 0
-    monkeypatch.setattr(bda, "batched_decode_attention_int8", bda.batched_decode_attention_int8_plain)
+    monkeypatch.setattr(bda, "batched_decode_attention_step", bda.batched_decode_attention_step_plain)
     monkeypatch.setattr(qmm, "quantized_matmul", qmm.quantized_matmul_plain)
     want = serve()
     for g, w in zip(got, want):
@@ -239,7 +343,7 @@ def test_tiny_int4_batcher_kernels_match_plain(card, monkeypatch):
     kernels.reset_launches()
     got = serve()
     assert i4mm.int4_matmul.launches > 0 and qmm.quantized_matmul.launches == 0
-    monkeypatch.setattr(bda, "batched_decode_attention_int8", bda.batched_decode_attention_int8_plain)
+    monkeypatch.setattr(bda, "batched_decode_attention_step", bda.batched_decode_attention_step_plain)
     monkeypatch.setattr(i4mm, "int4_matmul", i4mm.int4_matmul_plain)
     want = serve()
     for g, w in zip(got, want):

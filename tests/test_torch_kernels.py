@@ -28,6 +28,7 @@ from go_pocket_tts_tpu_torch.kernels import decode_attention as t_da
 from go_pocket_tts_tpu_torch.kernels import int4_matmul as t_i4mm
 from go_pocket_tts_tpu_torch.kernels import quantized_matmul as t_qmm
 from go_pocket_tts_tpu_torch.kernels import seanet_tail as t_st
+from go_pocket_tts_tpu_torch.kernels.split_kv import boundary_offsets, split_plan
 from go_pocket_tts_tpu_torch.ops import build_rope_tables as t_rope_tables
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -120,6 +121,124 @@ def test_batched_decode_attention_plain_bf16_matches_pallas():
     )
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), _np(want), atol=1e-2, rtol=1e-2)
+
+
+# -- the split-KV plan of kernels 1 and 4, and its arithmetic ------------------
+
+
+@pytest.mark.parametrize("pairs", [16, 128])
+@pytest.mark.parametrize("cap", [16, 40, 320, 384, 640, 1024, 8192])
+def test_split_plan_covers_the_cache(cap, pairs):
+    splits, rows = split_plan(cap, pairs)
+    assert 1 <= splits <= 8 and rows % 16 == 0
+    # Split s owns [s*rows, min((s+1)*rows, cap)): every row once, none empty.
+    owned = [r for s in range(splits) for r in range(s * rows, min((s + 1) * rows, cap))]
+    assert owned == list(range(cap))
+    assert (splits - 1) * rows < cap <= splits * rows
+    # A capacity off the 16-row grid leaves a masked tail in the last split.
+    assert (cap - (splits - 1) * rows < rows) == (cap % rows != 0)
+
+
+def test_split_plan_fills_the_card():
+    assert split_plan(320, 16) == (7, 48)  # kernel 1 at B=1: 112 blocks
+    assert split_plan(8192, 16) == (8, 1024)
+    assert split_plan(384, 128) == (4, 96)  # kernel 4 at B=8, H=16: 512 blocks
+    assert split_plan(40, 16) == (3, 16)
+    assert split_plan(384, 4096) == (1, 384)
+    with pytest.raises(ValueError):
+        split_plan(0, 16)
+
+
+def _split_merge(q, k, v, n, plan, k_scale=None, v_scale=None) -> torch.Tensor:
+    """The split-KV kernels' arithmetic, plainly, in float32: per split a
+    (max, sum, acc) over its visible rows, then the combine rescaled by
+    exp(m_i - m). q [P, D], k/v [P, C, D], n visible rows per pair, scales
+    [P, C]."""
+    splits, rows = plan
+    pairs, _, d = k.shape
+    out = torch.zeros(pairs, d)
+    for p in range(pairs):
+        parts = []
+        for s in range(splits):
+            s0, s1 = s * rows, min((s + 1) * rows, int(n[p]))
+            if s1 <= s0:  # no visible row: m = -inf, l = 0
+                continue
+            scores = k[p, s0:s1].float() @ q[p].float()
+            if k_scale is not None:
+                scores = scores * k_scale[p, s0:s1]
+            scores = scores / d**0.5
+            m = scores.max()
+            e = torch.exp(scores - m)
+            w = e * v_scale[p, s0:s1] if v_scale is not None else e
+            parts.append((m, e.sum(), w @ v[p, s0:s1].float()))
+        if parts:
+            gm = max(m for m, _, _ in parts)
+            gl = sum(l * torch.exp(m - gm) for m, l, _ in parts)
+            out[p] = sum(acc * torch.exp(m - gm) for m, _, acc in parts) / gl
+    return out
+
+
+@pytest.mark.parametrize(
+    "cap,offset", [(64, o) for o in boundary_offsets(64, 2)] + [(40, o) for o in boundary_offsets(40, 2)]
+)
+def test_decode_attention_split_merge_matches_plain_and_pallas(cap, offset):
+    """Kernel 1's split-and-merge, emulated, against its plain version and the
+    Pallas kernel in interpret mode, at both sides of every split boundary
+    (C=64: 4 splits of 16; C=40: 3, the last a masked tail of 8), C-1 and
+    past the capacity."""
+    n_layers, b, h, d, layer = 1, 1, 2, 64, 0
+    rng = np.random.RandomState(cap + offset)
+    q, k_new, v_new = (rng.randn(b, h, 1, d).astype(np.float32) for _ in range(3))
+    caches = [(rng.randn(n_layers, b, h, cap, d) * 0.3).astype(np.float32) for _ in range(2)]
+    jc, js = j_rope_tables(128, d)
+    want, _, _ = j_decode(
+        *(jnp.asarray(a) for a in (q, k_new, caches[0], caches[1], v_new)),
+        jnp.int32(offset), jc, js, layer=layer, interpret=True,
+    )
+    tc, ts = t_rope_tables(128, d)
+    kc, vc = (torch.from_numpy(c.copy()) for c in caches)
+    got, kc, vc = t_da.decode_attention_step(
+        torch.from_numpy(q), torch.from_numpy(k_new), kc, vc, torch.from_numpy(v_new),
+        torch.tensor(offset, dtype=torch.int32), tc, ts, layer,
+    )
+    row = min(max(offset, 0), tc.shape[0] - 1)
+    q_r = t_da._rope_dup(torch.from_numpy(q), tc[row : row + 1], ts[row : row + 1]).reshape(b * h, d)
+    n = [min(offset, cap - 1) + 1] * (b * h)
+    emu = _split_merge(q_r, kc[layer].reshape(b * h, cap, d), vc[layer].reshape(b * h, cap, d), n, split_plan(cap, b * h))
+    np.testing.assert_allclose(emu.numpy(), got.reshape(b * h, d).numpy(), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(emu.numpy(), _np(want).reshape(b * h, d), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("cap", [64, 40])
+def test_batched_decode_attention_split_merge_matches_plain_and_pallas(int8, cap):
+    """Kernel 4's split-and-merge, emulated, against both plain versions and
+    the Pallas kernel in interpret mode, one lane per boundary offset."""
+    h, d, layer = 2, 64, 0
+    offsets = np.array(boundary_offsets(cap, 2 * 16), np.int32)
+    b = len(offsets)
+    assert split_plan(cap, b * h) == split_plan(cap, 2 * 16)
+    rng = np.random.RandomState(cap + int8)
+    q = rng.randn(b, h, 1, d).astype(np.float32)
+    k, v = ((rng.randn(1, b, h, cap, d) * 0.3).astype(np.float32) for _ in range(2))
+    n = [min(int(o), cap - 1) + 1 for o in offsets for _ in range(h)]
+    plan = split_plan(cap, b * h)
+    tq, toffs = torch.from_numpy(q), torch.from_numpy(offsets)
+    if int8:
+        (kq, ks), (vq, vs) = j_quantize_kv_rows(jnp.asarray(k)), j_quantize_kv_rows(jnp.asarray(v))
+        want = j_bda(jnp.asarray(q), kq, vq, jnp.asarray(offsets), k_scale=ks, v_scale=vs, layer=layer, interpret=True)
+        tk, tks, tv, tvs = (torch.from_numpy(np.array(a)) for a in (kq, ks, vq, vs))
+        got = t_bda.batched_decode_attention_int8(tq, tk, tks, tv, tvs, toffs, layer)
+        flat = (tk[layer].reshape(b * h, cap, d), tv[layer].reshape(b * h, cap, d))
+        scales = dict(k_scale=tks[layer].reshape(b * h, cap), v_scale=tvs[layer].reshape(b * h, cap))
+    else:
+        want = j_bda(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(offsets), layer=layer, interpret=True)
+        tk, tv = torch.from_numpy(k), torch.from_numpy(v)
+        got = t_bda.batched_decode_attention(tq, tk, tv, toffs, layer)
+        flat, scales = (tk[layer].reshape(b * h, cap, d), tv[layer].reshape(b * h, cap, d)), {}
+    emu = _split_merge(tq.reshape(b * h, d), *flat, n, plan, **scales)
+    np.testing.assert_allclose(emu.numpy(), got.reshape(b * h, d).numpy(), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(emu.numpy(), _np(want).reshape(b * h, d), atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("m,k,n", [(1, 128, 256), (8, 1024, 3072), (64, 512, 10240)])
