@@ -18,8 +18,10 @@ failure exits non-zero:
    runs (RoPE, int8 row quantization, row write and attention, its written
    rows and scales bit-equal to its plain version's), and the int8 and
    int4 matmuls at the real model's linear shapes with 1, 8 and 64 rows
-   (the int4 one beside the int8 one and a matmul on the dequantized
-   weight);
+   (the int8 one also in its fused form, with the bias added in x's dtype,
+   and bit-equal over two calls; each beside PyTorch's int8 / int4
+   weight-only matmul where this torch has a CUDA kernel for it and a
+   matmul on the dequantized weight, the int4 one beside the int8 one);
 3. the single-utterance path: ``real_arch()`` weights from a fixed seed,
    bfloat16 on the card, ``GPURuntime.generate_audio`` on three requests (a
    warm-up request first), then one ``PocketTTSModel.mimi_decode`` of a
@@ -170,13 +172,14 @@ def dname(dtype: torch.dtype) -> str:
 # -- phase 2: kernels against their plain versions -------------------------------
 
 
-# Times of the first designs of kernels 1 and 4 (one block per pair), from
-# this phase on an NVIDIA H100 80GB HBM3 at 700.00 W, printed beside this
-# run's for reference.
+# Times of the first designs of kernels 1 and 4 (one block per pair) and 5,
+# from this phase on an NVIDIA H100 80GB HBM3 at 700.00 W, printed beside
+# this run's for reference.
 FIRST_DESIGN_MS = {
     "decode_attention_step": 0.01636,
     "batched_decode_attention": 0.01310,
     "batched_decode_attention_int8": 0.01266,
+    "quantized_matmul": 0.00618,  # K split over blocks, float atomics into a zeroed output
 }
 
 
@@ -498,8 +501,54 @@ QMM_SHAPES = (
 )
 
 
+def int8pack_call(x, w, scale):
+    """``torch._weight_int8pack_mm`` on these inputs (the weight transposed
+    once to its ``[N, K]`` layout, the scale in x's dtype) as a callable, and
+    a note; ``(None, reason)`` where this torch has no CUDA kernel for it.
+    Timed as kernel 5's library call; the port never calls it."""
+    wt, s = w.t().contiguous(), scale.to(x.dtype)
+
+    def call():
+        return torch._weight_int8pack_mm(x, wt, s)
+
+    try:
+        call()
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        return None, f"none (no CUDA kernel in torch {torch.__version__}: {str(e).splitlines()[0][:100]})"
+    return call, "torch._weight_int8pack_mm"
+
+
+def int4pack_call(x, w, scale):
+    """``torch._weight_int4pack_mm`` on kernel 6's inputs: the levels as
+    unsigned nibbles (level + 8) of an ``[N, K]`` weight, packed by
+    ``torch._convert_weight_to_int4pack``, group size 128, the scale beside
+    zero points 0. ``(None, reason)`` where it cannot run on the card. Timed
+    as kernel 6's library call; the port never calls it."""
+    from go_pocket_tts_tpu_torch.models.quantize import depack_int4_pairs
+
+    k, n = 2 * w.shape[0], w.shape[1]
+    if x.dtype != torch.bfloat16:
+        return None, "none (bfloat16 only)"
+    q = (depack_int4_pairs(w).reshape(k, n).to(torch.int32) + 8).t().contiguous()  # [N, K] in 0..15
+    packed = ((q[:, ::2] << 4) | q[:, 1::2]).to(torch.uint8)
+    sz = torch.stack([scale.to(torch.bfloat16), torch.zeros_like(scale, dtype=torch.bfloat16)], dim=-1).contiguous()
+    try:
+        wp = torch.ops.aten._convert_weight_to_int4pack(packed, 8)  # 8 inner k tiles
+
+        def call():
+            return torch.ops.aten._weight_int4pack_mm(x, wp, 128, sz)
+
+        call()
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        return None, f"none (no CUDA kernel in torch {torch.__version__}: {str(e).splitlines()[0][:100]})"
+    return call, "torch._weight_int4pack_mm"
+
+
 def check_quantized_matmul(rows: dict) -> None:
     from go_pocket_tts_tpu_torch.kernels import quantized_matmul as qmm
+    from go_pocket_tts_tpu_torch.kernels.split_k import matmul_plan
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     for m in (1, 8, 64):
@@ -508,24 +557,44 @@ def check_quantized_matmul(rows: dict) -> None:
                 x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
                 w = torch.randint(-127, 128, (k, n), generator=gen, device="cuda", dtype=torch.int8)
                 scale = torch.rand((n,), generator=gen, device="cuda") * 1e-3 + 1e-4
+                bias = torch.randn((n,), generator=gen, device="cuda").to(dtype)
+                plan = matmul_plan(m, k, n, x.element_size())
                 what = f"quantized_matmul {label} {dname(dtype)} M={m} K={k} N={n}"
-                # Both outputs are float32 sums of exact products: the float32 tolerance.
-                err = max_err(qmm.quantized_matmul(x, w, scale), qmm.quantized_matmul_plain(x, w, scale), torch.float32, what)
+                # The float32 product: both are float32 sums of exact products,
+                # the float32 tolerance. The fused form (apply_linear's: rounded
+                # to x's dtype, the bias added in it): x's dtype's tolerance.
+                got = qmm.quantized_matmul(x, w, scale)
+                fused = qmm.quantized_matmul(x, w, scale, bias, dtype)
+                err = max_err(got, qmm.quantized_matmul_plain(x, w, scale), torch.float32, what)
+                fused_err = max_err(fused, qmm.quantized_matmul_plain(x, w, scale, bias, dtype), dtype, what + " +bias")
+                if not (torch.equal(qmm.quantized_matmul(x, w, scale), got)
+                        and torch.equal(qmm.quantized_matmul(x, w, scale, bias, dtype), fused)):
+                    fail(f"{what}: two calls are not bit-equal")
                 ms = device_ms(lambda: qmm.quantized_matmul(x, w, scale))
+                fused_ms = device_ms(lambda: qmm.quantized_matmul(x, w, scale, bias, dtype))
                 plain_ms = device_ms(lambda: qmm.quantized_matmul_plain(x, w, scale))
-                # Yardstick (no single PyTorch call takes int8 weights): a matmul
-                # against a pre-dequantized weight of x's dtype, twice the bytes.
+                lib_call, lib_note = int8pack_call(x, w, scale)
+                lib_ms = device_ms(lib_call) if lib_call else None
+                # Yardstick: a matmul against a pre-dequantized weight of x's
+                # dtype, twice the bytes.
                 w_deq = (w.float() * scale).to(dtype)
-                lib_ms = device_ms(lambda: torch.matmul(x, w_deq))
+                deq_ms = device_ms(lambda: torch.matmul(x, w_deq))
                 es = torch.finfo(dtype).bits // 8
                 b_ms, b_by = bound(k * n + es * m * k + 4 * n + 4 * m * n, 2.0 * m * k * n, dtype)
+                key = (label, m, dtype) == ("linear1", 8, torch.bfloat16)
+                first = f" (first design {FIRST_DESIGN_MS['quantized_matmul']:.5f} ms)" if key else ""
+                lib = f"{lib_ms:.5f} ms" if lib_ms is not None else lib_note
                 print(
-                    f"  {what}: max_abs_err {err:.3e}  kernel {ms:.5f} ms  plain {plain_ms:.5f} ms  "
-                    f"matmul(dequantized {dname(dtype)}) {lib_ms:.5f} ms  bound {b_ms:.5f} ms ({b_by})  [{CARD}]"
+                    f"  {what} [BN {plan.block_n}, S {plan.splits}]: max_abs_err {err:.3e} (+bias {fused_err:.3e}), "
+                    f"bit-equal twice  kernel {ms:.5f} ms{first} (+bias, {dname(dtype)} out {fused_ms:.5f} ms)  "
+                    f"plain {plain_ms:.5f} ms  int8pack_mm {lib}  matmul(dequantized {dname(dtype)}) {deq_ms:.5f} ms  "
+                    f"bound {b_ms:.5f} ms ({b_by})  [{CARD}]"
                 )
-                if (label, m, dtype) == ("linear1", 8, torch.bfloat16):
+                if key:
                     rows["quantized_matmul"].update(
-                        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                        library=lib_note, first_design_ms=FIRST_DESIGN_MS["quantized_matmul"], fused_ms=fused_ms,
+                        fused_max_abs_err=fused_err, dequantized_matmul_ms=deq_ms,
                     )
 
 
@@ -547,11 +616,17 @@ def check_int4_matmul(rows: dict) -> None:
                 err = max_err(i4mm.int4_matmul(x, w, scale), i4mm.int4_matmul_plain(x, w, scale), torch.float32, what)
                 ms = device_ms(lambda: i4mm.int4_matmul(x, w, scale))
                 plain_ms = device_ms(lambda: i4mm.int4_matmul_plain(x, w, scale))
+                lib_call, lib_note = int4pack_call(x, w, scale)
+                lib_ms = device_ms(lib_call) if lib_call else None
+                lib = lib_note
+                if lib_call:
+                    lib_err = (lib_call().float() - i4mm.int4_matmul_plain(x, w, scale)).abs().max().item()
+                    lib = f"{lib_ms:.5f} ms (max_abs_err against plain {lib_err:.3e})"
                 # Yardsticks: a matmul against the pre-dequantized weight in x's
                 # dtype (four times the bytes in bf16), and kernel 5 on an int8
                 # weight of the same shape (twice the bytes).
                 w_deq = dequantize_weight({"w": w, "scale": scale}).to(dtype)
-                lib_ms = device_ms(lambda: torch.matmul(x, w_deq))
+                deq_ms = device_ms(lambda: torch.matmul(x, w_deq))
                 w8 = torch.randint(-127, 128, (k, n), generator=gen, device="cuda", dtype=torch.int8)
                 s8 = scale[0].contiguous()
                 qmm_ms = device_ms(lambda: qmm.quantized_matmul(x, w8, s8))
@@ -559,12 +634,13 @@ def check_int4_matmul(rows: dict) -> None:
                 b_ms, b_by = bound(k * n // 2 + 4 * (k // 128) * n + es * m * k + 4 * m * n, 2.0 * m * k * n, dtype)
                 print(
                     f"  {what}: max_abs_err {err:.3e}  kernel {ms:.5f} ms  plain {plain_ms:.5f} ms  "
-                    f"matmul(dequantized {dname(dtype)}) {lib_ms:.5f} ms  int8 kernel 5 {qmm_ms:.5f} ms  "
+                    f"int4pack_mm {lib}  matmul(dequantized {dname(dtype)}) {deq_ms:.5f} ms  int8 kernel 5 {qmm_ms:.5f} ms  "
                     f"bound {b_ms:.5f} ms ({b_by})  [{CARD}]"
                 )
                 if (label, m, dtype) == ("linear1", 8, torch.bfloat16):
                     rows["int4_matmul"].update(
-                        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                        library=lib_note, dequantized_matmul_ms=deq_ms,
                     )
 
 

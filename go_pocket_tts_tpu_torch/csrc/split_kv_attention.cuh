@@ -178,12 +178,13 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // quantize_kv_rows of one 64-wide row held as a pair per lane of a warp:
-// scale = amax / 127 (PyTorch on the card multiplies by the float32
-// reciprocal of a scalar divisor), 1 where 0; q = rint(x / scale) clamped
-// to +-127 (torch.round rounds half to even, as rintf).
+// scale = amax / 127, the IEEE quotient (quantize_kv_rows divides by a
+// tensor, so no device takes a product by the reciprocal), 1 where 0;
+// q = rint(x / scale) clamped to +-127 (torch.round rounds half to even, as
+// rintf).
 __device__ __forceinline__ float quantize_pair(float a, float b, int8_t& qa, int8_t& qb) {
   const float amax = warp_max(fmaxf(fabsf(a), fabsf(b)));
-  float scale = __fmul_rn(amax, 1.0f / 127.0f);
+  float scale = __fdiv_rn(amax, 127.0f);
   scale = scale > 0.f ? scale : 1.0f;
   qa = (int8_t)fminf(fmaxf(rintf(__fdiv_rn(a, scale)), -127.f), 127.f);
   qb = (int8_t)fminf(fmaxf(rintf(__fdiv_rn(b, scale)), -127.f), 127.f);

@@ -166,7 +166,8 @@ def apply_linear(params: Params, x: torch.Tensor) -> torch.Tensor:
     dtype, and compute in float32 with the scale applied to the product:
     - int8 ``w``, ``scale [N]``: ``(x @ w) * scale``, through the
       quantized-matmul kernel where its gate admits the shape (the AR step's
-      skinny products), else as a plain product of the widened weight
+      skinny products; the kernel also casts and adds the bias, so the
+      linear is one launch), else as a plain product of the widened weight
       (prefill, and the narrow input/EOS/flowNet-output linears), where the
       reference takes XLA's mixed-dtype dot;
     - packed int4 ``w`` (uint8), ``scale [G, N]`` or ``[N]``: see
@@ -184,7 +185,8 @@ def apply_linear(params: Params, x: torch.Tensor) -> torch.Tensor:
         if w.dtype == torch.uint8:
             y = _int4_product(x2, w, scale)
         elif qmm.supports(m, k, n):
-            y = qmm.quantized_matmul(x2, w, scale)
+            y = qmm.quantized_matmul(x2, w, scale, bias=params.get("b"), out_dtype=x.dtype)
+            return y.reshape(*lead, n)
         else:
             y = torch.matmul(x2.float(), w.float()) * scale.float()
         y = y.reshape(*lead, n).to(x.dtype)

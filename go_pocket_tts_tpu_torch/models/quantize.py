@@ -69,8 +69,7 @@ def quantize_kv_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """``x[..., Dh]`` → ``(int8 [..., Dh], float32 scale [...])`` with
     ``scale = max|row| / 127``."""
     xf = x.float()
-    scale = xf.abs().amax(dim=-1) / 127.0
-    scale = torch.where(scale > 0, scale, torch.ones_like(scale))
+    scale = _symmetric_scale(xf.abs().amax(dim=-1), 127.0)
     q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
     return q, scale
 

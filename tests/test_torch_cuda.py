@@ -207,6 +207,123 @@ def test_quantized_matmul_kernel(card, dtype, m, k, n):
     torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)  # f32 sums, another order
 
 
+# Shapes whose plans take every split count 1..8, a shorter last split
+# (1408 -> 256: 384, 384, 384, 256 rows), 128-column tiles, and (M = 64,
+# float32, K = 8192) staging passes; at M in 1, 8, 13, 64 (one to four
+# 16-row tiles).
+QMM_PLAN_SHAPES = [(256 * s, 256) for s in range(1, 9)] + [
+    (1408, 256),
+    (1024, 3072),
+    (4096, 1024),
+    (512, 10240),
+    (256, 17152),
+    (8192, 256),
+]
+
+
+def _qmm_inputs(card, dtype, m, k, n, seed):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    x = torch.randn((m, k), generator=gen, device=card).to(dtype)
+    w = torch.randint(-127, 128, (k, n), generator=gen, device=card, dtype=torch.int8)
+    scale = torch.rand((n,), generator=gen, device=card) * 1e-3 + 1e-4
+    bias = torch.randn((n,), generator=gen, device=card)
+    return x, w, scale, bias
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 8, 13, 64])
+@pytest.mark.parametrize("k,n", QMM_PLAN_SHAPES)
+def test_quantized_matmul_kernel_every_plan_and_epilogue(card, dtype, m, k, n):
+    """Kernel 5 against its plain version in each epilogue form: the float32
+    product (the Pallas kernel's output), and rounded to x's dtype with and
+    without a bias (float32 or bfloat16), as float32 or x's dtype."""
+    x, w, scale, bias = _qmm_inputs(card, dtype, m, k, n, m + k + n)
+    forms = [
+        (None, torch.float32),
+        (None, dtype),
+        (bias, dtype),
+        (bias.to(torch.bfloat16), dtype),
+        (bias, torch.float32),
+    ]
+    for b, out_dtype in forms:
+        got = qmm.quantized_matmul(x, w, scale, b, out_dtype)
+        want = qmm.quantized_matmul_plain(x, w, scale, b, out_dtype)
+        torch.cuda.synchronize()
+        assert got.dtype == out_dtype and got.shape == (m, n)
+        # The float32 product differs from the plain one only in summation
+        # order (2e-4); rounded to bfloat16 the two may sit one bf16
+        # rounding apart (1e-2, chip_smoke.KERNEL_TOL).
+        rounded = dtype == torch.bfloat16 and (b is not None or out_dtype != torch.float32)
+        tol = 1e-2 if rounded else 2e-4
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(8, 1024, 4096), (8, 4096, 1024), (64, 1024, 3072), (1, 512, 10240)])
+def test_quantized_matmul_kernel_is_deterministic(card, dtype, m, k, n):
+    x, w, scale, bias = _qmm_inputs(card, dtype, m, k, n, 11)
+    for b, out_dtype in ((None, torch.float32), (bias, dtype)):
+        first = qmm.quantized_matmul(x, w, scale, b, out_dtype)
+        for _ in range(3):
+            assert torch.equal(qmm.quantized_matmul(x, w, scale, b, out_dtype), first)
+
+
+def test_quantized_matmul_refuses_misaligned_operands(card):
+    k, n = 256, 512
+    x = torch.zeros((8, k), dtype=torch.bfloat16, device=card)
+    scale = torch.ones((n,), device=card)
+    buf = torch.zeros(k * n + 16, dtype=torch.int8, device=card)
+    with pytest.raises(ValueError, match="aligned"):
+        qmm.quantized_matmul(x, buf[8 : 8 + k * n].view(k, n), scale)
+    w = buf[16 : 16 + k * n].view(k, n)  # 16 bytes off: taken
+    qmm.quantized_matmul(x, w, scale)
+    xb = torch.zeros(8 * k + 4, dtype=torch.bfloat16, device=card)
+    with pytest.raises(ValueError, match="aligned"):
+        qmm.quantized_matmul(xb[4:].view(8, k), w, scale)
+    with pytest.raises(TypeError):
+        qmm.quantized_matmul(x, w, scale, out_dtype=torch.float16)
+    with pytest.raises(ValueError):
+        qmm.quantized_matmul(x, w, scale, torch.zeros((n,), dtype=torch.int32, device=card))
+
+
+def test_int8_linear_is_one_launch(card):
+    """apply_linear on a gated int8 linear with a bias, bfloat16 x: exactly
+    one kernel on the card (no memset, cast or bias add), and it is kernel 5."""
+    from go_pocket_tts_tpu_torch.models.params import apply_linear
+
+    gen = torch.Generator(device=card).manual_seed(4)
+    w = torch.randn((1024, 4096), generator=gen, device=card)
+    p = quantize_linear({"w": w, "b": torch.randn((4096,), generator=gen, device=card)})
+    p["b"] = p["b"].to(torch.bfloat16)
+    x = torch.randn((8, 1, 1024), generator=gen, device=card).to(torch.bfloat16)
+    want = apply_linear(p, x)  # warm-up: builds and configures the kernel
+    torch.cuda.synchronize()
+    before = qmm.quantized_matmul.launches
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        got = apply_linear(p, x)
+        torch.cuda.synchronize()
+    on_card = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(on_card) == 1 and "quantized_matmul" in on_card[0], on_card
+    assert qmm.quantized_matmul.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (8, 1, 4096) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_kv_rows_on_card_is_the_cpus(card, dtype):
+    """The int8 KV row scale is amax / 127, the IEEE quotient, on either
+    device: the card's rows and scales are byte-equal to the CPU's."""
+    gen = torch.Generator(device=card).manual_seed(9)
+    x = (torch.randn((4, 16, 97, 64), generator=gen, device=card) * 3).to(dtype)
+    x[0, 0, :5] = 0  # zero rows: scale 1
+    q, s = quantize_kv_rows(x)
+    q_cpu, s_cpu = quantize_kv_rows(x.cpu())
+    assert torch.equal(q.cpu(), q_cpu) and torch.equal(s.cpu(), s_cpu)
+    amax = x.cpu().float().abs().amax(-1).numpy()
+    want = np.where(amax > 0, amax / np.float32(127), np.float32(1)).astype(np.float32)
+    assert np.array_equal(s_cpu.numpy(), want)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
     "m,k,n", [(1, 1024, 3072), (8, 1024, 4096), (8, 4096, 1024), (64, 512, 10240), (13, 1024, 1024), (8, 384, 768)]

@@ -179,7 +179,9 @@ def _imported_roots(path: Path):
 
 @pytest.mark.parametrize(
     "path",
-    PORT_FILES + ["chip_smoke.py", "scripts/torch_profile.py", "scripts/torch_profile_batched.py"],
+    PORT_FILES
+    + ["chip_smoke.py", "scripts/torch_profile.py", "scripts/torch_profile_batched.py"]
+    + ["scripts/time_up2_kernels.py", "scripts/time_decode_attention.py", "scripts/time_quantized_matmul.py"],
 )
 def test_no_jax_imports(path):
     bad = [root for root in _imported_roots(ROOT / path) if root in FORBIDDEN]

@@ -3,6 +3,7 @@ they replace, run in interpret mode on the CPU as tests/test_pallas.py runs
 them, on the same NumPy inputs. The CUDA kernels themselves run only on a
 card (tests/test_torch_cuda.py and chip_smoke.py)."""
 
+import importlib.util
 from pathlib import Path
 
 import numpy as np
@@ -15,6 +16,7 @@ from go_pocket_tts_tpu.ops import TOLERANCES
 from go_pocket_tts_tpu.ops import build_rope_tables as j_rope_tables
 from go_pocket_tts_tpu.ops import repack_conv_transpose_kernel as j_repack
 from go_pocket_tts_tpu.models.quantize import quantize_kv_rows as j_quantize_kv_rows
+from go_pocket_tts_tpu.models import params as j_params
 from go_pocket_tts_tpu.models.quantize import quantize_linear as j_quantize_linear
 from go_pocket_tts_tpu.ops.pallas import int4_matmul as j_i4mm
 from go_pocket_tts_tpu.ops.pallas import quantized_matmul as j_qmm
@@ -28,7 +30,9 @@ from go_pocket_tts_tpu_torch.kernels import decode_attention as t_da
 from go_pocket_tts_tpu_torch.kernels import int4_matmul as t_i4mm
 from go_pocket_tts_tpu_torch.kernels import quantized_matmul as t_qmm
 from go_pocket_tts_tpu_torch.kernels import seanet_tail as t_st
+from go_pocket_tts_tpu_torch.kernels.split_k import MAX_SMEM, matmul_plan, smem_bytes
 from go_pocket_tts_tpu_torch.kernels.split_kv import boundary_offsets, split_plan
+from go_pocket_tts_tpu_torch.models.params import apply_linear as t_apply_linear
 from go_pocket_tts_tpu_torch.ops import build_rope_tables as t_rope_tables
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -258,6 +262,129 @@ def test_quantized_matmul_plain_matches_pallas(m, k, n):
 )
 def test_quantized_matmul_gate_matches_reference(m, k, n):
     assert t_qmm.supports(m, k, n) == j_qmm.supports(m, k, n)
+
+
+# -- kernel 5's split-K plan, and its fused epilogue ---------------------------
+
+
+def _qmm_shapes():
+    """``chip_smoke.QMM_SHAPES``: (label, K, N) of the gated int8 linears."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.QMM_SHAPES
+
+
+QMM_SHAPES = _qmm_shapes()
+
+
+@pytest.mark.parametrize("x_bytes", [2, 4])
+@pytest.mark.parametrize("m", [1, 8, 13, 64])
+@pytest.mark.parametrize("label,k,n", QMM_SHAPES + (("wide", 256, 17152), ("long", 8192, 256), ("uneven", 1408, 256)))
+def test_matmul_plan_covers_k_and_fits_the_card(label, k, n, m, x_bytes):
+    plan = matmul_plan(m, k, n, x_bytes)
+    assert 1 <= plan.splits <= 8 and plan.block_n in (64, 128) and n % plan.block_n == 0
+    assert plan.rows_per_split % 128 == 0 and plan.tile_rows % 128 == 0
+    assert 0 < plan.tile_rows <= plan.rows_per_split
+    # Split s owns rows [s*R, min((s+1)*R, K)): every row once, none empty.
+    r = plan.rows_per_split
+    owned = [i for s in range(plan.splits) for i in range(s * r, min((s + 1) * r, k))]
+    assert owned == list(range(k))
+    assert (plan.splits - 1) * r < k <= plan.splits * r
+    assert plan.m_tile % 16 == 0 and m <= plan.m_tile < m + 16
+    assert n // plan.block_n <= 65535 and smem_bytes(plan, m, x_bytes) <= MAX_SMEM
+
+
+def test_matmul_plan_fills_the_card():
+    assert matmul_plan(8, 1024, 4096, 2)[:3] == (64, 2, 512)  # linear1: 64 tiles x 2
+    assert matmul_plan(8, 4096, 1024, 2)[:3] == (64, 8, 512)  # linear2: 16 tiles x 8
+    assert matmul_plan(8, 1024, 3072, 2)[:3] == (64, 2, 512)  # in_proj: 96 blocks, not 144 on 132 SMs
+    assert matmul_plan(8, 1024, 1024, 2)[:3] == (64, 4, 256)  # out_proj: two copies a split at least
+    assert matmul_plan(8, 512, 1024, 2)[:3] == (64, 2, 256)  # flowNet mlp0
+    assert matmul_plan(8, 512, 10240, 2)[:3] == (128, 1, 512)  # fused adaLN: 80 tiles, no cluster
+    assert matmul_plan(8, 1408, 256, 2)[:3] == (64, 4, 384)  # the last split 256 rows
+    assert matmul_plan(8, 256, 17152, 2)[:3] == (128, 1, 256)  # past the SMs: the fewest blocks
+    for label, k, n in QMM_SHAPES:
+        plan = matmul_plan(8, k, n, 2)
+        assert n // plan.block_n * plan.splits <= 132, label
+    assert matmul_plan(64, 8192, 256, 4).tile_rows < 1024  # passes where shared memory is short
+    with pytest.raises(ValueError):
+        matmul_plan(65, 1024, 4096, 2)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 1024, 3072), (13, 512, 1024), (64, 8192, 256)])
+def test_split_k_sum_matches_plain(m, k, n):
+    """The kernel's float32 summation in NumPy: per split, per pass, each
+    warp part its k16 steps (round-robin), the parts then the splits added in
+    order; equal to the plain version within the float32 budget, so the plan
+    and the step assignment cover every row once."""
+    rng = np.random.RandomState(k)
+    x = rng.randn(m, k).astype(np.float32)
+    w = rng.randint(-127, 128, size=(k, n)).astype(np.int8)
+    scale = ((rng.rand(n) + 0.5) * 0.01).astype(np.float32)
+    plan = matmul_plan(m, k, n, 4)
+    parts_per_block = 256 // plan.block_n
+    total = np.zeros((m, n), np.float32)
+    for s in range(plan.splits):
+        k0 = s * plan.rows_per_split
+        rows = min(plan.rows_per_split, k - k0)
+        parts = np.zeros((parts_per_block, m, n), np.float32)
+        for p0 in range(0, rows, plan.tile_rows):
+            for step in range(min(plan.tile_rows, rows - p0) // 16):
+                lo = k0 + p0 + 16 * step
+                parts[step % parts_per_block] += x[:, lo : lo + 16] @ w[lo : lo + 16].astype(np.float32)
+        total += parts.sum(axis=0)
+    want = t_qmm.quantized_matmul_plain(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(scale))
+    np.testing.assert_allclose(total * scale, want.numpy(), atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("k,n", [(128, 256), (512, 1024)])
+def test_quantized_matmul_plain_epilogue_matches_apply_linear(k, n, m, dtype):
+    """The fused form (bias, output in the activation dtype) against JAX's
+    apply_linear through the Pallas kernel in interpret mode, on int8 params
+    with a bias. float32 within the attention budget; bfloat16 within one
+    bf16 ulp (2^-7 relative) of the float32 product and of the result: both
+    round the float32 product, whose sums run in another order, then add."""
+    rng = np.random.RandomState(m * n + k)
+    x = rng.randn(m, k).astype(np.float32)
+    p = {"w": (rng.randn(k, n) / np.sqrt(k)).astype(np.float32), "b": rng.randn(n).astype(np.float32)}
+    jq = j_quantize_linear({key: jnp.asarray(v) for key, v in p.items()})
+    tq = {key: torch.from_numpy(np.array(v)) for key, v in jq.items()}
+    jx = jnp.asarray(x) if dtype == np.float32 else jnp.asarray(x).astype(jnp.bfloat16)
+    tx = torch.from_numpy(x) if dtype == np.float32 else torch.from_numpy(x).bfloat16()
+    previous = j_params._QUANT_BACKEND
+    try:
+        j_params.set_quantized_matmul_backend("pallas:interpret")
+        want = _np(j_params.apply_linear(jq, jx).astype(jnp.float32))
+    finally:
+        j_params.set_quantized_matmul_backend(previous)
+    got = t_qmm.quantized_matmul_plain(tx, tq["w"], tq["scale"], bias=tq["b"], out_dtype=tx.dtype)
+    assert got.dtype == tx.dtype and got.shape == (m, n)
+    assert torch.equal(t_apply_linear(tq, tx), got)  # the CPU wrapper is the plain version
+    if dtype == np.float32:
+        np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
+    else:
+        y = t_qmm.quantized_matmul_plain(tx, tq["w"], tq["scale"]).numpy()
+        err = np.abs(got.float().numpy() - want)
+        assert (err <= 2.0**-7 * (np.abs(y) + np.abs(want))).all(), err.max()
+
+
+def test_quantized_matmul_plain_out_dtype_and_bias_forms():
+    """Without a bias and with a float32 output the plain version is the
+    Pallas kernel's product; each other form rounds it to x's dtype first."""
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy(rng.randn(3, 128).astype(np.float32)).bfloat16()
+    w = torch.from_numpy(rng.randint(-127, 128, size=(128, 256)).astype(np.int8))
+    scale = torch.from_numpy(((rng.rand(256) + 0.5) * 0.01).astype(np.float32))
+    b = torch.from_numpy(rng.randn(256).astype(np.float32))
+    y = torch.matmul(x.float(), w.float()) * scale
+    assert torch.equal(t_qmm.quantized_matmul_plain(x, w, scale), y)
+    assert torch.equal(t_qmm.quantized_matmul_plain(x, w, scale, out_dtype=torch.bfloat16), y.bfloat16())
+    with_b = y.bfloat16() + b.bfloat16()
+    assert torch.equal(t_qmm.quantized_matmul_plain(x, w, scale, b, torch.bfloat16), with_b)
+    assert torch.equal(t_qmm.quantized_matmul_plain(x, w, scale, b.bfloat16()), with_b.float())
 
 
 # The shapes of tests/test_pallas.py's int4 kernel test.
