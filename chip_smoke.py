@@ -18,8 +18,8 @@ failure exits non-zero:
    runs (RoPE, int8 row quantization, row write and attention, its written
    rows and scales bit-equal to its plain version's), and the int8 and
    int4 matmuls at the real model's linear shapes with 1, 8 and 64 rows
-   (the int8 one also in its fused form, with the bias added in x's dtype,
-   and bit-equal over two calls; each beside PyTorch's int8 / int4
+   (both also in their fused form, with the bias added in x's dtype, and
+   bit-equal over two calls; each beside PyTorch's int8 / int4
    weight-only matmul where this torch has a CUDA kernel for it and a
    matmul on the dequantized weight, the int4 one beside the int8 one);
 3. the single-utterance path: ``real_arch()`` weights from a fixed seed,
@@ -172,14 +172,15 @@ def dname(dtype: torch.dtype) -> str:
 # -- phase 2: kernels against their plain versions -------------------------------
 
 
-# Times of the first designs of kernels 1 and 4 (one block per pair) and 5,
-# from this phase on an NVIDIA H100 80GB HBM3 at 700.00 W, printed beside
+# Times of the first designs of kernels 1 and 4 (one block per pair), 5 and
+# 6, from this phase on an NVIDIA H100 80GB HBM3 at 700.00 W, printed beside
 # this run's for reference.
 FIRST_DESIGN_MS = {
     "decode_attention_step": 0.01636,
     "batched_decode_attention": 0.01310,
     "batched_decode_attention_int8": 0.01266,
     "quantized_matmul": 0.00618,  # K split over blocks, float atomics into a zeroed output
+    "int4_matmul": 0.00635,  # a block per (128 columns, group), float atomics into a zeroed output
 }
 
 
@@ -593,7 +594,7 @@ def check_quantized_matmul(rows: dict) -> None:
                 if key:
                     rows["quantized_matmul"].update(
                         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                        library=lib_note, first_design_ms=FIRST_DESIGN_MS["quantized_matmul"], fused_ms=fused_ms,
+                        library=lib_note, fused_ms=fused_ms,
                         fused_max_abs_err=fused_err, dequantized_matmul_ms=deq_ms,
                     )
 
@@ -601,6 +602,7 @@ def check_quantized_matmul(rows: dict) -> None:
 def check_int4_matmul(rows: dict) -> None:
     from go_pocket_tts_tpu_torch.kernels import int4_matmul as i4mm
     from go_pocket_tts_tpu_torch.kernels import quantized_matmul as qmm
+    from go_pocket_tts_tpu_torch.kernels.split_k import matmul_plan
     from go_pocket_tts_tpu_torch.models.quantize import dequantize_weight
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
@@ -611,17 +613,28 @@ def check_int4_matmul(rows: dict) -> None:
                 # Random bytes: every nibble code, -8 included, appears.
                 w = torch.randint(0, 256, (k // 2, n), generator=gen, device="cuda", dtype=torch.uint8)
                 scale = torch.rand((k // 128, n), generator=gen, device="cuda") * 1e-3 + 1e-4
+                bias = torch.randn((n,), generator=gen, device="cuda").to(dtype)
+                plan = matmul_plan(m, k, n, x.element_size(), w_bits=4)
                 what = f"int4_matmul {label} {dname(dtype)} M={m} K={k} N={n}"
-                # Both outputs are float32 sums of exact products: the float32 tolerance.
-                err = max_err(i4mm.int4_matmul(x, w, scale), i4mm.int4_matmul_plain(x, w, scale), torch.float32, what)
+                # The float32 product: both are float32 sums of exact products,
+                # the float32 tolerance. The fused form (apply_linear's: rounded
+                # to x's dtype, the bias added in it): x's dtype's tolerance.
+                got = i4mm.int4_matmul(x, w, scale)
+                fused = i4mm.int4_matmul(x, w, scale, bias, dtype)
+                err = max_err(got, i4mm.int4_matmul_plain(x, w, scale), torch.float32, what)
+                fused_err = max_err(fused, i4mm.int4_matmul_plain(x, w, scale, bias, dtype), dtype, what + " +bias")
+                if not (torch.equal(i4mm.int4_matmul(x, w, scale), got)
+                        and torch.equal(i4mm.int4_matmul(x, w, scale, bias, dtype), fused)):
+                    fail(f"{what}: two calls are not bit-equal")
                 ms = device_ms(lambda: i4mm.int4_matmul(x, w, scale))
+                fused_ms = device_ms(lambda: i4mm.int4_matmul(x, w, scale, bias, dtype))
                 plain_ms = device_ms(lambda: i4mm.int4_matmul_plain(x, w, scale))
                 lib_call, lib_note = int4pack_call(x, w, scale)
                 lib_ms = device_ms(lib_call) if lib_call else None
                 lib = lib_note
                 if lib_call:
                     lib_err = (lib_call().float() - i4mm.int4_matmul_plain(x, w, scale)).abs().max().item()
-                    lib = f"{lib_ms:.5f} ms (max_abs_err against plain {lib_err:.3e})"
+                    lib = f"{lib_ms:.5f} ms, bf16 out, against the fused bf16-out {fused_ms:.5f} ms (max_abs_err against plain {lib_err:.3e})"
                 # Yardsticks: a matmul against the pre-dequantized weight in x's
                 # dtype (four times the bytes in bf16), and kernel 5 on an int8
                 # weight of the same shape (twice the bytes).
@@ -632,16 +645,22 @@ def check_int4_matmul(rows: dict) -> None:
                 qmm_ms = device_ms(lambda: qmm.quantized_matmul(x, w8, s8))
                 es = torch.finfo(dtype).bits // 8
                 b_ms, b_by = bound(k * n // 2 + 4 * (k // 128) * n + es * m * k + 4 * m * n, 2.0 * m * k * n, dtype)
+                key = (label, dtype) == ("linear1", torch.bfloat16)
+                first = f" (first design {FIRST_DESIGN_MS['int4_matmul']:.5f} ms)" if key and m == 8 else ""
                 print(
-                    f"  {what}: max_abs_err {err:.3e}  kernel {ms:.5f} ms  plain {plain_ms:.5f} ms  "
-                    f"int4pack_mm {lib}  matmul(dequantized {dname(dtype)}) {deq_ms:.5f} ms  int8 kernel 5 {qmm_ms:.5f} ms  "
-                    f"bound {b_ms:.5f} ms ({b_by})  [{CARD}]"
+                    f"  {what} [BN {plan.block_n}, S {plan.splits}, R {plan.rows_per_split}]: max_abs_err {err:.3e} "
+                    f"(+bias {fused_err:.3e}), bit-equal twice  kernel {ms:.5f} ms{first} (+bias, {dname(dtype)} out "
+                    f"{fused_ms:.5f} ms)  plain {plain_ms:.5f} ms  int4pack_mm {lib}  matmul(dequantized "
+                    f"{dname(dtype)}) {deq_ms:.5f} ms  int8 kernel 5 {qmm_ms:.5f} ms  bound {b_ms:.5f} ms ({b_by})  [{CARD}]"
                 )
-                if (label, m, dtype) == ("linear1", 8, torch.bfloat16):
+                if key and m == 8:
                     rows["int4_matmul"].update(
                         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                        library=lib_note, dequantized_matmul_ms=deq_ms,
+                        library=lib_note, fused_ms=fused_ms,
+                        fused_max_abs_err=fused_err, dequantized_matmul_ms=deq_ms,
                     )
+                elif key:
+                    rows["int4_matmul"][f"ms_m{m}"] = ms
 
 
 # -- phases 3 to 8: the main paths -------------------------------------------

@@ -21,7 +21,8 @@ The batcher calls ``batched_decode_attention.batched_decode_attention_step``,
 the same kernel with the step's RoPE, int8 row quantization and row write
 fused in; its launches count under the attention wrapper of its cache kind.
 Kernels 1 and 4 share ``csrc/split_kv_attention.cuh`` and
-``split_kv.split_plan``; kernel 5's grid comes from ``split_k.matmul_plan``.
+``split_kv.split_plan``; kernels 5 and 6 share ``csrc/split_k_matmul.cuh``
+and ``split_k.matmul_plan``.
 """
 
 from go_pocket_tts_tpu_torch.kernels import (

@@ -23,17 +23,13 @@ It counts kernel launches in ``quantized_matmul.launches``.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
 
-from go_pocket_tts_tpu_torch.kernels import build
-from go_pocket_tts_tpu_torch.kernels.split_k import matmul_plan
+from go_pocket_tts_tpu_torch.kernels import build, split_k
 
 __all__ = ["quantized_matmul", "quantized_matmul_plain", "supports"]
-
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def supports(m: int, k: int, n: int) -> bool:
@@ -53,18 +49,11 @@ def quantized_matmul_plain(
     a bias or an activation-dtype output, round to ``x.dtype`` and add the
     bias rounded to it."""
     y = torch.matmul(x.float(), w_q.float()) * scale.float()
-    if bias is not None or out_dtype != torch.float32:
-        y = y.to(x.dtype)
-        if bias is not None:
-            y = y + bias.to(x.dtype)
-    return y.to(out_dtype)
+    return split_k.plain_epilogue(y, x.dtype, bias, out_dtype)
 
 
 def _check(x, w_q, scale, bias, out_dtype) -> None:
-    if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"quantized_matmul: activation dtype {x.dtype} not supported")
-    if out_dtype not in (torch.float32, x.dtype):
-        raise TypeError(f"quantized_matmul: out_dtype {out_dtype} is neither float32 nor {x.dtype}")
+    split_k.check_types("quantized_matmul", x, out_dtype)
     if x.ndim != 2 or w_q.ndim != 2 or x.shape[1] != w_q.shape[0]:
         raise ValueError(f"quantized_matmul: shapes {tuple(x.shape)} @ {tuple(w_q.shape)}")
     m, k = x.shape
@@ -73,30 +62,7 @@ def _check(x, w_q, scale, bias, out_dtype) -> None:
         raise ValueError(f"quantized_matmul: (m, k, n) = {(m, k, n)} outside the kernel's gate")
     if w_q.dtype != torch.int8 or scale.dtype != torch.float32 or tuple(scale.shape) != (n,):
         raise ValueError("quantized_matmul: w_q must be int8 [K, N] and scale float32 [N]")
-    if bias is not None and (bias.dtype not in _DTYPE_CODES or tuple(bias.shape) != (n,)):
-        raise ValueError("quantized_matmul: bias must be float32 or bfloat16 [N]")
-    for name, t in (("x", x), ("w_q", w_q), ("scale", scale), ("bias", bias)):
-        if t is None:
-            continue
-        if t.device != x.device or not t.is_contiguous():
-            raise ValueError(f"quantized_matmul: {name} must be contiguous on {x.device}")
-        if t.data_ptr() % 16:
-            raise ValueError(f"quantized_matmul: {name} must be 16-byte aligned")
-
-
-def _lib() -> ctypes.CDLL:
-    lib = build.library("quantized_matmul")
-    fn = lib.quantized_matmul
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = (
-            [ctypes.c_int]
-            + [ctypes.c_void_p] * 4
-            + [ctypes.c_int, ctypes.c_void_p]
-            + [ctypes.c_int] * 9
-            + [ctypes.c_void_p]
-        )
-    return lib
+    split_k.check_operands("quantized_matmul", x, bias, n, (("x", x), ("w_q", w_q), ("scale", scale)))
 
 
 def quantized_matmul(
@@ -113,31 +79,8 @@ def quantized_matmul(
         return quantized_matmul_plain(x, w_q, scale, bias, out_dtype)
     x = x.contiguous()
     _check(x, w_q, scale, bias, out_dtype)
-    m, k = x.shape
-    n = w_q.shape[1]
-    plan = matmul_plan(m, k, n, x.element_size())
-    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    err = _lib().quantized_matmul(
-        _DTYPE_CODES[x.dtype],
-        x.data_ptr(),
-        w_q.data_ptr(),
-        scale.data_ptr(),
-        bias.data_ptr() if bias is not None else None,
-        _DTYPE_CODES[bias.dtype] if bias is not None else 0,
-        out.data_ptr(),
-        int(out_dtype != torch.float32),
-        m,
-        k,
-        n,
-        plan.block_n,
-        plan.splits,
-        plan.rows_per_split,
-        plan.tile_rows,
-        int(plan.parts_apart),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"quantized_matmul: CUDA launch failed (cudaError {err})")
+    fn = build.library("quantized_matmul").quantized_matmul
+    out = split_k.launch(fn, x, w_q, scale, bias, out_dtype, w_bits=8)
     quantized_matmul.launches += 1
     return out
 

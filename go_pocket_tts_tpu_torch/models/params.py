@@ -145,15 +145,13 @@ def layer_norm_params(vb: VarBuilder, name: str) -> Params:
 
 
 def _int4_product(x2: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """``x2 [M, K]`` times a packed int4 linear, float32: through the int4
-    kernel where its gate admits the shape, else what the reference's
-    default ``"split"`` variant computes — per-group float32 partials times
-    ``scale [G, N]``, summed (the kernel's plain version), or for
-    per-channel int4 the paired product times ``scale [N]``."""
+    """``x2 [M, K]`` times a packed int4 linear outside the int4 kernel's
+    gate, float32: what the reference's default ``"split"`` variant
+    computes — per-group float32 partials times ``scale [G, N]``, summed
+    (the kernel's plain version), or for per-channel int4 the paired
+    product times ``scale [N]``."""
     m, k = x2.shape
     n = w.shape[1]
-    if i4mm.supports(m, k, n, tuple(scale.shape)):
-        return i4mm.int4_matmul(x2, w, scale)
     if scale.ndim == 2:
         return i4mm.int4_matmul_plain(x2, w, scale)
     return torch.matmul(x2.float(), depack_int4_pairs(w).reshape(k, n).float()) * scale.float()
@@ -170,7 +168,9 @@ def apply_linear(params: Params, x: torch.Tensor) -> torch.Tensor:
       linear is one launch), else as a plain product of the widened weight
       (prefill, and the narrow input/EOS/flowNet-output linears), where the
       reference takes XLA's mixed-dtype dot;
-    - packed int4 ``w`` (uint8), ``scale [G, N]`` or ``[N]``: see
+    - packed int4 ``w`` (uint8), ``scale [G, N]`` or ``[N]``: through the
+      int4 kernel where its gate admits the shape (the AR step's group-wise
+      linears; cast and bias fused as for int8), else
       :func:`_int4_product`.
     The result is cast to the activation dtype, then the bias is added in it.
     """
@@ -182,6 +182,9 @@ def apply_linear(params: Params, x: torch.Tensor) -> torch.Tensor:
         m = x.numel() // k
         x2 = x.reshape(m, k)
         scale = params["scale"]
+        if w.dtype == torch.uint8 and i4mm.supports(m, k, n, tuple(scale.shape)):
+            y = i4mm.int4_matmul(x2, w, scale, bias=params.get("b"), out_dtype=x.dtype)
+            return y.reshape(*lead, n)
         if w.dtype == torch.uint8:
             y = _int4_product(x2, w, scale)
         elif qmm.supports(m, k, n):

@@ -1,7 +1,7 @@
 """Where the time of one batched AR step goes in the port's continuous
 batcher.
 
-    python3 scripts/torch_profile_batched.py [--slots 8] [--steps 64] [--quantize 8|4|0] [--no-kv-quantize]
+    python3 scripts/torch_profile_batched.py [--slots 8] [--steps 64] [--quantize 8|4|0] [--no-kv-quantize] [--top 12]
 
 Needs one CUDA card. Builds ``real_arch()`` synthetic weights (bfloat16)
 from a seed and a ``ContinuousBatcher`` at the serving configuration (int8
@@ -15,7 +15,8 @@ thread:
    device sync (wall per step), and the host time to enqueue it alone;
 2. the same block under ``torch.profiler``: device busy time per step (sum
    of kernel times), launches per step, and the kernels that take the most
-   device time.
+   device time (``--top`` of them; ``--top 0`` lists every kernel with its
+   launches per step, to tell two weight formats' steps apart).
 
 Prints the card's name and power limit beside the numbers.
 """
@@ -47,6 +48,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=1234)
     ap.add_argument("--quantize", type=int, choices=(8, 4, 0), default=8, help="weight bits; 0 keeps bfloat16")
     ap.add_argument("--no-kv-quantize", action="store_true")
+    ap.add_argument("--top", type=int, default=12, help="kernels listed by device time; 0: all")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_profile_batched: no CUDA device", file=sys.stderr)
@@ -101,7 +103,7 @@ def main() -> int:
         f"profiled: device busy {busy_us / 1e3 / args.steps:.4f} ms/step, "
         f"{launches / args.steps:.1f} kernels/step  [{card}]"
     )
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[: args.top or None]:
         print(
             f"  {e.self_device_time_total / 1e3 / args.steps:8.4f} ms/step  {e.count / args.steps:6.1f}/step  {e.key[:90]}"
         )

@@ -415,6 +415,144 @@ def test_int4_matmul_plain_decodes_every_code():
     np.testing.assert_allclose(got.numpy(), x @ levels, atol=1e-4, rtol=1e-5)
 
 
+# -- kernel 6 on kernel 5's split-K plan, and its fused epilogue ----------------
+
+PLAN_SHAPES = QMM_SHAPES + (("wide", 256, 17152), ("long", 8192, 256), ("uneven", 1408, 256))
+
+# matmul_plan's int8 plans before it took w_bits: per (K, N), for M in 1, 8,
+# 13, 64 and x of 2 then 4 bytes, (block_n, splits, rows_per_split,
+# tile_rows, parts_apart).
+INT8_PLANS = {
+    (1024, 3072): [(64, 2, 512, 512, 1)] * 6 + [(64, 2, 512, 512, 0)] * 2,
+    (1024, 1024): [(64, 4, 256, 256, 1)] * 6 + [(64, 4, 256, 256, 0)] * 2,
+    (1024, 4096): [(64, 2, 512, 512, 1)] * 6 + [(64, 2, 512, 512, 0)] * 2,
+    (4096, 1024): [(64, 8, 512, 512, 1)] * 6 + [(64, 5, 896, 896, 0), (64, 5, 896, 640, 0)],
+    (1024, 512): [(64, 4, 256, 256, 1)] * 6 + [(64, 4, 256, 256, 0)] * 2,
+    (512, 1024): [(64, 2, 256, 256, 1)] * 6 + [(64, 2, 256, 256, 0)] * 2,
+    (512, 10240): [(128, 1, 512, 512, 1)] * 6 + [(128, 1, 512, 512, 0)] * 2,
+    (256, 17152): [(128, 1, 256, 256, 1)] * 6 + [(128, 1, 256, 256, 0)] * 2,
+    (8192, 256): [(64, 8, 1024, 1024, 1)] + [(64, 8, 1024, 1024, 0)] * 5
+    + [(64, 5, 1664, 1152, 0), (64, 5, 1664, 640, 0)],
+    (1408, 256): [(64, 4, 384, 384, 1)] * 6 + [(64, 4, 384, 384, 0)] * 2,
+}
+
+
+@pytest.mark.parametrize("label,k,n", PLAN_SHAPES)
+def test_matmul_plan_int8_is_unchanged_by_w_bits(label, k, n):
+    got = [
+        tuple(int(v) for v in matmul_plan(m, k, n, x_bytes, w_bits=8)[:4]) + (int(matmul_plan(m, k, n, x_bytes)[5]),)
+        for m in (1, 8, 13, 64)
+        for x_bytes in (2, 4)
+    ]
+    assert got == INT8_PLANS[(k, n)], label
+    for m in (1, 8, 13, 64):
+        assert matmul_plan(m, k, n, 2, w_bits=8) == matmul_plan(m, k, n, 2)
+
+
+@pytest.mark.parametrize("m", [1, 8, 13, 64])
+@pytest.mark.parametrize("label,k,n", PLAN_SHAPES)
+def test_matmul_plan_int4_covers_k_in_whole_groups_and_fits_the_card(label, k, n, m):
+    for x_bytes in (2, 4):
+        plan = matmul_plan(m, k, n, x_bytes, w_bits=4)
+        assert 1 <= plan.splits <= 8 and plan.block_n in (64, 128) and n % plan.block_n == 0
+        # Whole 128-row scale groups per split and per staged pass.
+        assert plan.rows_per_split % 128 == 0 and plan.tile_rows % 128 == 0
+        assert 0 < plan.tile_rows <= min(plan.rows_per_split, 2048)
+        r = plan.rows_per_split
+        owned = [i for s in range(plan.splits) for i in range(s * r, min((s + 1) * r, k))]
+        assert owned == list(range(k))
+        assert (plan.splits - 1) * r < k <= plan.splits * r
+        assert plan.m_tile % 16 == 0 and m <= plan.m_tile < m + 16
+        assert n // plan.block_n <= 65535 and smem_bytes(plan, m, x_bytes, w_bits=4) <= MAX_SMEM
+        # Half the weight bytes a row: the grid is int8's, and as many rows fit at once.
+        assert plan[:3] == matmul_plan(m, k, n, x_bytes)[:3]
+        assert plan.tile_rows >= matmul_plan(m, k, n, x_bytes).tile_rows
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 1024, 3072), (13, 512, 1024), (64, 8192, 256)])
+def test_split_k_int4_sum_matches_plain(m, k, n):
+    """Kernel 6's float32 summation in NumPy: per split, per pass, per
+    128-row group, each warp part sums its k16 steps (round-robin), times the
+    group's scale, into its accumulator; the parts then the splits added in
+    order. Equal to the plain version within the float32 budget, so the plan
+    covers every row once and every group gets its own scale."""
+    rng = np.random.RandomState(k + 1)
+    x = rng.randn(m, k).astype(np.float32)
+    levels = rng.randint(-8, 8, size=(k, n)).astype(np.int8)
+    packed = ((levels[0::2] & 0x0F) | ((levels[1::2] & 0x0F) << 4)).astype(np.uint8)
+    scale = ((rng.rand(k // 128, n) + 0.5) * 0.01).astype(np.float32)
+    plan = matmul_plan(m, k, n, 4, w_bits=4)
+    parts_per_block = 256 // plan.block_n
+    total = np.zeros((m, n), np.float32)
+    for s in range(plan.splits):
+        k0 = s * plan.rows_per_split
+        rows = min(plan.rows_per_split, k - k0)
+        acc = np.zeros((parts_per_block, m, n), np.float32)
+        for p0 in range(0, rows, plan.tile_rows):
+            for g0 in range(k0 + p0, k0 + p0 + min(plan.tile_rows, rows - p0), 128):
+                part = np.zeros((parts_per_block, m, n), np.float32)
+                for step in range(8):
+                    lo = g0 + 16 * step
+                    part[step % parts_per_block] += x[:, lo : lo + 16] @ levels[lo : lo + 16].astype(np.float32)
+                acc += part * scale[g0 // 128]
+        total += acc.sum(axis=0)
+    want = t_i4mm.int4_matmul_plain(torch.from_numpy(x), torch.from_numpy(packed), torch.from_numpy(scale))
+    np.testing.assert_allclose(total, want.numpy(), atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("k,n", [(256, 256), (512, 1024)])
+def test_int4_matmul_plain_epilogue_matches_apply_linear(k, n, m, dtype):
+    """The fused form (bias, output in the activation dtype) against JAX's
+    apply_linear through the Pallas int4 kernel in interpret mode, on
+    group-wise int4 params with a bias. float32 within the attention budget;
+    bfloat16 within one bf16 ulp (2^-7 relative) of the float32 product and
+    of the result: both round the float32 product, whose sums run in another
+    order, then add."""
+    rng = np.random.RandomState(m * n + k + 4)
+    x = rng.randn(m, k).astype(np.float32)
+    p = {"w": (rng.randn(k, n) / np.sqrt(k)).astype(np.float32), "b": rng.randn(n).astype(np.float32)}
+    jq = j_quantize_linear({key: jnp.asarray(v) for key, v in p.items()}, bits=4)
+    tq = {key: torch.from_numpy(np.array(v)) for key, v in jq.items()}
+    assert tq["w"].dtype == torch.uint8 and tuple(tq["scale"].shape) == (k // 128, n)
+    jx = jnp.asarray(x) if dtype == np.float32 else jnp.asarray(x).astype(jnp.bfloat16)
+    tx = torch.from_numpy(x) if dtype == np.float32 else torch.from_numpy(x).bfloat16()
+    previous = j_params._INT4_VARIANT
+    try:
+        j_params.set_int4_matmul_variant("pallas:interpret")
+        want = _np(j_params.apply_linear(jq, jx).astype(jnp.float32))
+    finally:
+        j_params.set_int4_matmul_variant(previous)
+    got = t_i4mm.int4_matmul_plain(tx, tq["w"], tq["scale"], bias=tq["b"], out_dtype=tx.dtype)
+    assert got.dtype == tx.dtype and got.shape == (m, n)
+    assert torch.equal(t_apply_linear(tq, tx), got)  # the CPU wrapper is the plain version
+    if dtype == np.float32:
+        np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
+    else:
+        y = t_i4mm.int4_matmul_plain(tx, tq["w"], tq["scale"]).numpy()
+        err = np.abs(got.float().numpy() - want)
+        assert (err <= 2.0**-7 * (np.abs(y) + np.abs(want))).all(), err.max()
+
+
+def test_int4_matmul_plain_out_dtype_and_bias_forms():
+    """Without a bias and with a float32 output the plain version is the
+    Pallas kernel's product; each other form rounds it to x's dtype first."""
+    rng = np.random.RandomState(6)
+    x = torch.from_numpy(rng.randn(3, 256).astype(np.float32)).bfloat16()
+    w = torch.from_numpy(rng.randint(0, 256, size=(128, 256)).astype(np.uint8))
+    scale = torch.from_numpy(((rng.rand(2, 256) + 0.5) * 0.01).astype(np.float32))
+    b = torch.from_numpy(rng.randn(256).astype(np.float32))
+    y = t_i4mm.int4_matmul_plain(x, w, scale)
+    assert y.dtype == torch.float32
+    assert torch.equal(t_i4mm.int4_matmul(x, w, scale), y)
+    assert torch.equal(t_i4mm.int4_matmul_plain(x, w, scale, out_dtype=torch.bfloat16), y.bfloat16())
+    with_b = y.bfloat16() + b.bfloat16()
+    assert torch.equal(t_i4mm.int4_matmul_plain(x, w, scale, b, torch.bfloat16), with_b)
+    assert torch.equal(t_i4mm.int4_matmul_plain(x, w, scale, b.bfloat16()), with_b.float())
+    assert torch.equal(t_i4mm.int4_matmul(x, w, scale, b, torch.bfloat16), with_b)
+
+
 @pytest.mark.parametrize(
     "m,k,n,scale_shape",
     [(8, 256, 512, (2, 512)), (64, 1024, 4096, (8, 4096)), (65, 256, 512, (2, 512)), (8, 256, 100, (2, 100)),
