@@ -50,11 +50,17 @@ failure exits non-zero:
 10. float32 streaming: the streamed PCM against ``generate_audio`` for the
    same seed, and the streamed path's kernels against their plain versions.
 
-Phase 2 also holds the up2 kernel and the up2 -> up3 -> tail cascade (whole
-and in 16-frame blocks with a carried halo) against their plain versions at
-160 frames. Around each path of phases 3, 5, 7 and 9 every launch count is
-set to 0 just before and read just after; each kernel that path runs must
-be positive.
+Phase 2 also holds the SEANet kernels against their plain versions at 160
+frames: kernels 2 and 7 (bf16 on tensor cores) also at the batcher's
+harvest shape, 8 lanes x 256 frames, beside the op chains they replace and
+bit-equal over two calls; kernel 8 whole and in 16-frame blocks with a
+carried halo, its streamed block timed at 4, 8 and 16 frames. Around each
+path of phases 3, 5, 7 and 9 every launch count is set to 0 just before and
+read just after; each kernel that path runs must be positive. The SEANet
+wrappers also count launches by input shape; after phase 10 each SEANet
+kernel is re-timed at every shape those paths launched it on, and its
+device time on the paths (count x time, summed) is printed beside its
+bound at those shapes.
 The last lines are the kernel table as one JSON object, then
 ``{"ok": true, "device": {...}}``.
 """
@@ -266,40 +272,107 @@ def _tail_inputs(gen, dtype, up: bool):
     return head + tail
 
 
+# The SEANet kernels' work per call, from x's shape [B, C, T]: (float
+# operations per output column, output columns per input column, output
+# channels). Per column: kernel 2 50,048 (up3 32,768, res3 16,384, final
+# 896), kernel 3 17,280, kernel 7 196,608 (up2 131,072 over 128 channels,
+# res2 65,536), kernel 8 99,200 a PCM sample.
+SEANET_WORK = {
+    "fused_seanet_up_tail": (50048.0, 4, 1),
+    "fused_seanet_tail": (17280.0, 1, 1),
+    "fused_up2_res": (196608.0, 5, 128),
+    "fused_up2_up3_tail": (99200.0, 20, 1),
+}
+SEANET_DESIGN = {  # bf16 times of the float32 SIMT designs, PR 8's phase 2 at 160 frames
+    "fused_seanet_up_tail": 0.9545,
+    "fused_up2_res": 0.7552,
+}
+# Every (SEANet kernel, input shape) launched on the paths of phases 3, 5, 7
+# and 9, with its count (the wrappers' `.shapes`, read by read_launches).
+PATH_SHAPES: dict = {}
+
+
+def seanet_bound(name: str, shape, weights, dtype: torch.dtype):
+    """(ms, "bytes" | "operations"): x, the weights and the output moved
+    once, against the kernel's operations, at x's shape."""
+    b, c, t = shape
+    flop, per_col, c_out = SEANET_WORK[name]
+    cols = b * per_col * t
+    es = torch.finfo(dtype).bits // 8
+    return bound(es * (b * c * t + sum(w.numel() for w in weights) + cols * c_out), flop * cols, dtype)
+
+
+def _seanet_x(gen, shape, dtype):
+    return (torch.randn(shape, generator=gen, device="cuda") * 0.5).to(dtype)
+
+
+def _up_tail_op_chain(x, wu, bu, w1, b1, w2, b2, wf, bf):
+    """What ``mimi_decode`` runs without kernel 2: convT, res3, ELU and the
+    final conv as separate ops in the activation dtype."""
+    from go_pocket_tts_tpu_torch.ops import causal_conv1d, conv_transpose1d_trim, elu
+
+    y = conv_transpose1d_trim(x, wu, bu, 4)
+    h = causal_conv1d(elu(causal_conv1d(elu(y), w1, b1)), w2, b2)
+    return causal_conv1d(elu(y + h), wf, bf)
+
+
+def _check_one(name, kernel, plain, x, ws, dtype, out_shape):
+    """Kernel vs plain version on one input: shape, tolerance, and bit-equal
+    over two calls; returns the max abs error."""
+    got, again = kernel(x, *ws), kernel(x, *ws)
+    if tuple(got.shape) != out_shape:
+        fail(f"{name}: output shape {tuple(got.shape)}")
+    what = f"{name} {dname(dtype)} x={tuple(x.shape)}"
+    err = max_err(got, plain(x, *ws), dtype, what)
+    if not torch.equal(got, again):
+        fail(f"{what}: two calls differ")
+    return err
+
+
 def check_seanet(rows: dict) -> None:
+    """Kernels 2 and 3 at 160 frames (kernel 2 on tensor cores in bf16),
+    and kernel 2 at the batcher's harvest shape, 8 lanes x 256 frames,
+    beside its op chain."""
     from go_pocket_tts_tpu_torch.kernels import seanet_tail as st
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    frames = 160  # a 12.8 s decode
-    t_in = 480 * frames  # 76,800 pre-up3 columns
-    t_out = 1920 * frames
-    for name, up, c_in, t_x, flop_per_sample, kernel, plain in (
-        ("fused_seanet_up_tail", True, 128, t_in, 50048, st.fused_seanet_up_tail, st.fused_seanet_up_tail_plain),
-        ("fused_seanet_tail", False, 64, t_out, 17280, st.fused_seanet_tail, st.fused_seanet_tail_plain),
+    for name, up, c_in, per_frame, kernel, plain in (
+        ("fused_seanet_up_tail", True, 128, 480, st.fused_seanet_up_tail, st.fused_seanet_up_tail_plain),
+        ("fused_seanet_tail", False, 64, 1920, st.fused_seanet_tail, st.fused_seanet_tail_plain),
     ):
         for dtype in (torch.float32, torch.bfloat16):
-            x = (torch.randn((1, c_in, t_x), generator=gen, device="cuda") * 0.5).to(dtype)
             ws = _tail_inputs(gen, dtype, up)
-            got = kernel(x, *ws)
-            want = plain(x, *ws)
-            if tuple(got.shape) != (1, 1, t_out):
-                fail(f"{name}: output shape {tuple(got.shape)}")
-            what = f"{name} {dname(dtype)} x={tuple(x.shape)}"
-            err = max_err(got, want, dtype, what)
-            ms = device_ms(lambda: kernel(x, *ws), per_graph=5)
-            plain_ms = device_ms(lambda: plain(x, *ws), per_graph=5)
-            es = torch.finfo(dtype).bits // 8
-            bytes_moved = es * (x.numel() + sum(w.numel() for w in ws) + t_out)
-            b_ms, b_by = bound(bytes_moved, float(flop_per_sample) * t_out, dtype)
-            print(
-                f"  {what}: max_abs_err {err:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-                f"bound {b_ms:.5f} ms ({b_by})  [{CARD}]"
-            )
-            if dtype == torch.bfloat16:
-                rows[name].update(
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                    bound_by=b_by, library_ms=None,
+            shapes = [(1, c_in, per_frame * 160)]
+            if up and dtype == torch.bfloat16:
+                shapes.append((8, c_in, per_frame * 256))  # the harvest of 8 lanes at a 256-frame bucket
+            for shape in shapes:
+                x = _seanet_x(gen, shape, dtype)
+                what = f"{name} {dname(dtype)} x={shape}"
+                per_graph = 5 if shape[0] == 1 else 2
+                err = _check_one(name, kernel, plain, x, ws, dtype, (shape[0], 1, 1920 * shape[2] // per_frame))
+                ms = device_ms(lambda: kernel(x, *ws), per_graph=per_graph)
+                plain_ms = device_ms(lambda: plain(x, *ws), per_graph=per_graph)
+                chain_ms = device_ms(lambda: _up_tail_op_chain(x, *ws), per_graph=per_graph) if up else None
+                b_ms, b_by = seanet_bound(name, shape, ws, dtype)
+                chain = f"  op chain {chain_ms:.4f} ms" if up else ""
+                design = ""
+                if dtype == torch.bfloat16 and name in SEANET_DESIGN and shape[0] == 1:
+                    design = f" (SIMT design {SEANET_DESIGN[name]:.4f} ms)"
+                print(
+                    f"  {what}: max_abs_err {err:.3e}, bit-equal over two calls  kernel {ms:.4f} ms{design}  "
+                    f"plain {plain_ms:.4f} ms{chain}  bound {b_ms:.5f} ms ({b_by})  [{CARD}]"
                 )
+                if dtype != torch.bfloat16:
+                    continue
+                if shape[0] == 1:
+                    rows[name].update(
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                    )
+                    if up:
+                        rows[name]["op_chain_ms"] = chain_ms
+                else:
+                    rows[name].update(harvest_ms=ms, harvest_bound_ms=b_ms, harvest_op_chain_ms=chain_ms)
+                    rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
 
 
 def _up2_inputs(gen, dtype):
@@ -325,8 +398,10 @@ def _up2_op_chain(x, wu, bu, w1, b1, w2, b2):
 
 
 def check_up2(rows: dict) -> None:
-    """Kernels 7 and 8 at 160 frames (x [1,256,15360]); kernel 8 whole and
-    streamed in 16-frame blocks (1536 columns) with a carried halo."""
+    """Kernel 7 at 160 frames (x [1,256,15360]; on tensor cores in bf16)
+    and at the harvest shape (8 lanes x 256 frames) beside its op chain;
+    kernel 8 whole at 160 frames and streamed in 16-frame blocks with a
+    carried halo, and one streamed block timed at 4, 8 and 16 frames."""
     from go_pocket_tts_tpu_torch.kernels import seanet_tail as st
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
@@ -334,29 +409,36 @@ def check_up2(rows: dict) -> None:
     t_in = 96 * frames
     t_out = 1920 * frames
     for dtype in (torch.float32, torch.bfloat16):
-        x = (torch.randn((1, 256, t_in), generator=gen, device="cuda") * 0.5).to(dtype)
         up2, rest = _up2_inputs(gen, dtype)
-        es = torch.finfo(dtype).bits // 8
-
-        got, want = st.fused_up2_res(x, *up2), st.fused_up2_res_plain(x, *up2)
-        if tuple(got.shape) != (1, 128, 5 * t_in):
-            fail(f"fused_up2_res: output shape {tuple(got.shape)}")
-        what = f"fused_up2_res {dname(dtype)} x={tuple(x.shape)}"
-        err = max_err(got, want, dtype, what)
-        ms = device_ms(lambda: st.fused_up2_res(x, *up2), per_graph=5)
-        plain_ms = device_ms(lambda: st.fused_up2_res_plain(x, *up2), per_graph=5)
-        chain_ms = device_ms(lambda: _up2_op_chain(x, *up2), per_graph=5)
-        bytes_moved = es * (x.numel() + sum(w.numel() for w in up2) + got.numel())
-        b_ms, b_by = bound(bytes_moved, 196608.0 * 5 * t_in, dtype)
-        print(
-            f"  {what}: max_abs_err {err:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-            f"op chain of mimi_decode {chain_ms:.4f} ms  bound {b_ms:.5f} ms ({b_by})  [{CARD}]"
-        )
-        if dtype == torch.bfloat16:
-            rows["fused_up2_res"].update(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None
+        shapes = [(1, 256, t_in)] + ([(8, 256, 96 * 256)] if dtype == torch.bfloat16 else [])
+        for shape in shapes:
+            x = _seanet_x(gen, shape, dtype)
+            what = f"fused_up2_res {dname(dtype)} x={shape}"
+            per_graph = 5 if shape[0] == 1 else 2
+            err = _check_one("fused_up2_res", st.fused_up2_res, st.fused_up2_res_plain, x, up2, dtype,
+                             (shape[0], 128, 5 * shape[2]))
+            ms = device_ms(lambda: st.fused_up2_res(x, *up2), per_graph=per_graph)
+            plain_ms = device_ms(lambda: st.fused_up2_res_plain(x, *up2), per_graph=per_graph)
+            chain_ms = device_ms(lambda: _up2_op_chain(x, *up2), per_graph=per_graph)
+            b_ms, b_by = seanet_bound("fused_up2_res", shape, up2, dtype)
+            design = f" (SIMT design {SEANET_DESIGN['fused_up2_res']:.4f} ms)" if dtype == torch.bfloat16 and shape[0] == 1 else ""
+            print(
+                f"  {what}: max_abs_err {err:.3e}, bit-equal over two calls  kernel {ms:.4f} ms{design}  "
+                f"plain {plain_ms:.4f} ms  op chain of mimi_decode {chain_ms:.4f} ms (kernel below it: "
+                f"{'yes' if ms < chain_ms else 'no'})  bound {b_ms:.5f} ms ({b_by})  [{CARD}]"
             )
+            if dtype != torch.bfloat16:
+                continue
+            if shape[0] == 1:
+                rows["fused_up2_res"].update(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                    op_chain_ms=chain_ms,
+                )
+            else:
+                rows["fused_up2_res"].update(harvest_ms=ms, harvest_bound_ms=b_ms, harvest_op_chain_ms=chain_ms)
+                rows["fused_up2_res"]["max_abs_err"] = max(rows["fused_up2_res"]["max_abs_err"], err)
 
+        x = _seanet_x(gen, (1, 256, t_in), dtype)
         weights = up2 + rest
         got = st.fused_up2_up3_tail(x, *weights)
         want = st.fused_up2_up3_tail_plain(x, *weights)
@@ -374,21 +456,66 @@ def check_up2(rows: dict) -> None:
             start = start + block
         err_stream = max_err(torch.cat(blocks, dim=2), want, dtype, what + f" streamed in blocks of {block}")
         ms = device_ms(lambda: st.fused_up2_up3_tail(x, *weights), per_graph=3)
-        xb = x[:, :, :block].contiguous()
-        start = torch.full((1,), block, dtype=torch.int32, device="cuda")
-        block_ms = device_ms(lambda: st.fused_up2_up3_tail_stream(xb, halo, start, *weights), per_graph=5)
+        block_ms = {}
+        for n in (4, 8, 16):  # the stream decoder's segments
+            xb = x[:, :, : 96 * n].contiguous()
+            start = torch.full((1,), 96 * n, dtype=torch.int32, device="cuda")
+            block_ms[n] = device_ms(lambda: st.fused_up2_up3_tail_stream(xb, halo, start, *weights), per_graph=5)
         plain_ms = device_ms(lambda: st.fused_up2_up3_tail_plain(x, *weights), per_graph=3)
-        bytes_moved = es * (x.numel() + sum(w.numel() for w in weights) + t_out)
-        b_ms, b_by = bound(bytes_moved, 99200.0 * t_out, dtype)
+        b_ms, b_by = seanet_bound("fused_up2_up3_tail", tuple(x.shape), weights, dtype)
+        blocks_txt = ", ".join(f"{n} frames {v:.4f} ms" for n, v in block_ms.items())
         print(
             f"  {what}: max_abs_err {err:.3e} (streamed {err_stream:.3e})  kernel {ms:.4f} ms "
-            f"(one 16-frame block {block_ms:.4f} ms)  plain {plain_ms:.4f} ms  bound {b_ms:.5f} ms ({b_by})  [{CARD}]"
+            f"(one streamed block: {blocks_txt})  plain {plain_ms:.4f} ms  bound {b_ms:.5f} ms ({b_by})  [{CARD}]"
         )
         if dtype == torch.bfloat16:
             rows["fused_up2_up3_tail"].update(
                 max_abs_err=max(err, err_stream), ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None,
+                library_ms=None, block_ms=block_ms,
             )
+
+
+def path_device_times(rows: dict) -> None:
+    """Each SEANet kernel's device time on the paths of phases 3, 5, 7 and
+    9: every (kernel, input shape) those paths launched, re-timed by
+    CUDA-graph replay on seeded bf16 inputs, times its count; beside the
+    bound at the same shapes. Kernel 8 is timed in its streaming form."""
+    from go_pocket_tts_tpu_torch.kernels import seanet_tail as st
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    dtype = torch.bfloat16
+    up2, rest = _up2_inputs(gen, dtype)
+    weights = {
+        "fused_seanet_up_tail": rest,
+        "fused_seanet_tail": rest[2:],
+        "fused_up2_res": up2,
+        "fused_up2_up3_tail": up2 + rest,
+    }
+    totals: dict = {}
+    for (name, shape), n in sorted(PATH_SHAPES.items()):
+        x, ws = _seanet_x(gen, shape, dtype), weights[name]
+        if name == "fused_up2_up3_tail":
+            halo = torch.zeros((shape[0], 256, st.HALO), dtype=dtype, device="cuda")
+            start = torch.full((shape[0],), shape[2], dtype=torch.int32, device="cuda")
+
+            def call():
+                return st.fused_up2_up3_tail_stream(x, halo, start, *ws)
+        else:
+            kernel = getattr(st, name)
+
+            def call():
+                return kernel(x, *ws)
+        ms = device_ms(call, per_graph=5 if shape[0] * shape[2] <= 96 * 256 else 2)
+        b_ms, _ = seanet_bound(name, shape, ws, dtype)
+        print(f"  {name} x={shape}: {n} launches on the paths, {ms:.5f} ms a call, bound {b_ms:.5f} ms")
+        tot = totals.setdefault(name, [0, 0.0, 0.0])
+        tot[0] += n
+        tot[1] += n * ms
+        tot[2] += n * b_ms
+    for name, (n, ms, b_ms) in totals.items():
+        print(f"  {name}: device time on the paths {ms:.4f} ms over {n} launches, bound {b_ms:.5f} ms  [{CARD}]")
+        shapes = [[*shape, count] for (kname, shape), count in sorted(PATH_SHAPES.items()) if kname == name]
+        rows[name].update(path_ms=ms, path_bound_ms=b_ms, path_shapes=shapes)
 
 
 def check_batched_decode_attention(rows: dict) -> None:
@@ -697,11 +824,15 @@ def check_audio(audio: np.ndarray, frames: int, what: str, bounded: bool = True)
 def read_launches(phase: str, must, counts: dict) -> None:
     """Read every launch count after a path's run (they were set to 0 just
     before it), fail if a kernel the path runs was not launched, and add the
-    counts to the totals of the kernel table."""
+    counts to the totals of the kernel table (and the SEANet kernels' counts
+    by input shape to PATH_SHAPES)."""
     from go_pocket_tts_tpu_torch import kernels
 
     launches = {fn.__name__: fn.launches for fn in kernels.WRAPPERS}
     print(f"  launches in {phase}: {launches}")
+    for fn in kernels.WRAPPERS:
+        for shape, n in getattr(fn, "shapes", {}).items():
+            PATH_SHAPES[(fn.__name__, shape)] = PATH_SHAPES.get((fn.__name__, shape), 0) + n
     for name in must:
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched in {phase}")
@@ -1215,6 +1346,11 @@ def main() -> int:
 
     print("phase 10: float32 streaming against generate_audio and against plain versions")
     f32_streaming(model32, arch)
+    del model32
+    torch.cuda.empty_cache()
+
+    print("the SEANet kernels' device time on the paths of phases 3, 5, 7 and 9 (bfloat16)")
+    path_device_times(rows)
 
     for name, row in rows.items():
         row["launches"] = counts.get(name, 0)

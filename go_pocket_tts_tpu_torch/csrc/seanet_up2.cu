@@ -18,8 +18,20 @@
 // to XLA ([B,128,T]x5 stacked and reshaped; the cascade phases-major); on
 // v5e neither fit Mosaic's 16 MB scoped VMEM at their block sizes. Here:
 //
-//   up2_res: a block owns 8 input columns (40 output columns) and writes
-//     them in time order. Stages, all float32 in shared memory:
+//   up2_res in bfloat16 (the serving dtype): tensor cores, tc:: below. The
+//     SIMT form's block of 8 input columns read all 704 KB of up2/res2
+//     weights per block (1.35 GB from L2 per 160 frames) in 2-byte scalar
+//     loads inside the FMA loop. Here a block owns 32 input columns and
+//     every stage is an implicit GEMM on mma.sync (seanet_mma.cuh): up2 as
+//     5 phase GEMMs on the x tile read at two column offsets, res2.conv1
+//     as 3 shifted reads of elu(y2), res2.conv2 as a plain GEMM; float32
+//     intermediates enter as hi/lo bf16 pairs, y2 stays in registers from
+//     up2 to the residual add, and each warp streams its own rows of the
+//     prepared weights through a cp.async ring, once per block (0.34 GB
+//     from L2 per 160 frames).
+//   up2_res in float32 (parity): a block owns 8 input columns (40 output
+//     columns) and writes them in time order. Stages, all float32 in
+//     shared memory:
 //       U   y2 over 9 input columns (the 8 plus one to the left, for the
 //           k3 causal conv's 2-sample halo), from a 10-column x tile: each
 //           thread owns one output channel and 5 of the 9 columns (the two
@@ -46,9 +58,11 @@
 // absolute position, so a stream of blocks concatenates to the whole decode.
 // A null halo and start are zeros: the TPU function exactly.
 //
-// This is plain SIMT float32 arithmetic, as seanet_tail.cu; the up2
-// contraction on tensor cores is the next step.
+// The cascade is plain SIMT float32 arithmetic in both dtypes, as
+// seanet_tail.cu's float32 form; its redesign on the tensor-core stages of
+// seanet_mma.cuh is the next step.
 
+#include "seanet_mma.cuh"
 #include "seanet_tail.cuh"
 
 namespace {
@@ -277,6 +291,274 @@ up2_up3_tail_kernel(const T* __restrict__ x, const T* __restrict__ halo,
   tail_stages<T>(w3, ys, hs, xs, t_abs0, out + (size_t)b * 20 * t_in + t0);
 }
 
+// ---- up2_res on tensor cores (bfloat16) -----------------------------------
+// Block: kN input columns [a0, a0+kN) -> 5*kN output columns, 8 warps.
+//   U   y2 = up2(x), the 5 phase GEMMs (M 128, K 2 taps x 256, N columns):
+//       warp w owns output channels [16w, 16w+16) of every phase over the
+//       block's columns, plus phases 3 and 4 of column a0-1 (the k3 conv's
+//       2-sample halo) from a halo n-tile; its 88 accumulators hold y2 in
+//       registers up to R2. elu(y2) goes to shared memory as hi/lo planes.
+//   R1  h1 = elu(res2.conv1(elu(y2))) (M 64, K 3 shifts x 128, N 5*kN):
+//       warp w owns m-tile w%4 and half of the n-tiles; n-tiles run over
+//       (phase, 8 columns), so a shift by one position moves to the phase
+//       plane before (and one column back from phase 0).
+//   R2  h = elu(y2 + res2.conv2(h1)) (M 128, K 64), accumulated onto the
+//       y2 registers: warp w again owns channels [16w, 16w+16). Staged in
+//       shared memory in time order and stored with 16-byte writes.
+namespace tc {
+
+// Declarations, not a directive: seanet's kThreads and elu stay out of sight.
+using seanet_mma::bf16;
+using seanet_mma::elu;
+using seanet_mma::kThreads;
+using seanet_mma::ld_b;
+using seanet_mma::hi_lo_lane;
+using seanet_mma::ldmatrix_x4;
+using seanet_mma::ld_b_pair;
+using seanet_mma::FragRing;
+using seanet_mma::cp_async16;
+using seanet_mma::cp_async_commit;
+using seanet_mma::ring_drain;
+using seanet_mma::load_x_tile;
+using seanet_mma::mma_frag;
+using seanet_mma::store_hi_lo_pair;
+
+constexpr int kN = 32;                 // input columns per block
+constexpr int kNT = kN / 8;            // their n-tiles
+constexpr int kXs = kXin + 8;          // x tile row stride (bf16)
+constexpr int kXRows = 1 + 8 + kN;     // zero row, halo n-tile, the block's columns
+constexpr int kEs = kC2 + 8;           // elu(y2) row stride
+constexpr int kERows = 1 + kN;         // per phase plane: column a0-1, then the block's
+constexpr int kEPlane = 5 * kERows * kEs;
+constexpr int kHs = kCr2 + 8;          // h1 row stride
+constexpr int kHRows = 5 * kN;         // h1 rows, phase-major: 32*s + column
+constexpr int kOs = 5 * kN + 8;        // staged output row stride
+constexpr int kKsU = 2 * kXin / 16;    // U k-steps
+constexpr int kKs1 = 3 * kC2 / 16;     // R1 k-steps
+constexpr int kKs2 = kCr2 / 16;        // R2 k-steps
+constexpr int kDepthU = 4;            // U k-steps per warp's ring (5 fragments each)
+constexpr int kRing = kDepthU * 5 * 512;  // ring bytes per warp, under elu(y2) during U
+constexpr size_t kSmemAct = sizeof(bf16) * (2 * kEPlane + 2 * kHRows * kHs);
+// Resident for the block's life, after the activations: res2's A fragments
+// (w1, w2), 64 KB.
+constexpr int kW1 = (kCr2 / 16) * kKs1 * 32, kW2 = (kC2 / 16) * kKs2 * 32;  // uint4
+constexpr size_t kSmem = kSmemAct + sizeof(uint4) * (kW1 + kW2);
+static_assert(8 * kRing <= 2 * kEPlane * (int)sizeof(bf16), "U's rings lie under elu(y2)");
+static_assert(kXRows * kXs <= 2 * kHRows * kHs, "the x tile lies under h1");
+static_assert(kC2 * kOs <= 2 * kEPlane, "the staged output lies under elu(y2)");
+
+// Prepared weights (kernels/seanet_tail.py): fragments [M/16][K/16][32 lanes]
+// of wu [5 phases][128][2*256] (K = tap*256 + i), w1 [64][3*128]
+// (K = d*128 + i), w2 [128][64].
+__global__ void __launch_bounds__(kThreads, 1)
+up2_res_mma_kernel(const bf16* __restrict__ x, const uint4* __restrict__ wuf,
+                   const bf16* __restrict__ bu, const uint4* __restrict__ w1f,
+                   const bf16* __restrict__ b1, const uint4* __restrict__ w2f,
+                   const bf16* __restrict__ b2, bf16* __restrict__ out, int t_in) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* e2h = reinterpret_cast<bf16*>(smem_raw);
+  bf16* e2l = e2h + kEPlane;
+  bf16* h1h = e2l + kEPlane;
+  bf16* h1l = h1h + kHRows * kHs;
+  bf16* xs = h1h;  // during U
+  bf16* os = e2h;  // after R1
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  uint4* ring = reinterpret_cast<uint4*>(smem_raw + warp * kRing) + lane;  // U only
+  uint4* w1s = reinterpret_cast<uint4*>(smem_raw + kSmemAct);
+  uint4* w2s = w1s + kW1;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.y;
+  const int a0 = blockIdx.x * kN;
+
+  // The resident weights, then U's, are in flight first of all, while the
+  // x tile loads.
+  for (int i = threadIdx.x; i < kW1 + kW2; i += kThreads) cp_async16(w1s + i, i < kW1 ? w1f + i : w2f + (i - kW1));
+  cp_async_commit();
+  constexpr int kPhase = (kC2 / 16) * kKsU * 32;
+  const FragRing<5, kDepthU> wru{ring, wuf + warp * kKsU * 32 + lane, 32, kPhase, kKsU};
+  wru.start();
+  // x at columns [a0-8, a0+kN): row 8*jw + n + 1 holds column a0-8+8*jw+n.
+  load_x_tile<kXin, 8 + kN, kXs>(x + (size_t)b * kXin * t_in, t_in, a0 - 8, xs);
+
+  // U. n-tile jw = 0 is the halo (columns a0-8 .. a0-1), jw = j+1 the
+  // block's j-th; tap 0 reads column m-1, row 8*jw + n.
+  float acc[5][kNT][4];
+  float hacc[2][4];
+#pragma unroll
+  for (int s = 0; s < 5; ++s)
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[s][j][e] = 0.f;
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) hacc[s][e] = 0.f;
+  {
+#pragma unroll 1
+    for (int ks = 0; ks < kKsU; ++ks) {
+      uint4 af[5];
+      wru.get(ks, af);
+      const int tap = ks / (kXin / 16), k0 = (ks % (kXin / 16)) * 16;
+      uint32_t bt[kNT + 1][2];
+#pragma unroll
+      for (int j = 0; j < kNT; j += 2) {
+        uint32_t r[4];
+        ld_b_pair<kXs>(r, xs, 8 * (j + 1) + tap, k0);
+        bt[j + 1][0] = r[0];
+        bt[j + 1][1] = r[1];
+        bt[j + 2][0] = r[2];
+        bt[j + 2][1] = r[3];
+      }
+      ld_b<kXs>(bt[0], xs, tap, k0);
+#pragma unroll
+      for (int s = 0; s < 5; ++s)
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) mma_frag(acc[s][j], af[s], bt[j + 1][0], bt[j + 1][1]);
+      mma_frag(hacc[0], af[3], bt[0][0], bt[0][1]);
+      mma_frag(hacc[1], af[4], bt[0][0], bt[0][1]);
+    }
+    ring_drain();  // and the resident weights
+  }
+  __syncthreads();  // every warp is done with its ring, which elu(y2) overwrites
+  // y2 = acc + bu (every column of the block is at u >= 0); elu(y2) as hi/lo
+  // planes [phase][row][channel], row 1 + column - a0.
+  const int o_lo = 16 * warp + g, o_hi = o_lo + 8;
+  {
+    const float bl = __bfloat162float(bu[o_lo]), bh = __bfloat162float(bu[o_hi]);
+#pragma unroll
+    for (int s = 0; s < 5; ++s)
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          acc[s][j][e] += bl;
+          acc[s][j][2 + e] += bh;
+          const int row = (s * kERows + 1 + 8 * j + 2 * t + e) * kEs;
+          store_hi_lo_pair(e2h, e2l, row + 16 * warp + 2 * g, elu(acc[s][j][e]), elu(acc[s][j][2 + e]));
+        }
+    // Column a0-1 is n = 7 of the halo tile (lanes t = 3, c1 and c3); zero
+    // before u = 0.
+    if (t == 3) {
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const float vl = a0 > 0 ? hacc[s][1] + bl : 0.f, vh = a0 > 0 ? hacc[s][3] + bh : 0.f;
+        const int row = (3 + s) * kERows * kEs;
+        store_hi_lo_pair(e2h, e2l, row + 16 * warp + 2 * g, elu(vl), elu(vh));
+      }
+    }
+  }
+  __syncthreads();
+
+  // R1. n-tile q = 4*s + j: phase s, columns a0+8j ..; position u - 2 + d
+  // is phase s+d-2 of the same column, or (below 0) phase s+d+3 of the one
+  // before.
+  {
+    const int mt = warp & 3, nh = warp >> 2;
+    constexpr int kQ = 5 * kNT / 2;
+    float acc1[kQ][4];
+#pragma unroll
+    for (int q = 0; q < kQ; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc1[q][e] = 0.f;
+    const uint4* wa = w1s + mt * kKs1 * 32 + lane;
+    const bf16* e2 = hi_lo_lane(e2h, e2l);
+#pragma unroll 1
+    for (int d = 0; d < 3; ++d) {
+      int off[kQ];  // this lane's row of each n-tile at shift d
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        const int tile = nh * kQ + q;
+        const int s = tile / kNT, j = tile % kNT;
+        int sp = s + d - 2, row = 1 + 8 * j + (lane & 7);
+        if (sp < 0) {
+          sp += 5;
+          row -= 1;
+        }
+        off[q] = (sp * kERows + row) * kEs;
+      }
+#pragma unroll 1
+      for (int kk = 0; kk < kC2 / 16; ++kk) {
+        const uint4 af = wa[(d * (kC2 / 16) + kk) * 32];
+        uint32_t bb[kQ][4];
+#pragma unroll
+        for (int q = 0; q < kQ; ++q) ldmatrix_x4(bb[q], e2 + off[q] + 16 * kk);
+#pragma unroll
+        for (int q = 0; q < kQ; ++q) mma_frag(acc1[q], af, bb[q][0], bb[q][1]);  // hi
+#pragma unroll
+        for (int q = 0; q < kQ; ++q) mma_frag(acc1[q], af, bb[q][2], bb[q][3]);  // lo
+      }
+    }
+    const int c_lo = 16 * mt + g, c_hi = c_lo + 8;
+    const float bl = __bfloat162float(b1[c_lo]), bh = __bfloat162float(b1[c_hi]);
+#pragma unroll
+    for (int q = 0; q < kQ; ++q)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = ((nh * kQ + q) * 8 + 2 * t + e) * kHs;
+        store_hi_lo_pair(h1h, h1l, row + 16 * mt + 2 * g, elu(acc1[q][e] + bl), elu(acc1[q][2 + e] + bh));
+      }
+  }
+  __syncthreads();
+
+  // R2 onto the y2 registers, then h = elu(.) staged in time order.
+  {
+    const float bl = __bfloat162float(b2[o_lo]), bh = __bfloat162float(b2[o_hi]);
+    const bf16* h1 = hi_lo_lane(h1h, h1l);
+#pragma unroll
+    for (int ks = 0; ks < kKs2; ++ks) {
+      const uint4 af = w2s[(warp * kKs2 + ks) * 32 + lane];
+#pragma unroll
+      for (int s = 0; s < 5; ++s) {
+        uint32_t bb[kNT][4];
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) ldmatrix_x4(bb[j], h1 + ((s * kNT + j) * 8 + (lane & 7)) * kHs + ks * 16);
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) mma_frag(acc[s][j], af, bb[j][0], bb[j][1]);
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) mma_frag(acc[s][j], af, bb[j][2], bb[j][3]);
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < 5; ++s)
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int p = 5 * (8 * j + 2 * t + e) + s;
+          os[o_lo * kOs + p] = __float2bfloat16(elu(acc[s][j][e] + bl));
+          os[o_hi * kOs + p] = __float2bfloat16(elu(acc[s][j][2 + e] + bh));
+        }
+  }
+  __syncthreads();
+
+  // The block's 5 * (valid columns) outputs per channel, 16 bytes a store.
+  const int t_u = 5 * t_in;
+  const int n_vec = 5 * min(kN, t_in - a0) / 8;
+  bf16* ob = out + (size_t)b * kC2 * t_u + 5 * a0;
+  for (int e = threadIdx.x; e < kC2 * (5 * kN / 8); e += kThreads) {
+    const int o = e / (5 * kN / 8), v = e % (5 * kN / 8);
+    if (v < n_vec)
+      *reinterpret_cast<uint4*>(ob + (size_t)o * t_u + 8 * v) = *reinterpret_cast<const uint4*>(os + o * kOs + 8 * v);
+  }
+}
+
+int launch(const void* x, const void* wu, const void* bu, const void* w1, const void* b1,
+           const void* w2, const void* b2, void* out, int B, int t_in, cudaStream_t stream) {
+  // Raised once per process, so launches stay legal inside a graph capture.
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      up2_res_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  dim3 grid((t_in + kN - 1) / kN, B);
+  up2_res_mma_kernel<<<grid, kThreads, kSmem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const uint4*>(wu), static_cast<const bf16*>(bu),
+      static_cast<const uint4*>(w1), static_cast<const bf16*>(b1), static_cast<const uint4*>(w2),
+      static_cast<const bf16*>(b2), static_cast<bf16*>(out), t_in);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
 template <typename T>
 Up2Weights<T> up2_weights(const void* wu, const void* bu, const void* w1, const void* b1,
                           const void* w2, const void* b2) {
@@ -319,16 +601,20 @@ int launch_cascade(const void* x, const void* halo, const void* start, const voi
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (every float tensor in that type).
-// Returns cudaGetLastError() after the launch (0 on success). Weights all
-// contiguous, output channel last (the wrapper transposes the reference
-// layouts): wu [256,10,128] (repacked [128,256,10]), w1 [128,3,64]
-// ([64,128,3]), w2 [64,128] ([128,64,1]).
+// Returns cudaGetLastError() after the launch (0 on success). Weights
+// contiguous, in the wrapper's kernel layouts (kernels/seanet_tail.py):
+//   float32: output channel last, wu [256,10,128] (repacked [128,256,10]),
+//     w1 [128,3,64] ([64,128,3]), w2 [64,128] ([128,64,1]);
+//   bfloat16: mma fragments (see tc::up2_res_mma_kernel), wu
+//     [5,8,32,32,8], w1 [4,24,32,8], w2 [8,4,32,8].
+// Biases [128], [64], [128] as they are. t_in a multiple of 8.
 extern "C" int up2_res(int dtype, const void* x, const void* wu, const void* bu, const void* w1,
                        const void* b1, const void* w2, const void* b2, void* out, int B,
                        int t_in, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (t_in <= 0 || t_in % kUpCols != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0) return launch_up2<float>(x, wu, bu, w1, b1, w2, b2, out, B, t_in, s);
-  if (dtype == 1) return launch_up2<__nv_bfloat16>(x, wu, bu, w1, b1, w2, b2, out, B, t_in, s);
+  if (dtype == 1) return tc::launch(x, wu, bu, w1, b1, w2, b2, out, B, t_in, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -4,8 +4,8 @@
 // staged weight tiles turn into float32 products. This header holds the
 // skeleton around it, one design for both (quantized_matmul.cu's note
 // says why it is built this way):
-//   - the PTX helpers: 16-byte cp.async, 2-D TMA tile loads, ldmatrix,
-//     mma.sync m16n8k16 (bf16, float32 accumulation), the cluster barrier;
+//   - the PTX helpers: 16-byte cp.async, 2-D TMA tile loads, the cluster
+//     barrier (ldmatrix and mma.sync come from mma_sync.cuh);
 //   - the swizzle of a staged tile, 64- or 128-byte rows;
 //   - the start: thread 0 initialises the block's barriers and requests the
 //     pass's weight tiles, kChunkRows K rows each on its own mbarrier, before
@@ -29,10 +29,13 @@
 
 #include <mutex>
 
+#include "mma_sync.cuh"  // ldmatrix, mma.sync
 #include "split_kv_attention.cuh"  // the mbarrier helpers of kernels 1 and 4
 
 namespace splitk {
 
+using mma::ldmatrix_x4;
+using mma::mma_bf16;
 using splitkv::from_f32;
 using splitkv::mbar_expect_tx;
 using splitkv::mbar_init;
@@ -85,20 +88,6 @@ __device__ __forceinline__ int swz(int r, int b) {
   constexpr int kMask = BN == 64 ? 3 : 7;
   const int o = r * BN + b;
   return o ^ (((o >> 7) & kMask) << 4);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // At the start, after fence.mbarrier_init (a release at cluster scope): a

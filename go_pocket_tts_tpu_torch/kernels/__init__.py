@@ -16,13 +16,16 @@ seanet_tail.fused_up2_up3_tail (and its stream)    seanet_tail.py: fused_up2_up3
 =================================================  ===========================================
 
 Each wrapper runs its plain PyTorch version for CPU tensors and launches its
-kernel for CUDA tensors (or raises), counting launches in ``.launches``.
+kernel for CUDA tensors (or raises), counting launches in ``.launches``;
+the four SEANet wrappers also count them by input shape in ``.shapes``.
 The batcher calls ``batched_decode_attention.batched_decode_attention_step``,
 the same kernel with the step's RoPE, int8 row quantization and row write
 fused in; its launches count under the attention wrapper of its cache kind.
 Kernels 1 and 4 share ``csrc/split_kv_attention.cuh`` and
 ``split_kv.split_plan``; kernels 5 and 6 share ``csrc/split_k_matmul.cuh``
-and ``split_k.matmul_plan``.
+and ``split_k.matmul_plan``; kernels 2 and 7 in bfloat16 share
+``csrc/seanet_mma.cuh`` (implicit-GEMM convolutions on ``mma.sync``), and
+every tensor-core kernel the helpers of ``csrc/mma_sync.cuh``.
 """
 
 from go_pocket_tts_tpu_torch.kernels import (
@@ -45,51 +48,64 @@ WRAPPERS = (
     seanet_tail.fused_up2_up3_tail,
 )
 
-# Per wrapper (same order): its CUDA source and the TPU kernel it replaces.
+# Per wrapper (same order): its CUDA source, the TPU kernel it replaces and
+# the units its arithmetic runs on.
 META = (
     {
         "source": "go_pocket_tts_tpu_torch/csrc/decode_attention.cu",
         "replaces": "go_pocket_tts_tpu/ops/pallas/decode_attention.py:92",
+        "units": "CUDA cores (float32 arithmetic)",
     },
     {
         "source": "go_pocket_tts_tpu_torch/csrc/seanet_tail.cu",
         "replaces": "go_pocket_tts_tpu/ops/pallas/seanet_tail.py:251",
+        "units": "bf16 on tensor cores (mma.sync m16n8k16), float32 on CUDA cores",
     },
     {
         "source": "go_pocket_tts_tpu_torch/csrc/seanet_tail.cu",
         "replaces": "go_pocket_tts_tpu/ops/pallas/seanet_tail.py:108",
+        "units": "CUDA cores (float32 arithmetic)",
     },
     {
         "source": "go_pocket_tts_tpu_torch/csrc/batched_decode_attention.cu",
         "replaces": "go_pocket_tts_tpu/ops/pallas/batched_decode_attention.py:113",
+        "units": "CUDA cores (float32 arithmetic)",
     },
     {
         "source": "go_pocket_tts_tpu_torch/csrc/batched_decode_attention.cu",
         "replaces": "go_pocket_tts_tpu/ops/pallas/batched_decode_attention.py:113",
+        "units": "CUDA cores (float32 arithmetic)",
     },
     {
         "source": "go_pocket_tts_tpu_torch/csrc/quantized_matmul.cu",
         "replaces": "go_pocket_tts_tpu/ops/pallas/quantized_matmul.py:50",
+        "units": "bf16 on tensor cores (mma.sync m16n8k16), float32 on CUDA cores",
     },
     {
         "source": "go_pocket_tts_tpu_torch/csrc/int4_matmul.cu",
         "replaces": "go_pocket_tts_tpu/ops/pallas/int4_matmul.py:99",
+        "units": "bf16 on tensor cores (mma.sync m16n8k16), float32 on CUDA cores",
     },
     {
         "source": "go_pocket_tts_tpu_torch/csrc/seanet_up2.cu",
         "replaces": "go_pocket_tts_tpu/ops/pallas/seanet_tail.py:381",
+        "units": "bf16 on tensor cores (mma.sync m16n8k16), float32 on CUDA cores",
     },
     {
         "source": "go_pocket_tts_tpu_torch/csrc/seanet_up2.cu",
         "replaces": "go_pocket_tts_tpu/ops/pallas/seanet_tail.py:569",
+        "units": "CUDA cores (float32 arithmetic)",
     },
 )
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch count to 0 (and empty the SEANet wrappers'
+    counts by input shape, ``.shapes``)."""
     for fn in WRAPPERS:
         fn.launches = 0
+        if hasattr(fn, "shapes"):
+            fn.shapes = {}
 
 
 __all__ = [

@@ -30,17 +30,37 @@ layouts: ``wu`` is the repacked up3 kernel ``[64,128,8]``, ``w1 [32,64,3]``,
 ``w2 [64,32,1]``, ``wf [1,64,7]``.
 
 Each wrapper runs the plain version for CPU tensors and the CUDA kernel for
-CUDA tensors (or raises); it counts kernel launches in ``<wrapper>.launches``.
-The up2 kernels read the up2 and res2 weights output channel last, so a
-warp's loads coalesce; their wrappers take the reference layouts and
-transpose those three weights on each call (three copies of 0.7 MB in all
-at bfloat16, a few microseconds).
+CUDA tensors (or raises); it counts kernel launches in ``<wrapper>.launches``
+and the input shapes it launched on in ``<wrapper>.shapes`` (``{x.shape:
+count}``), so a caller can time each kernel at the shapes its path ran.
+
+Weight layouts. The wrappers take the reference layouts and hand the
+kernels their own, prepared once per weight by :func:`kernel_weight` and
+cached while the weight lives and is not modified in place (keyed by
+address, shape, dtype and version counter; an inference tensor, which keeps
+no version, is taken as unmodified):
+
+- the SIMT kernels (float32, and the cascade in both dtypes) read the up2
+  and res2 weights output channel last, so a warp's loads coalesce;
+- the tensor-core kernels (:func:`fused_seanet_up_tail` and
+  :func:`fused_up2_res` in bfloat16) read every conv weight as the A operand
+  of ``mma.sync`` m16n8k16 in fragment order (:func:`mma_fragments`): a
+  transposed conv as its phase matrices (:func:`up_phase_matrices`), a k3
+  conv as ``[C_out, 3·C_in]`` (:func:`conv_matrix`), a k1 conv as
+  ``[C_out, C_in]``, and kernel 2's final k7 conv as a B operand
+  (:func:`mma_b_fragments`); where a conv reads the kernel's own
+  activations, its K is interleaved as they are (:func:`interleave_k`).
+  Their float32 intermediates enter the MMAs as a hi/lo
+  pair of bfloat16 (:func:`split_hi_lo`), so both kernels compute the
+  float32-intermediate function of the plain versions.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Sequence, Tuple
+import threading
+import weakref
+from typing import Callable, Dict, Sequence, Tuple
 
 import torch
 
@@ -65,6 +85,13 @@ __all__ = [
     "supports_cascade",
     "supports_stream",
     "HALO",
+    "mma_fragments",
+    "mma_b_fragments",
+    "interleave_k",
+    "up_phase_matrices",
+    "conv_matrix",
+    "split_hi_lo",
+    "kernel_weight",
 ]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -167,6 +194,121 @@ _UP2_SHAPES = ((128, 256, 10), (128,), (64, 128, 3), (64,), (128, 64, 1), (128,)
 _CASCADE_SHAPES = _UP2_SHAPES + ((64, 128, 8), (64,)) + _TAIL_SHAPES
 
 
+def mma_fragments(a: torch.Tensor) -> torch.Tensor:
+    """``[M, K]`` (multiples of 16) → ``[M/16, K/16, 32, 8]``: each 16×16
+    tile as the A operand of ``mma.sync`` m16n8k16, lane ``4g + t`` holding
+    rows g and g+8 at columns 2t, 2t+1 and 2t+8, 2t+9, in the order
+    (a0, a1, a2, a3) of ``csrc/mma_sync.cuh``."""
+    m, k = a.shape
+    tiles = a.reshape(m // 16, 2, 8, k // 16, 2, 4, 2)  # mt, row+8, g, kt, col+8, t, pair
+    return tiles.permute(0, 3, 2, 5, 4, 1, 6).reshape(m // 16, k // 16, 32, 8).contiguous()
+
+
+def mma_b_fragments(b: torch.Tensor) -> torch.Tensor:
+    """``[K, 8]`` (K a multiple of 16) → ``[K/16, 32, 4]``: each 16×8 tile as
+    the B operand of ``mma.sync`` m16n8k16, lane ``4g + t`` holding column g
+    at rows 2t, 2t+1, 2t+8, 2t+9 (b0, b1 of ``csrc/mma_sync.cuh``)."""
+    k = b.shape[0]
+    tiles = b.reshape(k // 16, 2, 4, 2, 8)  # kt, row+8, t, pair, g
+    return tiles.permute(0, 4, 2, 1, 3).reshape(k // 16, 32, 4).contiguous()
+
+
+def interleave_k(a: torch.Tensor) -> torch.Tensor:
+    """The columns of ``[M, K]`` (K a multiple of 16) in the order the
+    tensor-core kernels keep the channels of their own activations: within
+    each 16, channel c at 2c and c + 8 at 2c + 1, so that the two channels
+    one lane's MMA fragment holds (rows g and g + 8) are one 32-bit store.
+    A GEMM's K may run in any order that A and B share."""
+    m, k = a.shape
+    return a.reshape(m, k // 16, 2, 8).transpose(2, 3).reshape(m, k)
+
+
+def _conv_a(w: torch.Tensor) -> torch.Tensor:
+    """A conv that reads the kernels' own activations, as A fragments."""
+    return mma_fragments(interleave_k(conv_matrix(w)))
+
+
+def _final_b(wf: torch.Tensor) -> torch.Tensor:
+    """The final k7 conv ``[1, C, 7]`` as kernel 2's B fragments: column 0
+    of a ``[7·C, 8]`` matrix holds the conv's row (K over shift, then
+    channel, interleaved), columns 1-7 are zero."""
+    b = torch.zeros((wf.shape[1] * wf.shape[2], 8), dtype=wf.dtype, device=wf.device)
+    b[:, 0] = interleave_k(conv_matrix(wf))[0]
+    return mma_b_fragments(b)
+
+
+def up_phase_matrices(wu: torch.Tensor, stride: int) -> torch.Tensor:
+    """The repacked ConvTranspose kernel ``[C_out, C_in, 2·stride]`` as its
+    ``stride`` phase matrices ``[stride, C_out, 2·C_in]``: output ``stride·m +
+    s`` is ``A[s] @ concat(x[:, m-1], x[:, m])`` (K runs over tap, then input
+    channel) plus the bias."""
+    return torch.stack(
+        [torch.cat([wu[:, :, stride - 1 - s], wu[:, :, 2 * stride - 1 - s]], dim=1) for s in range(stride)]
+    )
+
+
+def conv_matrix(w: torch.Tensor) -> torch.Tensor:
+    """A causal conv kernel ``[C_out, C_in, k]`` as ``[C_out, k·C_in]`` (K runs
+    over the shift, then input channel): output t is ``A @ concat(x[:, t-k+1],
+    …, x[:, t])``."""
+    return w.permute(0, 2, 1).reshape(w.shape[0], -1)
+
+
+def split_hi_lo(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A float32 tensor as the bfloat16 pair the tensor-core kernels feed
+    their MMAs: ``hi = bf16(v)``, ``lo = bf16(v − hi)``; ``hi + lo`` carries v
+    to about 2^-17 relative."""
+    hi = v.to(torch.bfloat16)
+    return hi, (v - hi.float()).to(torch.bfloat16)
+
+
+def _up_phase_fragments(stride: int) -> Callable[[torch.Tensor], torch.Tensor]:
+    return lambda wu: torch.stack([mma_fragments(a) for a in up_phase_matrices(wu, stride)])
+
+
+_LAYOUTS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
+    # SIMT kernels, output channel last: [C_in, k, C_out], and [C_in, C_out] for k = 1.
+    "simt": lambda w: w.permute(1, 2, 0).contiguous(),
+    "simt_k1": lambda w: w[:, :, 0].t().contiguous(),
+    # Tensor-core kernels: A fragments (final_mma: B fragments).
+    "up2_mma": _up_phase_fragments(_UP2_S),
+    "up3_mma": _up_phase_fragments(_UP_S),
+    "conv_mma": _conv_a,
+    "final_mma": _final_b,
+}
+_PREPARED: Dict[tuple, tuple] = {}  # key -> (weakref to the weight, its version, prepared)
+# Reentrant: a weight's weakref callback can run from a collection that
+# starts while the lock is held.
+_PREPARED_LOCK = threading.RLock()
+
+
+def kernel_weight(w: torch.Tensor, layout: str) -> torch.Tensor:
+    """``w`` in a kernel's layout (see the module docstring), prepared on
+    first use and then cached while ``w`` is alive and unmodified."""
+    key = (layout, w.data_ptr(), tuple(w.shape), w.dtype, w.device)
+    version = -1 if w.is_inference() else w._version
+    with _PREPARED_LOCK:
+        hit = _PREPARED.get(key)
+        if hit is not None and hit[0]() is w and hit[1] == version:
+            return hit[2]
+
+    def forget(ref, key=key):
+        with _PREPARED_LOCK:
+            if _PREPARED.get(key, (None,))[0] is ref:
+                del _PREPARED[key]
+
+    prepared = _LAYOUTS[layout](w)
+    with _PREPARED_LOCK:
+        _PREPARED[key] = (weakref.ref(w, forget), version, prepared)
+    return prepared
+
+
+def _count(fn, x: torch.Tensor) -> None:
+    fn.launches += 1
+    shape = tuple(x.shape)
+    fn.shapes[shape] = fn.shapes.get(shape, 0) + 1
+
+
 def _check(name: str, x: torch.Tensor, tensors: Sequence[torch.Tensor], shapes) -> None:
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"{name}: dtype {x.dtype} not supported")
@@ -197,6 +339,9 @@ def fused_seanet_up_tail(x, wu, bu, w1, b1, w2, b2, wf, bf) -> torch.Tensor:
         raise ValueError(f"fused_seanet_up_tail: x shape {tuple(x.shape)} not [B,128,32k]")
     args = (x, wu, bu, w1, b1, w2, b2, wf, bf)
     _check("fused_seanet_up_tail", x, args, ((b, 128, t_in), (64, 128, 8), (64,)) + _TAIL_SHAPES)
+    if x.dtype == torch.bfloat16:
+        args = (x, kernel_weight(wu, "up3_mma"), bu, kernel_weight(w1, "conv_mma"), b1,
+                kernel_weight(w2, "conv_mma"), b2, kernel_weight(wf, "final_mma"), bf)
     out = torch.empty((b, 1, 4 * t_in), dtype=x.dtype, device=x.device)
     err = _lib().seanet_up_tail(
         _DTYPE_CODES[x.dtype],
@@ -208,7 +353,7 @@ def fused_seanet_up_tail(x, wu, bu, w1, b1, w2, b2, wf, bf) -> torch.Tensor:
     )
     if err != 0:
         raise RuntimeError(f"fused_seanet_up_tail: CUDA launch failed (cudaError {err})")
-    fused_seanet_up_tail.launches += 1
+    _count(fused_seanet_up_tail, x)
     return out
 
 
@@ -232,7 +377,7 @@ def fused_seanet_tail(x, w1, b1, w2, b2, wf, bf) -> torch.Tensor:
     )
     if err != 0:
         raise RuntimeError(f"fused_seanet_tail: CUDA launch failed (cudaError {err})")
-    fused_seanet_tail.launches += 1
+    _count(fused_seanet_tail, x)
     return out
 
 
@@ -248,19 +393,6 @@ def _lib_up2() -> ctypes.CDLL:
     return lib
 
 
-def _up2_kernel_layout(wu, bu, w1, b1, w2, b2) -> Tuple[torch.Tensor, ...]:
-    """The up2 + res2 weights as the CUDA kernels read them, output channel
-    last: ``wu [256,10,128]``, ``w1 [128,3,64]``, ``w2 [64,128]``."""
-    return (
-        wu.permute(1, 2, 0).contiguous(),
-        bu,
-        w1.permute(1, 2, 0).contiguous(),
-        b1,
-        w2[:, :, 0].t().contiguous(),
-        b2,
-    )
-
-
 def fused_up2_res(x, wu, bu, w1, b1, w2, b2) -> torch.Tensor:
     """``[B,256,T_in] → [B,128,5·T_in]`` (see the module docstring)."""
     if not x.is_cuda:
@@ -270,7 +402,11 @@ def fused_up2_res(x, wu, bu, w1, b1, w2, b2) -> torch.Tensor:
         raise ValueError(f"fused_up2_res: x shape {tuple(x.shape)} not [B,256,8k]")
     args = (x, wu, bu, w1, b1, w2, b2)
     _check("fused_up2_res", x, args, ((b, 256, t_in),) + _UP2_SHAPES)
-    args = (x,) + _up2_kernel_layout(wu, bu, w1, b1, w2, b2)
+    if x.dtype == torch.bfloat16:
+        layouts = ("up2_mma", "conv_mma", "conv_mma")
+    else:
+        layouts = ("simt", "simt", "simt_k1")
+    args = (x, kernel_weight(wu, layouts[0]), bu, kernel_weight(w1, layouts[1]), b1, kernel_weight(w2, layouts[2]), b2)
     out = torch.empty((b, 128, 5 * t_in), dtype=x.dtype, device=x.device)
     err = _lib_up2().up2_res(
         _DTYPE_CODES[x.dtype],
@@ -282,7 +418,7 @@ def fused_up2_res(x, wu, bu, w1, b1, w2, b2) -> torch.Tensor:
     )
     if err != 0:
         raise RuntimeError(f"fused_up2_res: CUDA launch failed (cudaError {err})")
-    fused_up2_res.launches += 1
+    _count(fused_up2_res, x)
     return out
 
 
@@ -298,7 +434,8 @@ def _launch_cascade(x, halo, start, weights) -> torch.Tensor:
         or not start.is_contiguous()
     ):
         raise ValueError(f"fused_up2_up3_tail: start must be contiguous int32 [{b}] on {x.device}")
-    weights = _up2_kernel_layout(*weights[:6]) + tuple(weights[6:])
+    wu, bu, w1, b1, w2, b2 = weights[:6]
+    weights = (kernel_weight(wu, "simt"), bu, kernel_weight(w1, "simt"), b1, kernel_weight(w2, "simt_k1"), b2, *weights[6:])
     out = torch.empty((b, 1, 20 * t_in), dtype=x.dtype, device=x.device)
     err = _lib_up2().up2_up3_tail(
         _DTYPE_CODES[x.dtype],
@@ -313,7 +450,7 @@ def _launch_cascade(x, halo, start, weights) -> torch.Tensor:
     )
     if err != 0:
         raise RuntimeError(f"fused_up2_up3_tail: CUDA launch failed (cudaError {err})")
-    fused_up2_up3_tail.launches += 1
+    _count(fused_up2_up3_tail, x)
     return out
 
 
@@ -334,7 +471,6 @@ def fused_up2_up3_tail_stream(x, halo, start, *weights) -> torch.Tensor:
     return _launch_cascade(x, halo, start, weights)
 
 
-fused_seanet_up_tail.launches = 0
-fused_seanet_tail.launches = 0
-fused_up2_res.launches = 0
-fused_up2_up3_tail.launches = 0
+for _fn in (fused_seanet_up_tail, fused_seanet_tail, fused_up2_res, fused_up2_up3_tail):
+    _fn.launches = 0
+    _fn.shapes = {}

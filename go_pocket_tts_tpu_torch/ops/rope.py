@@ -33,8 +33,13 @@ def build_rope_tables(
     if head_dim % 2 != 0:
         raise ValueError(f"rope head dim must be even, got {head_dim}")
     half = head_dim // 2
+    # The float32 exponent, raised in float64 and rounded once: the reference's
+    # float32 ``max_period ** exponent`` bit for bit at every even head width
+    # from 8 to 128 (torch's float32 pow is off by an ulp in a few entries).
     exponent = -torch.arange(half, dtype=torch.float32, device=device) / half
-    inv_freq = torch.pow(torch.tensor(max_period, dtype=torch.float32, device=device), exponent)
+    inv_freq = torch.pow(
+        torch.tensor(max_period, dtype=torch.float64, device=device), exponent.double()
+    ).float()
     angles = torch.arange(max_seq, dtype=torch.float32, device=device)[:, None] * inv_freq[None, :]
     return torch.cos(angles), torch.sin(angles)
 

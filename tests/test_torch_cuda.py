@@ -763,6 +763,84 @@ def test_up2_wrappers_raise_on_what_the_kernels_do_not_take(card):
         st.fused_up2_up3_tail_stream(x, torch.zeros((2, 256, 4), device=card), torch.zeros(2, dtype=torch.int32, device=card), *weights)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 3, 8])
+@pytest.mark.parametrize("frames", [16, 160, 256])
+def test_tensor_core_seanet_kernels(card, dtype, b, frames):
+    """Kernels 7 and 2 (bf16 on tensor cores, float32 on CUDA cores) at the
+    decode's shapes, x [B,256,96·frames] and [B,128,480·frames], against
+    their plain versions, and bit-equal over two calls."""
+    gen = torch.Generator(device=card).manual_seed(7 * b + frames)
+    up2, weights = _up2_weights(gen, card, dtype)
+    tail = weights[6:]
+    for kernel, plain, ws, c_in, per_frame in (
+        (st.fused_up2_res, st.fused_up2_res_plain, up2, 256, 96),
+        (st.fused_seanet_up_tail, st.fused_seanet_up_tail_plain, tail, 128, 480),
+    ):
+        x = (torch.randn((b, c_in, per_frame * frames), generator=gen, device=card) * 0.5).to(dtype)
+        got = kernel(x, *ws)
+        _close(got, plain(x, *ws), dtype)
+        assert torch.equal(got, kernel(x, *ws))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tensor_core_seanet_kernels_ragged_last_tile(card, dtype):
+    """Lengths that end inside a block: kernel 7 at T_in = 1000 (its blocks
+    are 32 columns; the wrapper takes multiples of 8), kernel 2 at
+    T_in = 1952 (multiples of 32), and the smallest of each."""
+    gen = torch.Generator(device=card).manual_seed(8)
+    up2, weights = _up2_weights(gen, card, dtype)
+    for kernel, plain, ws, c_in, lengths in (
+        (st.fused_up2_res, st.fused_up2_res_plain, up2, 256, (1000, 8, 40)),
+        (st.fused_seanet_up_tail, st.fused_seanet_up_tail_plain, weights[6:], 128, (1952, 32, 96)),
+    ):
+        for t_in in lengths:
+            x = (torch.randn((2, c_in, t_in), generator=gen, device=card) * 0.5).to(dtype)
+            _close(kernel(x, *ws), plain(x, *ws), dtype)
+
+
+def test_tensor_core_kernels_follow_an_in_place_weight_update(card):
+    """The prepared bf16 layouts are cached per weight: an in-place update
+    of a weight must reach the next call."""
+    gen = torch.Generator(device=card).manual_seed(9)
+    up2, weights = _up2_weights(gen, card, torch.bfloat16)
+    x7 = (torch.randn((1, 256, 96), generator=gen, device=card) * 0.5).to(torch.bfloat16)
+    x2 = (torch.randn((1, 128, 480), generator=gen, device=card) * 0.5).to(torch.bfloat16)
+    tail = weights[6:]
+    st.fused_up2_res(x7, *up2)  # prepares and caches the layouts
+    st.fused_seanet_up_tail(x2, *tail)
+    up2[0].mul_(-1.0)
+    tail[2].mul_(0.5)
+    _close(st.fused_up2_res(x7, *up2), st.fused_up2_res_plain(x7, *up2), torch.bfloat16)
+    _close(st.fused_seanet_up_tail(x2, *tail), st.fused_seanet_up_tail_plain(x2, *tail), torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mimi_decode_through_the_tensor_core_kernels(card, dtype, monkeypatch):
+    """One whole decode of a SEANet at the kernels' widths in each dtype:
+    it launches kernels 7 and 2 once each, and its PCM is within
+    chip_smoke.PATH_RMS_TOL (RMS) of the same decode on the plain versions."""
+    import chip_smoke
+
+    arch = dataclasses.replace(synthetic.tiny_arch(), seanet_channels=(32, 256, 128, 64))
+    model = load_model_from_tensors(
+        synthetic.build_checkpoint(arch, seed=3), num_heads=arch.num_heads, device=card, dtype=dtype
+    )
+    latent = (torch.randn((1, arch.mimi_dim, 16), generator=torch.Generator(device=card).manual_seed(2),
+                          device=card) * 0.1).to(dtype)
+    kernels.reset_launches()
+    with torch.inference_mode():
+        got = model.mimi_decode(latent).float()
+    assert st.fused_up2_res.launches == 1 and st.fused_seanet_up_tail.launches == 1
+    assert st.fused_up2_res.shapes == {(1, 256, 96 * 16): 1}
+    monkeypatch.setattr(st, "fused_up2_res", st.fused_up2_res_plain)
+    monkeypatch.setattr(st, "fused_seanet_up_tail", st.fused_seanet_up_tail_plain)
+    with torch.inference_mode():
+        want = model.mimi_decode(latent).float()
+    rms = (got - want).pow(2).mean().sqrt().item()
+    assert torch.isfinite(got).all() and rms < chip_smoke.PATH_RMS_TOL, rms
+
+
 def test_stream_decoder_on_card_matches_plain(card, monkeypatch):
     """A SEANet at the kernels' widths on the card: the whole decode runs
     kernel 7 (then kernel 2), the block decoder runs kernel 8, each block
