@@ -50,11 +50,13 @@ failure exits non-zero:
 10. float32 streaming: the streamed PCM against ``generate_audio`` for the
    same seed, and the streamed path's kernels against their plain versions.
 
-Phase 2 also holds the SEANet kernels against their plain versions at 160
-frames: kernels 2 and 7 (bf16 on tensor cores) also at the batcher's
-harvest shape, 8 lanes x 256 frames, beside the op chains they replace and
-bit-equal over two calls; kernel 8 whole and in 16-frame blocks with a
-carried halo, its streamed block timed at 4, 8 and 16 frames. Around each
+Phase 2 also holds the SEANet kernels (bf16 on tensor cores) against
+their plain versions at 160 frames, bit-equal over two calls: kernels 2
+and 7 also at the batcher's harvest shape, 8 lanes x 256 frames, beside
+the op chains they replace; kernel 3 beside its op chain and at a ragged
+length; kernel 8 whole, in 16-frame blocks with a carried halo and at 8
+lanes of mixed starts, its streamed block timed at 4, 8 and 16 frames and
+each size beside kernels 7 then 2 on the same input. Around each
 path of phases 3, 5, 7 and 9 every launch count is set to 0 just before and
 read just after; each kernel that path runs must be positive. The SEANet
 wrappers also count launches by input shape; after phase 10 each SEANet
@@ -283,10 +285,17 @@ SEANET_WORK = {
     "fused_up2_res": (196608.0, 5, 128),
     "fused_up2_up3_tail": (99200.0, 20, 1),
 }
-SEANET_DESIGN = {  # bf16 times of the float32 SIMT designs, PR 8's phase 2 at 160 frames
+# bf16 times of the float32 SIMT designs at 160 frames, from this phase on
+# an NVIDIA H100 80GB HBM3 at 700.00 W (kernels 2 and 7 before their
+# tensor-core redesign, kernels 8 and 3 before theirs), printed beside this
+# run's; and kernel 8's SIMT streamed blocks of 4, 8 and 16 frames.
+SEANET_DESIGN = {
     "fused_seanet_up_tail": 0.9545,
     "fused_up2_res": 0.7552,
+    "fused_up2_up3_tail": 1.9328,
+    "fused_seanet_tail": 0.5020,
 }
+CASCADE_BLOCK_DESIGN = {4: 0.1510, 8: 0.1513, 16: 0.2207}
 # Every (SEANet kernel, input shape) launched on the paths of phases 3, 5, 7
 # and 9, with its count (the wrappers' `.shapes`, read by read_launches).
 PATH_SHAPES: dict = {}
@@ -316,6 +325,15 @@ def _up_tail_op_chain(x, wu, bu, w1, b1, w2, b2, wf, bf):
     return causal_conv1d(elu(y + h), wf, bf)
 
 
+def _tail_op_chain(x, w1, b1, w2, b2, wf, bf):
+    """What ``mimi_decode`` runs without kernel 3: res3, ELU and the final
+    conv as separate ops in the activation dtype."""
+    from go_pocket_tts_tpu_torch.ops import causal_conv1d, elu
+
+    h = causal_conv1d(elu(causal_conv1d(elu(x), w1, b1)), w2, b2)
+    return causal_conv1d(elu(x + h), wf, bf)
+
+
 def _check_one(name, kernel, plain, x, ws, dtype, out_shape):
     """Kernel vs plain version on one input: shape, tolerance, and bit-equal
     over two calls; returns the max abs error."""
@@ -330,9 +348,10 @@ def _check_one(name, kernel, plain, x, ws, dtype, out_shape):
 
 
 def check_seanet(rows: dict) -> None:
-    """Kernels 2 and 3 at 160 frames (kernel 2 on tensor cores in bf16),
-    and kernel 2 at the batcher's harvest shape, 8 lanes x 256 frames,
-    beside its op chain."""
+    """Kernels 2 and 3 at 160 frames (both on tensor cores in bf16) beside
+    their op chains, kernel 2 also at the batcher's harvest shape, 8 lanes
+    x 256 frames, and kernel 3 at 3 lanes of a length that ends inside its
+    last block."""
     from go_pocket_tts_tpu_torch.kernels import seanet_tail as st
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -345,6 +364,11 @@ def check_seanet(rows: dict) -> None:
             shapes = [(1, c_in, per_frame * 160)]
             if up and dtype == torch.bfloat16:
                 shapes.append((8, c_in, per_frame * 256))  # the harvest of 8 lanes at a 256-frame bucket
+            if not up:
+                x = _seanet_x(gen, (3, c_in, 128 * 241), dtype)  # 152-sample blocks: the last one ragged
+                err = _check_one(name, kernel, plain, x, ws, dtype, (3, 1, 128 * 241))
+                print(f"  {name} {dname(dtype)} x={tuple(x.shape)}: max_abs_err {err:.3e}, bit-equal over two calls")
+            chain_fn = _up_tail_op_chain if up else _tail_op_chain
             for shape in shapes:
                 x = _seanet_x(gen, shape, dtype)
                 what = f"{name} {dname(dtype)} x={shape}"
@@ -352,9 +376,9 @@ def check_seanet(rows: dict) -> None:
                 err = _check_one(name, kernel, plain, x, ws, dtype, (shape[0], 1, 1920 * shape[2] // per_frame))
                 ms = device_ms(lambda: kernel(x, *ws), per_graph=per_graph)
                 plain_ms = device_ms(lambda: plain(x, *ws), per_graph=per_graph)
-                chain_ms = device_ms(lambda: _up_tail_op_chain(x, *ws), per_graph=per_graph) if up else None
+                chain_ms = device_ms(lambda: chain_fn(x, *ws), per_graph=per_graph)
                 b_ms, b_by = seanet_bound(name, shape, ws, dtype)
-                chain = f"  op chain {chain_ms:.4f} ms" if up else ""
+                chain = f"  op chain {chain_ms:.4f} ms (kernel below it: {'yes' if ms < chain_ms else 'no'})"
                 design = ""
                 if dtype == torch.bfloat16 and name in SEANET_DESIGN and shape[0] == 1:
                     design = f" (SIMT design {SEANET_DESIGN[name]:.4f} ms)"
@@ -367,9 +391,8 @@ def check_seanet(rows: dict) -> None:
                 if shape[0] == 1:
                     rows[name].update(
                         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                        op_chain_ms=chain_ms,
                     )
-                    if up:
-                        rows[name]["op_chain_ms"] = chain_ms
                 else:
                     rows[name].update(harvest_ms=ms, harvest_bound_ms=b_ms, harvest_op_chain_ms=chain_ms)
                     rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
@@ -400,8 +423,11 @@ def _up2_op_chain(x, wu, bu, w1, b1, w2, b2):
 def check_up2(rows: dict) -> None:
     """Kernel 7 at 160 frames (x [1,256,15360]; on tensor cores in bf16)
     and at the harvest shape (8 lanes x 256 frames) beside its op chain;
-    kernel 8 whole at 160 frames and streamed in 16-frame blocks with a
-    carried halo, and one streamed block timed at 4, 8 and 16 frames."""
+    kernel 8 (on tensor cores in bf16) whole at 160 frames, bit-equal over
+    two calls, streamed in 16-frame blocks with a carried halo, and at 8
+    lanes of mixed starts; one streamed block timed at 4, 8 and 16 frames,
+    each size beside its yardstick, kernel 7 then kernel 2 on the same x
+    (one graph): a fused kernel slower than that pair does not pay."""
     from go_pocket_tts_tpu_torch.kernels import seanet_tail as st
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
@@ -440,12 +466,20 @@ def check_up2(rows: dict) -> None:
 
         x = _seanet_x(gen, (1, 256, t_in), dtype)
         weights = up2 + rest
-        got = st.fused_up2_up3_tail(x, *weights)
+        err = _check_one("fused_up2_up3_tail", st.fused_up2_up3_tail, st.fused_up2_up3_tail_plain, x, weights, dtype,
+                         (1, 1, t_out))
         want = st.fused_up2_up3_tail_plain(x, *weights)
-        if tuple(got.shape) != (1, 1, t_out):
-            fail(f"fused_up2_up3_tail: output shape {tuple(got.shape)}")
         what = f"fused_up2_up3_tail {dname(dtype)} x={tuple(x.shape)}"
-        err = max_err(got, want, dtype, what)
+        x8, halo8 = _seanet_x(gen, (8, 256, 96 * 4), dtype), _seanet_x(gen, (8, 256, st.HALO), dtype)
+        start8 = torch.tensor([0, 1, 2, 4, 5, 96, 960, 1537], dtype=torch.int32, device="cuda")
+        err8 = _check_one(
+            "fused_up2_up3_tail_stream",
+            lambda xx, *ws: st.fused_up2_up3_tail_stream(xx, halo8, start8, *ws),
+            lambda xx, *ws: st.fused_up2_up3_tail_stream_plain(xx, halo8, start8, *ws),
+            x8, weights, dtype, (8, 1, 20 * 96 * 4),
+        )
+        print(f"  fused_up2_up3_tail_stream {dname(dtype)} x={tuple(x8.shape)} starts {start8.tolist()}: "
+              f"max_abs_err {err8:.3e}, bit-equal over two calls")
         halo = torch.zeros((1, 256, st.HALO), dtype=dtype, device="cuda")
         start = torch.zeros((1,), dtype=torch.int32, device="cuda")
         blocks = []
@@ -456,22 +490,33 @@ def check_up2(rows: dict) -> None:
             start = start + block
         err_stream = max_err(torch.cat(blocks, dim=2), want, dtype, what + f" streamed in blocks of {block}")
         ms = device_ms(lambda: st.fused_up2_up3_tail(x, *weights), per_graph=3)
-        block_ms = {}
-        for n in (4, 8, 16):  # the stream decoder's segments
+        block_ms, yard_ms = {}, {}
+        for n in (4, 8, 16, 160):  # the stream decoder's segments, then the whole form
             xb = x[:, :, : 96 * n].contiguous()
-            start = torch.full((1,), 96 * n, dtype=torch.int32, device="cuda")
-            block_ms[n] = device_ms(lambda: st.fused_up2_up3_tail_stream(xb, halo, start, *weights), per_graph=5)
+            if n < 160:
+                start = torch.full((1,), 96 * n, dtype=torch.int32, device="cuda")
+                block_ms[n] = device_ms(lambda: st.fused_up2_up3_tail_stream(xb, halo, start, *weights), per_graph=5)
+            yard_ms[n] = device_ms(lambda: st.fused_seanet_up_tail(st.fused_up2_res(xb, *up2), *rest),
+                                   per_graph=5 if n < 160 else 3)
         plain_ms = device_ms(lambda: st.fused_up2_up3_tail_plain(x, *weights), per_graph=3)
         b_ms, b_by = seanet_bound("fused_up2_up3_tail", tuple(x.shape), weights, dtype)
-        blocks_txt = ", ".join(f"{n} frames {v:.4f} ms" for n, v in block_ms.items())
-        print(
-            f"  {what}: max_abs_err {err:.3e} (streamed {err_stream:.3e})  kernel {ms:.4f} ms "
-            f"(one streamed block: {blocks_txt})  plain {plain_ms:.4f} ms  bound {b_ms:.5f} ms ({b_by})  [{CARD}]"
+        bf16 = dtype == torch.bfloat16
+        design = f" (SIMT design {SEANET_DESIGN['fused_up2_up3_tail']:.4f} ms)" if bf16 else ""
+        blocks_txt = ", ".join(
+            f"{n} frames {v:.4f} ms" + (f" (SIMT design {CASCADE_BLOCK_DESIGN[n]:.4f})" if bf16 else "")
+            + f", kernels 7 + 2 {yard_ms[n]:.4f} ms"
+            for n, v in block_ms.items()
         )
-        if dtype == torch.bfloat16:
+        print(
+            f"  {what}: max_abs_err {err:.3e} (streamed {err_stream:.3e}), bit-equal over two calls  "
+            f"kernel {ms:.4f} ms{design}, kernels 7 + 2 {yard_ms[160]:.4f} ms (fusion pays: "
+            f"{'yes' if ms < yard_ms[160] else 'no'})  one streamed block: {blocks_txt}  plain {plain_ms:.4f} ms  "
+            f"bound {b_ms:.5f} ms ({b_by})  [{CARD}]"
+        )
+        if bf16:
             rows["fused_up2_up3_tail"].update(
-                max_abs_err=max(err, err_stream), ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None, block_ms=block_ms,
+                max_abs_err=max(err, err_stream, err8), ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, block_ms=block_ms, yardstick_ms=yard_ms,
             )
 
 

@@ -1,7 +1,8 @@
 // Device code shared by the fused SEANet decode kernels (seanet_tail.cu,
-// seanet_up2.cu): the up3 block stage and the res3 + final-conv stages,
-// computed in time order over one block of 128 output samples in shared
-// memory (float32), with causal zeros before absolute position 0.
+// seanet_up2.cu) in float32, the parity dtype (bfloat16 runs on the
+// tensor-core stages of seanet_mma.cuh): the up3 block stage and the res3 +
+// final-conv stages, computed in time order over one block of 128 output
+// samples in shared memory, with causal zeros before absolute position 0.
 //
 // Block geometry (256 threads). A block owns output samples [t0, t0+128)
 // and reads the up3 input (128 channels) at columns [m0-3, m0+32), m0 = t0/4:
@@ -36,16 +37,11 @@ constexpr int kRegion = kCin * kXc > kCr * kNzP ? kCin * kXc : kCr * kNzP;
 constexpr int kSmemTailFloats = 2 * kC * kNsP + kRegion;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 __device__ __forceinline__ float elu(float v) { return v > 0.f ? v : expm1f(v); }
 

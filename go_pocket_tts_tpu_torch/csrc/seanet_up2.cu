@@ -42,7 +42,7 @@
 //       R1  elu(res2.conv1) over the block's 40 columns
 //       R2  h = elu(y2 + res2.conv2), in place over y2, then a coalesced
 //           copy to the output
-//   up2_up3_tail: a block owns 128 PCM samples, the block of
+//   up2_up3_tail in float32: a block owns 128 PCM samples, the block of
 //     seanet_tail.cu's up3 tail, which needs the up2 output at 35 columns
 //     [m0-3, m0+32). U, R1 and R2 produce exactly those into the up3 tile
 //     (the first two stages' scratch shares the shared memory of the tail
@@ -58,9 +58,11 @@
 // absolute position, so a stream of blocks concatenates to the whole decode.
 // A null halo and start are zeros: the TPU function exactly.
 //
-// The cascade is plain SIMT float32 arithmetic in both dtypes, as
-// seanet_tail.cu's float32 form; its redesign on the tensor-core stages of
-// seanet_mma.cuh is the next step.
+// The cascade in bfloat16 (the serving dtype) runs on tensor cores,
+// tc::cascade_mma_kernel below: kernel 7's up2 + res2 stages and kernel 2's
+// up3 tail stages (seanet_mma.cuh) in one block, handing h over in shared
+// memory as a hi/lo pair, so no stage rounds; every mask is taken at the
+// absolute position. In float32 (parity) it is the SIMT form above.
 
 #include "seanet_mma.cuh"
 #include "seanet_tail.cuh"
@@ -557,6 +559,329 @@ int launch(const void* x, const void* wu, const void* bu, const void* w1, const 
   return (int)cudaGetLastError();
 }
 
+// ---- the whole cascade on tensor cores (bfloat16) --------------------------
+// Block: kA = 14 input columns [a0, a0+kA) -> 5*kA = 70 up3-input columns
+// [m0, m0+70), m0 = 5*a0 -> 280 PCM samples from t0 = 4*m0, 8 warps, in two
+// stages that hand over in shared memory:
+//   A (kernel 7's stages) over a y2 window of kAW = 16 input columns from
+//     a0-2 (2 n-tiles): the block needs h at [m0-3, m0+70), which reads y2
+//     from m0-5, all of column a0-1; column a0-2 fills the n-tile.
+//     U   y2 = up2(x), 5 phase GEMMs (M 128, K 2 taps x 256): warp w owns
+//         channels [16w, 16w+16) of every phase over the window; its 40
+//         accumulators hold y2 up to R2. x comes from a tile with the
+//         stream's causal state (seanet_mma::load_x_tile's halo rule).
+//     E   y2 += bias, zero before absolute u = 0; elu(y2) as hi/lo planes.
+//     R1  elu(res2.conv1(elu(y2))) (M 64, K 3 shifts x 128, N 10 n-tiles).
+//     R2  h = elu(y2 + res2.conv2(.)), zero before u = 0, as hi/lo planes
+//         [position][channel]: row r holds h at m0-3+r, float32 carried to
+//         ~2^-17 as for every intermediate (no rounding between stages).
+//   B (kernel 2's stages) over an up3 window of 72 columns from m0-2 (9
+//     n-tiles; seanet_mma::UpTail<9>):
+//     U   y3 = up3(h), 4 phase GEMMs (M 64, K 2 taps x 128) on the h planes:
+//         h is float32, so each fragment is two MMAs (hi, lo) against the
+//         same weight; the up3 weights' K is interleaved as h's channels
+//         are ("up3_mma_il").
+//     E, R1, R2, F  seanet_mma::up_tail_stages, masked at absolute samples.
+// Why 14 columns. One latent frame is 96 x columns; the stream's blocks are
+// 4, 8 and 16 frames (384, 768, 1536 columns at B = 1) and the first block
+// is the stream's first audio. A block here reads all 0.87 MB of bf16
+// weights from L2 once (up2's through a per-warp cp.async ring, res2's and
+// res3's resident, up3's through a second ring), so narrower blocks cost L2
+// traffic and wider ones wave fill: 14 columns give 28, 55 and 110 blocks
+// (one wave of 132 SMs) for the stream's blocks, ~0.9 GB of L2 reads per
+// 160 frames, and stage B's 9 n-tiles keep its halo at 2 of 72 columns.
+// With kA = 8j - 2, A's window is exactly j n-tiles and B's 5j - 1; j = 2
+// is the largest whose B accumulators (2 phases x 9 n-tiles) and hi/lo B
+// fragments fit the registers.
+// Shared memory (bytes, ~208 KB, one block an SM), over time:
+//   [0, E3)        A: x tile, then elu(y2) and h1; then the h planes.
+//                  B: its ring over A's h1 during U; elu(y3), then z.
+//   [E3, +H3)      A: part of U's rings. B: h1 of res3, then F's partials.
+//   [.., +17 KB)   res3 and final-conv weights, resident from the start.
+//   [.., +64 KB)   res2 weights, resident from the start.
+// A's rings run from the end of the x tile over everything up to the
+// resident weights.
+constexpr int kA = 14;                  // input columns per block
+constexpr int kAW = kA + 2;             // y2 window columns, from a0-2
+constexpr int kAWT = kAW / 8;           // y2 window n-tiles
+using GB = seanet_mma::UpTail<(5 * kA + 2) / 8>;  // stage B: 9 n-tiles
+constexpr int kNWT8 = GB::kNW / 8;
+static_assert(GB::kN == 5 * kA && kAW % 8 == 0, "A's window is whole n-tiles, B owns A's h columns");
+constexpr int kXCols8 = (kA + 3 + 7 + 7) / 8 * 8;  // x columns from (a0-3) rounded down to 8, to a0+kA-1
+constexpr int kE2Rows = 1 + kAW;        // elu(y2) rows per phase plane: zero row, then the window
+constexpr int kE2Plane = 5 * kE2Rows * kEs;
+constexpr int kH2Rows = 5 * kAW;        // res2's h1 rows, phase-major
+constexpr int kHts = kC2 + 8;           // h planes' row stride
+constexpr int kHtRows = GB::kNW + 1;    // h at [m0-3, m0+kA*5)
+constexpr int kKsU3 = 2 * kC2 / 16;     // stage B's U k-steps
+constexpr int kDepthA = 5, kDepthB = 4;  // k-steps per warp's ring
+constexpr int kRingA = kDepthA * 5 * 512, kRingB = kDepthB * 2 * 512;  // bytes per warp
+// Byte offsets.
+constexpr int kOffE3 = 0;
+constexpr int kBytesE3 = (int)sizeof(bf16) * GB::kRegionE;
+constexpr int kOffH3 = kOffE3 + kBytesE3;
+constexpr int kOffW3 = kOffH3 + (int)sizeof(bf16) * GB::kRegionH;
+constexpr int kOffW2 = kOffW3 + (int)sizeof(uint4) * GB::kW;
+constexpr size_t kSmem8 = kOffW2 + sizeof(uint4) * (kW1 + kW2);
+constexpr int kBytesX = (int)sizeof(bf16) * (1 + kXCols8) * kXs;
+constexpr int kOffRingA = (kBytesX + 15) / 16 * 16;
+constexpr int kBytesE2 = (int)sizeof(bf16) * 2 * kE2Plane;
+constexpr int kOffH2 = kBytesE2;
+constexpr int kBytesHt = (int)sizeof(bf16) * 2 * kHtRows * kHts;
+constexpr int kOffRingB = kOffH2;
+static_assert(kOffRingA + 8 * kRingA <= kOffW3, "A's rings end before the resident weights");
+static_assert(kBytesE2 + (int)sizeof(bf16) * 2 * kH2Rows * kHs <= kOffW3, "elu(y2) and res2's h1 before the weights");
+static_assert(kBytesHt <= kBytesE2, "the h planes lie under elu(y2)");
+static_assert(kOffRingB + 8 * kRingB <= kOffW3 && kOffRingB >= kBytesHt, "B's rings lie beside the h planes");
+static_assert(kSmem8 <= 232448, "one block an SM");
+
+// Prepared weights (kernels/seanet_tail.py): up2 and res2 as kernel 7's
+// (wu2 [5][8][32][32], w1 [4][24][32], w2 [8][4][32] fragments), up3 as
+// [4 phases][4][16][32] fragments of [64][2*128] with K interleaved
+// (K = tap*128 + i), res3 and the final conv as kernel 2's.
+__global__ void __launch_bounds__(kThreads, 1)
+cascade_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ halo, const int* __restrict__ start,
+                   const uint4* __restrict__ wu2f, const bf16* __restrict__ bu2, const uint4* __restrict__ w1r2f,
+                   const bf16* __restrict__ b1r2, const uint4* __restrict__ w2r2f, const bf16* __restrict__ b2r2,
+                   const uint4* __restrict__ wu3f, const bf16* __restrict__ bu3, const uint4* __restrict__ w1r3f,
+                   const bf16* __restrict__ b1r3, const uint4* __restrict__ w2r3f, const bf16* __restrict__ b2r3,
+                   const bf16* __restrict__ wf, const bf16* __restrict__ bf, bf16* __restrict__ out, int t_in) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw);                      // A's U
+  bf16* e2h = reinterpret_cast<bf16*>(smem_raw);                     // A's E, R1
+  bf16* e2l = e2h + kE2Plane;
+  bf16* h2h = reinterpret_cast<bf16*>(smem_raw + kOffH2);            // A's R1, R2
+  bf16* h2l = h2h + kH2Rows * kHs;
+  bf16* hth = reinterpret_cast<bf16*>(smem_raw);                     // A's R2 -> B's U
+  bf16* htl = hth + kHtRows * kHts;
+  uint4* w3s = reinterpret_cast<uint4*>(smem_raw + kOffW3);
+  uint4* w1s = reinterpret_cast<uint4*>(smem_raw + kOffW2);
+  uint4* w2s = w1s + kW1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.y;
+  const int a0 = blockIdx.x * kA;
+  const int m0 = 5 * a0;
+  const int st = start != nullptr ? start[b] : 0;
+  const int a_abs_w = st + a0 - 2;  // absolute input column of y2 window column 0
+
+  // Every resident weight, then A's, in flight first of all, while the x
+  // tile loads.
+  for (int i = threadIdx.x; i < kW1 + kW2; i += kThreads) cp_async16(w1s + i, i < kW1 ? w1r2f + i : w2r2f + (i - kW1));
+  seanet_mma::up_tail_weights<kNWT8>(w3s, w1r3f, w2r3f, wf);
+  cp_async_commit();
+  {
+    constexpr int kPhase = (kC2 / 16) * kKsU * 32;
+    uint4* ring = reinterpret_cast<uint4*>(smem_raw + kOffRingA + warp * kRingA) + lane;
+    const FragRing<5, kDepthA> wra{ring, wu2f + warp * kKsU * 32 + lane, 32, kPhase, kKsU};
+    wra.start();
+    // y2 window column wc is input column a0-2+wc; tap 0 reads column
+    // a0-3+wc, at row xoff + wc of the tile (columns from c0 in rows from 1).
+    const int c0 = (a0 - 3) & ~7;
+    const int xoff = a0 - 2 - c0;
+    load_x_tile<kXin, kXCols8, kXs>(x + (size_t)b * kXin * t_in, t_in, c0, xs,
+                                    halo != nullptr ? halo + (size_t)b * kXin * kHalo : nullptr, st);
+
+    // A: U.
+    float acc[5][kAWT][4];
+#pragma unroll
+    for (int s = 0; s < 5; ++s)
+#pragma unroll
+      for (int j = 0; j < kAWT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[s][j][e] = 0.f;
+#pragma unroll 1
+    for (int ks = 0; ks < kKsU; ++ks) {
+      uint4 af[5];
+      wra.get(ks, af);
+      const int tap = ks / (kXin / 16), k0 = (ks % (kXin / 16)) * 16;
+      uint32_t bt[kAWT][2];
+#pragma unroll
+      for (int j = 0; j < kAWT; j += 2) {
+        uint32_t r[4];
+        ld_b_pair<kXs>(r, xs, 8 * j + xoff + tap, k0);
+        bt[j][0] = r[0];
+        bt[j][1] = r[1];
+        bt[j + 1][0] = r[2];
+        bt[j + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int s = 0; s < 5; ++s)
+#pragma unroll
+        for (int j = 0; j < kAWT; ++j) mma_frag(acc[s][j], af[s], bt[j][0], bt[j][1]);
+    }
+    ring_drain();  // and the resident weights
+    __syncthreads();  // every warp is done with its ring and the x tile, which elu(y2) overwrites
+
+    // A: E. y2 = acc + bu, zero before absolute u = 0 (a negative column).
+    const int o_lo = 16 * warp + g, o_hi = o_lo + 8;
+    {
+      const float bl = __bfloat162float(bu2[o_lo]), bh = __bfloat162float(bu2[o_hi]);
+#pragma unroll
+      for (int s = 0; s < 5; ++s)
+#pragma unroll
+        for (int j = 0; j < kAWT; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int wc = 8 * j + 2 * t + e;
+            const bool live = a_abs_w + wc >= 0;
+            acc[s][j][e] = live ? acc[s][j][e] + bl : 0.f;
+            acc[s][j][2 + e] = live ? acc[s][j][2 + e] + bh : 0.f;
+            const int row = (s * kE2Rows + 1 + wc) * kEs;
+            store_hi_lo_pair(e2h, e2l, row + 16 * warp + 2 * g, elu(acc[s][j][e]), elu(acc[s][j][2 + e]));
+          }
+    }
+    for (int i = threadIdx.x; i < 5 * kC2; i += kThreads) {  // the planes' zero rows
+      const int idx = (i / kC2) * kE2Rows * kEs + i % kC2;
+      e2h[idx] = __float2bfloat16(0.f);
+      e2l[idx] = __float2bfloat16(0.f);
+    }
+    __syncthreads();
+
+    // A: R1. n-tile q = kAWT*s + j; position u - 2 + d is phase s+d-2 of
+    // the same column, or (below 0) phase s+d+3 of the one before.
+    {
+      const int mt = warp & 3, nh = warp >> 2;
+      constexpr int kQ = 5 * kAWT / 2;
+      float acc1[kQ][4];
+#pragma unroll
+      for (int q = 0; q < kQ; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc1[q][e] = 0.f;
+      const uint4* wa = w1s + mt * kKs1 * 32 + lane;
+      const bf16* e2 = hi_lo_lane(e2h, e2l);
+#pragma unroll 1
+      for (int d = 0; d < 3; ++d) {
+        int off[kQ];
+#pragma unroll
+        for (int q = 0; q < kQ; ++q) {
+          const int tile = nh * kQ + q;
+          const int s = tile / kAWT, j = tile % kAWT;
+          int sp = s + d - 2, row = 1 + 8 * j + (lane & 7);
+          if (sp < 0) {
+            sp += 5;
+            row -= 1;
+          }
+          off[q] = (sp * kE2Rows + row) * kEs;
+        }
+#pragma unroll 1
+        for (int kk = 0; kk < kC2 / 16; ++kk) {
+          const uint4 af = wa[(d * (kC2 / 16) + kk) * 32];
+          uint32_t bb[kQ][4];
+#pragma unroll
+          for (int q = 0; q < kQ; ++q) ldmatrix_x4(bb[q], e2 + off[q] + 16 * kk);
+#pragma unroll
+          for (int q = 0; q < kQ; ++q) mma_frag(acc1[q], af, bb[q][0], bb[q][1]);  // hi
+#pragma unroll
+          for (int q = 0; q < kQ; ++q) mma_frag(acc1[q], af, bb[q][2], bb[q][3]);  // lo
+        }
+      }
+      const int c_lo = 16 * mt + g, c_hi = c_lo + 8;
+      const float bl = __bfloat162float(b1r2[c_lo]), bh = __bfloat162float(b1r2[c_hi]);
+#pragma unroll
+      for (int q = 0; q < kQ; ++q)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int row = ((nh * kQ + q) * 8 + 2 * t + e) * kHs;
+          store_hi_lo_pair(h2h, h2l, row + 16 * mt + 2 * g, elu(acc1[q][e] + bl), elu(acc1[q][2 + e] + bh));
+        }
+    }
+    __syncthreads();
+
+    // A: R2 onto the y2 registers; h = elu(.) into the h planes, row
+    // 5*wc + s - 7 (position m0-3+row), from column a0-1's phase 2.
+    {
+      const float bl = __bfloat162float(b2r2[o_lo]), bh = __bfloat162float(b2r2[o_hi]);
+      const bf16* h1 = hi_lo_lane(h2h, h2l);
+#pragma unroll
+      for (int ks = 0; ks < kKs2; ++ks) {
+        const uint4 af = w2s[(warp * kKs2 + ks) * 32 + lane];
+#pragma unroll
+        for (int s = 0; s < 5; ++s) {
+          uint32_t bb[kAWT][4];
+#pragma unroll
+          for (int j = 0; j < kAWT; ++j) ldmatrix_x4(bb[j], h1 + ((s * kAWT + j) * 8 + (lane & 7)) * kHs + ks * 16);
+#pragma unroll
+          for (int j = 0; j < kAWT; ++j) mma_frag(acc[s][j], af, bb[j][0], bb[j][1]);
+#pragma unroll
+          for (int j = 0; j < kAWT; ++j) mma_frag(acc[s][j], af, bb[j][2], bb[j][3]);
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < 5; ++s)
+#pragma unroll
+        for (int j = 0; j < kAWT; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int wc = 8 * j + 2 * t + e;
+            const int row = 5 * wc + s - 7;
+            if (row >= 0) {
+              const bool live = a_abs_w + wc >= 0;
+              store_hi_lo_pair(hth, htl, row * kHts + 16 * warp + 2 * g, live ? elu(acc[s][j][e] + bl) : 0.f,
+                               live ? elu(acc[s][j][2 + e] + bh) : 0.f);
+            }
+          }
+    }
+  }
+  __syncthreads();  // the h planes are whole; A's h1 (under B's rings) is read
+
+  // B: U. Window column cw is up3-input column m0-2+cw; tap 0 reads h at
+  // m0-3+cw (row cw), tap 1 row cw + 1.
+  const int mt = warp & 3, r0 = 2 * (warp >> 2);
+  float acc3[2][kNWT8][4];
+  {
+    constexpr int kPhase = (kC / 16) * kKsU3 * 32;
+    uint4* ring = reinterpret_cast<uint4*>(smem_raw + kOffRingB + warp * kRingB) + lane;
+    const FragRing<2, kDepthB> wrb{ring, wu3f + (r0 * (kC / 16) + mt) * kKsU3 * 32 + lane, 32, kPhase, kKsU3};
+    wrb.start();
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int j = 0; j < kNWT8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc3[p][j][e] = 0.f;
+    const bf16* hp = hi_lo_lane(hth, htl) + (lane & 7) * kHts;
+#pragma unroll 1
+    for (int ks = 0; ks < kKsU3; ++ks) {
+      uint4 af[2];
+      wrb.get(ks, af);
+      const int tap = ks / (kC2 / 16), k0 = (ks % (kC2 / 16)) * 16;
+      uint32_t bb[kNWT8][4];
+#pragma unroll
+      for (int j = 0; j < kNWT8; ++j) ldmatrix_x4(bb[j], hp + (8 * j + tap) * kHts + k0);
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+#pragma unroll
+        for (int j = 0; j < kNWT8; ++j) {
+          mma_frag(acc3[p][j], af[p], bb[j][0], bb[j][1]);  // hi
+          mma_frag(acc3[p][j], af[p], bb[j][2], bb[j][3]);  // lo
+        }
+    }
+    ring_drain();
+  }
+  __syncthreads();  // every warp is done with the h planes and its ring, which E overwrites
+  seanet_mma::up_tail_stages<kNWT8>(acc3, reinterpret_cast<bf16*>(smem_raw + kOffE3),
+                                    reinterpret_cast<bf16*>(smem_raw + kOffH3), w3s, bu3, b1r3, b2r3, bf,
+                                    5 * st + m0 - GB::kHaloC, 4 * m0, 20 * t_in, out + (size_t)b * 20 * t_in);
+}
+
+int launch_cascade(const void* x, const void* halo, const void* start, const void* const* w, void* out, int B,
+                   int t_in, cudaStream_t stream) {
+  // Raised once per process, so launches stay legal inside a graph capture.
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(cascade_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem8);
+  if (attr != cudaSuccess) return (int)attr;
+  dim3 grid((t_in + kA - 1) / kA, B);
+  cascade_mma_kernel<<<grid, kThreads, kSmem8, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(halo), static_cast<const int*>(start),
+      static_cast<const uint4*>(w[0]), static_cast<const bf16*>(w[1]), static_cast<const uint4*>(w[2]),
+      static_cast<const bf16*>(w[3]), static_cast<const uint4*>(w[4]), static_cast<const bf16*>(w[5]),
+      static_cast<const uint4*>(w[6]), static_cast<const bf16*>(w[7]), static_cast<const uint4*>(w[8]),
+      static_cast<const bf16*>(w[9]), static_cast<const uint4*>(w[10]), static_cast<const bf16*>(w[11]),
+      static_cast<const bf16*>(w[12]), static_cast<const bf16*>(w[13]), static_cast<bf16*>(out), t_in);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace tc
 
 template <typename T>
@@ -620,8 +945,12 @@ extern "C" int up2_res(int dtype, const void* x, const void* wu, const void* bu,
 
 // The cascade. `halo` [B,256,5] (same dtype as x) and `start` [B] int32 may
 // be null (zeros). Weights, in order: up2 wu,bu; res2 w1,b1,w2,b2 (the
-// layouts of up2_res); up3 wu [64,128,8] repacked, bu; res3 w1 [32,64,3],
-// b1, w2 [64,32,1], b2; final wf [1,64,7], bf.
+// layouts of up2_res); up3 wu, bu; res3 w1, b1, w2, b2; final wf, bf:
+//   float32: up3 wu [64,128,8] repacked, res3 w1 [32,64,3], w2 [64,32,1],
+//     wf [1,64,7];
+//   bfloat16: up3 wu as A fragments [4,4,16,32,8] with K interleaved (see
+//     tc::cascade_mma_kernel), res3 and wf as seanet_tail.cu's
+//     seanet_up_tail takes them. t_in a multiple of 32.
 extern "C" int up2_up3_tail(int dtype, const void* x, const void* halo, const void* start,
                             const void* wu2, const void* bu2, const void* w1r2,
                             const void* b1r2, const void* w2r2, const void* b2r2,
@@ -632,6 +961,9 @@ extern "C" int up2_up3_tail(int dtype, const void* x, const void* halo, const vo
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const void* w[14] = {wu2, bu2, w1r2, b1r2, w2r2, b2r2, wu3, bu3, w1r3, b1r3, w2r3, b2r3, wf, bf};
   if (dtype == 0) return launch_cascade<float>(x, halo, start, w, out, B, t_in, s);
-  if (dtype == 1) return launch_cascade<__nv_bfloat16>(x, halo, start, w, out, B, t_in, s);
+  if (dtype == 1) {
+    if (t_in <= 0 || t_in % 32 != 0) return (int)cudaErrorInvalidValue;
+    return tc::launch_cascade(x, halo, start, w, out, B, t_in, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -23,9 +23,10 @@ the same kernel with the step's RoPE, int8 row quantization and row write
 fused in; its launches count under the attention wrapper of its cache kind.
 Kernels 1 and 4 share ``csrc/split_kv_attention.cuh`` and
 ``split_kv.split_plan``; kernels 5 and 6 share ``csrc/split_k_matmul.cuh``
-and ``split_k.matmul_plan``; kernels 2 and 7 in bfloat16 share
-``csrc/seanet_mma.cuh`` (implicit-GEMM convolutions on ``mma.sync``), and
-every tensor-core kernel the helpers of ``csrc/mma_sync.cuh``.
+and ``split_k.matmul_plan``; the four SEANet kernels (2, 3, 7, 8) in
+bfloat16 share ``csrc/seanet_mma.cuh`` (implicit-GEMM convolutions on
+``mma.sync``; kernels 2, 3 and 8 its up3-tail stages), and every
+tensor-core kernel the helpers of ``csrc/mma_sync.cuh``.
 """
 
 from go_pocket_tts_tpu_torch.kernels import (
@@ -64,7 +65,7 @@ META = (
     {
         "source": "go_pocket_tts_tpu_torch/csrc/seanet_tail.cu",
         "replaces": "go_pocket_tts_tpu/ops/pallas/seanet_tail.py:108",
-        "units": "CUDA cores (float32 arithmetic)",
+        "units": "bf16 on tensor cores (mma.sync m16n8k16), float32 on CUDA cores",
     },
     {
         "source": "go_pocket_tts_tpu_torch/csrc/batched_decode_attention.cu",
@@ -94,7 +95,7 @@ META = (
     {
         "source": "go_pocket_tts_tpu_torch/csrc/seanet_up2.cu",
         "replaces": "go_pocket_tts_tpu/ops/pallas/seanet_tail.py:569",
-        "units": "CUDA cores (float32 arithmetic)",
+        "units": "bf16 on tensor cores (mma.sync m16n8k16), float32 on CUDA cores",
     },
 )
 

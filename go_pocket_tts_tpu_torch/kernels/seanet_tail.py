@@ -40,19 +40,22 @@ cached while the weight lives and is not modified in place (keyed by
 address, shape, dtype and version counter; an inference tensor, which keeps
 no version, is taken as unmodified):
 
-- the SIMT kernels (float32, and the cascade in both dtypes) read the up2
-  and res2 weights output channel last, so a warp's loads coalesce;
-- the tensor-core kernels (:func:`fused_seanet_up_tail` and
-  :func:`fused_up2_res` in bfloat16) read every conv weight as the A operand
-  of ``mma.sync`` m16n8k16 in fragment order (:func:`mma_fragments`): a
-  transposed conv as its phase matrices (:func:`up_phase_matrices`), a k3
-  conv as ``[C_out, 3·C_in]`` (:func:`conv_matrix`), a k1 conv as
-  ``[C_out, C_in]``, and kernel 2's final k7 conv as a B operand
-  (:func:`mma_b_fragments`); where a conv reads the kernel's own
-  activations, its K is interleaved as they are (:func:`interleave_k`).
-  Their float32 intermediates enter the MMAs as a hi/lo
-  pair of bfloat16 (:func:`split_hi_lo`), so both kernels compute the
-  float32-intermediate function of the plain versions.
+- the SIMT kernels (float32) read the up2 and res2 weights output channel
+  last, so a warp's loads coalesce;
+- the tensor-core kernels (all four in bfloat16) read every conv weight as
+  the A operand of ``mma.sync`` m16n8k16 in fragment order
+  (:func:`mma_fragments`): a transposed conv as its phase matrices
+  (:func:`up_phase_matrices`), a k3 conv as ``[C_out, 3·C_in]``
+  (:func:`conv_matrix`), a k1 conv as ``[C_out, C_in]``, and the final k7
+  conv as a B operand, one tap a column (:func:`mma_b_fragments`); where a
+  conv reads the
+  kernel's own activations, its K is interleaved as they are
+  (:func:`interleave_k`): res2 and res3 in every kernel, and up3 in the
+  cascade, which reads res2's output from shared memory ("up3_mma_il"),
+  where kernel 2 reads x from device memory ("up3_mma"). Their float32
+  intermediates enter the MMAs as a hi/lo pair of bfloat16
+  (:func:`split_hi_lo`), so every kernel computes the float32-intermediate
+  function of the plain versions and rounds once, at the output.
 """
 
 from __future__ import annotations
@@ -125,8 +128,9 @@ def supports_cascade(c_in: int, t_in: int, k2: int, k3: int) -> bool:
 
 
 def supports_stream(c_in: int, t_in: int, k2: int, k3: int) -> bool:
-    """Shapes the CUDA cascade takes (T_in a multiple of 32, so its 128-sample
-    blocks tile the output)."""
+    """Shapes the CUDA cascade takes (T_in a multiple of 32: the float32
+    form's 128-sample blocks tile the output; the bfloat16 form masks its
+    last block)."""
     return c_in == 256 and k2 == _UP2_K and k3 == _UP_K and t_in % 32 == 0 and t_in >= 32
 
 
@@ -229,12 +233,13 @@ def _conv_a(w: torch.Tensor) -> torch.Tensor:
 
 
 def _final_b(wf: torch.Tensor) -> torch.Tensor:
-    """The final k7 conv ``[1, C, 7]`` as kernel 2's B fragments: column 0
-    of a ``[7·C, 8]`` matrix holds the conv's row (K over shift, then
-    channel, interleaved), columns 1-7 are zero."""
-    b = torch.zeros((wf.shape[1] * wf.shape[2], 8), dtype=wf.dtype, device=wf.device)
-    b[:, 0] = interleave_k(conv_matrix(wf))[0]
-    return mma_b_fragments(b)
+    """The final k7 conv ``[1, C, 7]`` as the tensor-core kernels' B
+    fragments: a ``[C, 8]`` matrix whose column d holds tap d over the
+    channels (K interleaved), column 7 zero; the kernels take the per-tap
+    partials of every z row and sum each output's diagonal."""
+    taps = torch.zeros((8, wf.shape[1]), dtype=wf.dtype, device=wf.device)
+    taps[: wf.shape[2]] = wf[0].t()
+    return mma_b_fragments(interleave_k(taps).t().contiguous())
 
 
 def up_phase_matrices(wu: torch.Tensor, stride: int) -> torch.Tensor:
@@ -262,8 +267,9 @@ def split_hi_lo(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return hi, (v - hi.float()).to(torch.bfloat16)
 
 
-def _up_phase_fragments(stride: int) -> Callable[[torch.Tensor], torch.Tensor]:
-    return lambda wu: torch.stack([mma_fragments(a) for a in up_phase_matrices(wu, stride)])
+def _up_phase_fragments(stride: int, interleaved: bool = False) -> Callable[[torch.Tensor], torch.Tensor]:
+    order = interleave_k if interleaved else (lambda a: a)
+    return lambda wu: torch.stack([mma_fragments(order(a)) for a in up_phase_matrices(wu, stride)])
 
 
 _LAYOUTS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
@@ -273,6 +279,7 @@ _LAYOUTS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     # Tensor-core kernels: A fragments (final_mma: B fragments).
     "up2_mma": _up_phase_fragments(_UP2_S),
     "up3_mma": _up_phase_fragments(_UP_S),
+    "up3_mma_il": _up_phase_fragments(_UP_S, interleaved=True),
     "conv_mma": _conv_a,
     "final_mma": _final_b,
 }
@@ -366,6 +373,9 @@ def fused_seanet_tail(x, w1, b1, w2, b2, wf, bf) -> torch.Tensor:
         raise ValueError(f"fused_seanet_tail: x shape {tuple(x.shape)} not [B,64,128k]")
     args = (x, w1, b1, w2, b2, wf, bf)
     _check("fused_seanet_tail", x, args, ((b, 64, t),) + _TAIL_SHAPES)
+    if x.dtype == torch.bfloat16:
+        args = (x, kernel_weight(w1, "conv_mma"), b1, kernel_weight(w2, "conv_mma"), b2,
+                kernel_weight(wf, "final_mma"), bf)
     out = torch.empty((b, 1, t), dtype=x.dtype, device=x.device)
     err = _lib().seanet_tail(
         _DTYPE_CODES[x.dtype],
@@ -434,8 +444,12 @@ def _launch_cascade(x, halo, start, weights) -> torch.Tensor:
         or not start.is_contiguous()
     ):
         raise ValueError(f"fused_up2_up3_tail: start must be contiguous int32 [{b}] on {x.device}")
-    wu, bu, w1, b1, w2, b2 = weights[:6]
-    weights = (kernel_weight(wu, "simt"), bu, kernel_weight(w1, "simt"), b1, kernel_weight(w2, "simt_k1"), b2, *weights[6:])
+    if x.dtype == torch.bfloat16:
+        layouts = ("up2_mma", None, "conv_mma", None, "conv_mma", None,
+                   "up3_mma_il", None, "conv_mma", None, "conv_mma", None, "final_mma", None)
+    else:
+        layouts = ("simt", None, "simt", None, "simt_k1") + (None,) * 9
+    weights = tuple(w if layout is None else kernel_weight(w, layout) for w, layout in zip(weights, layouts))
     out = torch.empty((b, 1, 20 * t_in), dtype=x.dtype, device=x.device)
     err = _lib_up2().up2_up3_tail(
         _DTYPE_CODES[x.dtype],

@@ -8,7 +8,9 @@ Needs one CUDA card and ``nvcc``. In float32 and bfloat16 at 160 frames
 (B = 1), and in bfloat16 at the batcher's harvest shape (8 lanes x 256
 frames), it prints each kernel's max error against its plain version and
 its device time by CUDA-graph replay (kernel 8 whole, and one streamed
-block of 4, 8 and 16 frames), with the card's name and power limit. It
+block of 4, 8 and 16 frames, each beside its yardstick: kernel 7 then
+kernel 2 on the same input, one graph; kernel 3 beside its op chain), with
+the card's name and power limit. It
 uses only the wrappers' public signatures and ``chip_smoke``'s timing
 helpers, so run from another checkout's root (a ``git archive`` of the
 parent under ``build/``) it times that checkout's kernels: an A/B in one
@@ -64,13 +66,19 @@ def main() -> int:
                 x = (torch.randn((b, c_in, per_frame * frames), generator=gen, device="cuda") * 0.5).to(dtype)
                 err = cs.max_err(kernel(x, *ws), plain(x, *ws), dtype, name)
                 ms = cs.device_ms(lambda: kernel(x, *ws), per_graph=5 if b == 1 else 2)
-                print(f"  {name} {cs.dname(dtype)} x={tuple(x.shape)}: max_abs_err {err:.3e}  kernel {ms:.4f} ms  [{cs.CARD}]")
+                extra = ""
+                if "kernel 3" in name:
+                    extra = f"  op chain {cs.device_ms(lambda: cs._tail_op_chain(x, *ws), per_graph=5):.4f} ms"
+                print(f"  {name} {cs.dname(dtype)} x={tuple(x.shape)}: max_abs_err {err:.3e}  kernel {ms:.4f} ms{extra}  [{cs.CARD}]")
             if "kernel 8" in name:
-                for n in (4, 8, 16):
+                for n in (4, 8, 16, 160):
                     xb = x[:, :, : 96 * n].contiguous()
                     start = torch.full((1,), 96 * n, dtype=torch.int32, device="cuda")
-                    ms = cs.device_ms(lambda: st.fused_up2_up3_tail_stream(xb, halo, start, *ws), per_graph=5)
-                    print(f"  {name} {cs.dname(dtype)} streamed block of {n} frames: kernel {ms:.4f} ms  [{cs.CARD}]")
+                    per_graph = 5 if n < 160 else 3
+                    ms = cs.device_ms(lambda: st.fused_up2_up3_tail_stream(xb, halo, start, *ws), per_graph=per_graph)
+                    yard = cs.device_ms(lambda: st.fused_seanet_up_tail(st.fused_up2_res(xb, *up2), *rest), per_graph=per_graph)
+                    print(f"  {name} {cs.dname(dtype)} streamed block of {n} frames: kernel {ms:.4f} ms, "
+                          f"kernels 7 + 2 {yard:.4f} ms  [{cs.CARD}]")
     if args.path_shapes:
         with open(args.path_shapes) as f:
             path_shapes = json.load(f)

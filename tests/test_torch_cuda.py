@@ -816,6 +816,103 @@ def test_tensor_core_kernels_follow_an_in_place_weight_update(card):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 3, 8])
+@pytest.mark.parametrize("frames", [4, 8, 16, 160])
+def test_cascade_kernel(card, dtype, b, frames):
+    """Kernel 8 (bf16 on tensor cores, float32 on CUDA cores) whole, x
+    [B,256,96·frames], against its plain version, and bit-equal over two
+    calls."""
+    gen = torch.Generator(device=card).manual_seed(11 * b + frames)
+    _, weights = _up2_weights(gen, card, dtype)
+    x = (torch.randn((b, 256, 96 * frames), generator=gen, device=card) * 0.5).to(dtype)
+    got = st.fused_up2_up3_tail(x, *weights)
+    _close(got, st.fused_up2_up3_tail_plain(x, *weights), dtype)
+    assert torch.equal(got, st.fused_up2_up3_tail(x, *weights))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cascade_stream_at_eight_lanes_with_mixed_starts(card, dtype):
+    """The streaming form at B = 8, lanes at starts 0 to 1537 (five of them
+    below the 5-column halo), against the plain streaming version, and
+    bit-equal over two calls."""
+    gen = torch.Generator(device=card).manual_seed(12)
+    _, weights = _up2_weights(gen, card, dtype)
+    x = (torch.randn((8, 256, 384), generator=gen, device=card) * 0.5).to(dtype)
+    halo = (torch.randn((8, 256, st.HALO), generator=gen, device=card) * 0.5).to(dtype)
+    start = torch.tensor([0, 1, 2, 3, 4, 5, 96, 1537], dtype=torch.int32, device=card)
+    got = st.fused_up2_up3_tail_stream(x, halo, start, *weights)
+    _close(got, st.fused_up2_up3_tail_stream_plain(x, halo, start, *weights), dtype)
+    assert torch.equal(got, st.fused_up2_up3_tail_stream(x, halo, start, *weights))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cascade_kernel_ragged_last_block(card, dtype):
+    """Lengths that end inside a block (the bf16 kernel's blocks are 14
+    input columns; the wrapper takes multiples of 32), whole and streamed."""
+    gen = torch.Generator(device=card).manual_seed(13)
+    _, weights = _up2_weights(gen, card, dtype)
+    for t_in in (32, 160, 416, 1024):
+        x = (torch.randn((2, 256, t_in), generator=gen, device=card) * 0.5).to(dtype)
+        _close(st.fused_up2_up3_tail(x, *weights), st.fused_up2_up3_tail_plain(x, *weights), dtype)
+        halo = (torch.randn((2, 256, st.HALO), generator=gen, device=card) * 0.5).to(dtype)
+        start = torch.tensor([3, 700], dtype=torch.int32, device=card)
+        _close(st.fused_up2_up3_tail_stream(x, halo, start, *weights),
+               st.fused_up2_up3_tail_stream_plain(x, halo, start, *weights), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cascade_streamed_blocks_concatenate_to_the_whole(card, dtype):
+    """160 frames streamed in 16-frame blocks, each carrying the last 5
+    columns and its start, concatenate to the whole form."""
+    gen = torch.Generator(device=card).manual_seed(14)
+    _, weights = _up2_weights(gen, card, dtype)
+    x = (torch.randn((2, 256, 96 * 160), generator=gen, device=card) * 0.5).to(dtype)
+    halo = torch.zeros((2, 256, st.HALO), dtype=dtype, device=card)
+    start = torch.zeros((2,), dtype=torch.int32, device=card)
+    blocks = []
+    for pos in range(0, x.shape[2], 96 * 16):
+        xb = x[:, :, pos : pos + 96 * 16].contiguous()
+        blocks.append(st.fused_up2_up3_tail_stream(xb, halo, start, *weights))
+        halo = torch.cat([halo, xb], dim=2)[:, :, -st.HALO :].contiguous()
+        start = start + 96 * 16
+    _close(torch.cat(blocks, dim=2), st.fused_up2_up3_tail(x, *weights), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("t", [128, 1920, 128 * 241, 1920 * 160])
+def test_seanet_tail_kernel(card, dtype, b, t):
+    """Kernel 3 (bf16 on tensor cores, float32 on CUDA cores) at multiples
+    of 128 samples, the bf16 kernel's blocks being 152 (so most end
+    inside one), against its plain version, and bit-equal over two calls."""
+    gen = torch.Generator(device=card).manual_seed(15 * b + t)
+    _, weights = _up2_weights(gen, card, dtype)
+    tail = weights[8:]
+    x = (torch.randn((b, 64, t), generator=gen, device=card) * 0.5).to(dtype)
+    got = st.fused_seanet_tail(x, *tail)
+    _close(got, st.fused_seanet_tail_plain(x, *tail), dtype)
+    assert torch.equal(got, st.fused_seanet_tail(x, *tail))
+
+
+def test_cascade_and_tail_follow_an_in_place_weight_update(card):
+    """Kernels 8 and 3 read cached bf16 layouts: an in-place update of a
+    weight must reach the next call."""
+    gen = torch.Generator(device=card).manual_seed(16)
+    _, weights = _up2_weights(gen, card, torch.bfloat16)
+    x8 = (torch.randn((1, 256, 384), generator=gen, device=card) * 0.5).to(torch.bfloat16)
+    x3 = (torch.randn((1, 64, 1920), generator=gen, device=card) * 0.5).to(torch.bfloat16)
+    tail = weights[8:]
+    st.fused_up2_up3_tail(x8, *weights)  # prepares and caches the layouts
+    st.fused_seanet_tail(x3, *tail)
+    weights[0].mul_(-1.0)  # up2
+    weights[6].mul_(0.5)  # up3
+    tail[0].mul_(-0.5)  # res3.conv1
+    tail[4].mul_(2.0)  # the final conv
+    _close(st.fused_up2_up3_tail(x8, *weights), st.fused_up2_up3_tail_plain(x8, *weights), torch.bfloat16)
+    _close(st.fused_seanet_tail(x3, *tail), st.fused_seanet_tail_plain(x3, *tail), torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_mimi_decode_through_the_tensor_core_kernels(card, dtype, monkeypatch):
     """One whole decode of a SEANet at the kernels' widths in each dtype:
     it launches kernels 7 and 2 once each, and its PCM is within

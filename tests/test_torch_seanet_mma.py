@@ -1,5 +1,5 @@
-"""The arithmetic of the tensor-core SEANet kernels (kernels 2 and 7 in
-bfloat16, ``csrc/seanet_mma.cuh``) written as plain torch on the CPU: the
+"""The arithmetic of the tensor-core SEANet kernels (kernels 2, 3, 7 and 8
+in bfloat16, ``csrc/seanet_mma.cuh``) written as plain torch on the CPU: the
 prepared weight layouts, the phase-GEMM form of the transposed convs, the
 shifted-read form of the causal convs and the hi/lo split of float32
 intermediates, each held against the port's conv ops; and the cache of
@@ -55,15 +55,25 @@ def _conv_matrix_of(frags: torch.Tensor) -> torch.Tensor:
     return _deinterleave(_unfragment(frags))
 
 
-def _phase_gemm(x, frags, bias, stride):
+def _phase_gemm(x, frags, bias, stride, interleaved=False):
     """The kernel's transposed conv: phase s of output ``stride·m + s`` is the
-    phase matrix times ``concat(x[:, m-1], x[:, m])``."""
+    phase matrix times ``concat(x[:, m-1], x[:, m])`` (``interleaved``: the
+    matrices' K in the order of ``interleave_k``, as the cascade's up3)."""
     b, c_in, t = x.shape
     xp = torch.cat([torch.zeros((b, c_in, 1), dtype=x.dtype), x], dim=2)
     taps = torch.cat([xp[:, :, :-1], xp[:, :, 1:]], dim=1)  # [B, 2·C_in, T]
-    a = torch.stack([_unfragment(f) for f in frags])  # [S, C_out, 2·C_in]
+    a = torch.stack([_deinterleave(_unfragment(f)) if interleaved else _unfragment(f) for f in frags])
     y = torch.einsum("sok,bkt->bots", a, taps).reshape(b, a.shape[1], stride * t)
     return y + bias[:, None]
+
+
+def _hi_lo_phase_gemm(h, frags, bias, stride):
+    """The cascade's up3: its float32 input as two bf16 operands against the
+    same (K-interleaved) weight."""
+    hi, lo = st.split_hi_lo(h)
+    return _phase_gemm(hi.float(), frags, bias, stride, True) + _phase_gemm(
+        lo.float(), frags, torch.zeros_like(bias), stride, True
+    )
 
 
 def _shifted_matmul(h, a, bias, k):
@@ -115,16 +125,21 @@ def test_mma_b_fragments_round_trip():
     assert torch.equal(_unfragment_b(f), b)
 
 
+def _final_taps(frags: torch.Tensor) -> torch.Tensor:
+    """The ``[C, 8]`` matrix of a "final_mma" weight (tap d in column d)."""
+    return _deinterleave(_unfragment_b(frags).t()).t()
+
+
 def test_final_conv_as_b_fragments_is_the_causal_conv():
-    """Kernel 2's final k7 conv: the samples as M, z read at 7 shifts
-    against wf in column 0 of B (columns 1-7 zero)."""
+    """The tensor-core kernels' final k7 conv: the z rows as M against wf's
+    taps as the columns of B (column 7 zero) give the per-tap partials
+    P[t][d]; output t sums P[t - 6 + d][d]."""
     rng = _rng(2)
     wf, bf, z = _t(rng, 1, 64, 7, scale=0.1), _t(rng, 1, scale=0.1), _t(rng, 2, 64, 40)
-    b = _deinterleave(_unfragment_b(st.kernel_weight(wf, "final_mma")).t()).t()
-    assert not b[:, 1:].any()
-    zp = torch.cat([torch.zeros((2, 64, 6)), z], dim=2)
-    a = torch.cat([zp[:, :, d : d + 40] for d in range(7)], dim=1).transpose(1, 2)  # [B, T, 7·64]
-    got = (a @ b)[:, :, :1].transpose(1, 2) + bf[:, None]
+    b = _final_taps(st.kernel_weight(wf, "final_mma"))
+    assert b.shape == (64, 8) and not b[:, 7].any() and torch.equal(b[:, :7], wf[0])
+    p = torch.cat([torch.zeros((2, 6, 8)), z.transpose(1, 2) @ b], dim=1)  # [B, 6 + T, 8]: rows t - 6
+    got = sum(p[:, d : d + 40, d] for d in range(7))[:, None, :] + bf[:, None]
     np.testing.assert_allclose(got.numpy(), causal_conv1d(z, wf, bf).numpy(), atol=1e-5, rtol=1e-5)
 
 
@@ -219,16 +234,122 @@ def test_up_tail_arithmetic_matches_plain():
     y = _phase_gemm(x, st.kernel_weight(wu, "up3_mma"), bu, 4)
     h1 = elu(_hi_lo_gemm(elu(y), st.kernel_weight(w1, "conv_mma"), b1, 3))
     z = elu(y + _hi_lo_gemm(h1, st.kernel_weight(w2, "conv_mma"), b2, 1))
-    wf_row = _deinterleave(_unfragment_b(st.kernel_weight(wf, "final_mma"))[:, :1].t())  # [1, 7·64]
+    wf_row = _final_taps(st.kernel_weight(wf, "final_mma"))[:, :7].t().reshape(1, -1)  # [1, 7·64]
     got = _hi_lo_matmul(z, wf_row, bf, 7)
     want = st.fused_seanet_up_tail_plain(x, wu, bu, w1, b1, w2, b2, wf, bf)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5, rtol=2e-5)
+
+
+def test_interleaved_phase_gemm_is_the_transposed_conv():
+    """The cascade's up3 layout: the phase matrices with K interleaved as
+    res2's output channels are, undone, give the transposed conv."""
+    rng = _rng(14)
+    wu = repack_conv_transpose_kernel(_t(rng, 128, 64, 8, scale=0.1))
+    bu, x = _t(rng, 64, scale=0.1), _t(rng, 2, 128, 24, scale=0.5)
+    frags = st.kernel_weight(wu, "up3_mma_il")
+    assert frags.shape == (4, 4, 16, 32, 8)
+    assert not torch.equal(frags, st.kernel_weight(wu, "up3_mma"))
+    got = _phase_gemm(x, frags, bu, 4, interleaved=True)
+    np.testing.assert_allclose(got.numpy(), conv_transpose1d_trim(x, wu, bu, 4).numpy(), atol=1e-6, rtol=1e-6)
+
+
+def _cascade_weights(rng):
+    """up2 + res2, up3 + res3 + final conv at the kernels' widths, bf16-exact."""
+    wu2 = _bf16_exact(repack_conv_transpose_kernel(_t(rng, 256, 128, 10, scale=0.05)))
+    wu3 = _bf16_exact(repack_conv_transpose_kernel(_t(rng, 128, 64, 8, scale=0.1)))
+    shapes = ((128,), (64, 128, 3), (64,), (128, 64, 1), (128,))
+    up2 = [wu2] + [_bf16_exact(_t(rng, *s_, scale=0.1)) for s_ in shapes]
+    rest = [wu3] + [_bf16_exact(_t(rng, *s_, scale=0.1)) for s_ in ((64,),) + st._TAIL_SHAPES]
+    return up2 + rest
+
+
+def _tail_from_y(y, w1, b1, w2, b2, wf, bf, z_live=None):
+    """res3, ELU and the final conv as kernels 2, 3 and 8 compute them from
+    y (float32): hi/lo operands, wf from its B fragments; z zeroed where
+    ``z_live`` is False."""
+    h1 = elu(_hi_lo_gemm(elu(y), st.kernel_weight(w1, "conv_mma"), b1, 3))
+    z = elu(y + _hi_lo_gemm(h1, st.kernel_weight(w2, "conv_mma"), b2, 1))
+    if z_live is not None:
+        z = torch.where(z_live, z, torch.zeros_like(z))
+    wf_row = _final_taps(st.kernel_weight(wf, "final_mma"))[:, :7].t().reshape(1, -1)  # [1, 7·64]
+    return _hi_lo_matmul(z, wf_row, bf, 7)
+
+
+def _cascade_chain(xe, ws, a_abs0):
+    """Kernel 8's bfloat16 arithmetic over a sequence xe whose column 0 is
+    absolute column ``a_abs0`` [B]: up2 phase GEMMs on the exact bf16 input,
+    res2 on hi/lo pairs, up3 phase GEMMs on the hi/lo pair of res2's output
+    (K interleaved), res3 and the final conv; y2, h, y3 and z zero before
+    absolute position 0, as the kernel masks them."""
+    wu2, bu2, w1r2, b1r2, w2r2, b2r2, wu3, bu3, *tail = ws
+    y2 = _phase_gemm(xe, st.kernel_weight(wu2, "up2_mma"), bu2, 5)
+    u_live = (5 * a_abs0[:, None, None] + torch.arange(y2.shape[2])) >= 0
+    y2 = torch.where(u_live, y2, torch.zeros_like(y2))
+    h1 = elu(_hi_lo_gemm(elu(y2), st.kernel_weight(w1r2, "conv_mma"), b1r2, 3))
+    h = elu(y2 + _hi_lo_gemm(h1, st.kernel_weight(w2r2, "conv_mma"), b2r2, 1))
+    h = torch.where(u_live, h, torch.zeros_like(h))
+    y3 = _hi_lo_phase_gemm(h, st.kernel_weight(wu3, "up3_mma_il"), bu3, 4)
+    t_live = (20 * a_abs0[:, None, None] + torch.arange(y3.shape[2])) >= 0
+    y3 = torch.where(t_live, y3, torch.zeros_like(y3))
+    return _tail_from_y(y3, *tail, z_live=t_live)
+
+
+# Six hi/lo stages in a chain (res2's two, up3, res3's two, the final conv),
+# each ~2^-17 relative, on outputs up to ~8: ~3e-5 apart from the plain
+# float32 chain (4e-6 with exact float32 operands); a misplaced weight,
+# shift or mask errs by 1e-2 or more.
+_CASCADE_ATOL = 1e-4
+
+
+def test_cascade_arithmetic_matches_plain():
+    """Kernel 8's bfloat16 arithmetic end to end (no rounding between its
+    stages: res2's output enters up3 as a hi/lo pair) against
+    ``fused_up2_up3_tail_plain``."""
+    rng = _rng(15)
+    ws = _cascade_weights(rng)
+    x = _bf16_exact(_t(rng, 2, 256, 16, scale=0.5))
+    got = _cascade_chain(x, ws, torch.zeros(2, dtype=torch.int64))
+    want = st.fused_up2_up3_tail_plain(x, *ws)
+    assert got.shape == want.shape == (2, 1, 320)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=_CASCADE_ATOL, rtol=2e-5)
+
+
+def test_cascade_stream_arithmetic_at_mixed_starts():
+    """The same chain over a streamed block: column a < 0 of a lane at
+    ``start`` is ``halo[:, 5 + a]`` where ``start + a >= 0`` and zero
+    otherwise (the tile loader's rule), every mask at the absolute
+    position; lanes at starts 0, 2 (a halo reaching before the stream), 96
+    and 960 against ``fused_up2_up3_tail_stream_plain``."""
+    rng = _rng(16)
+    ws = _cascade_weights(rng)
+    x = _bf16_exact(_t(rng, 4, 256, 16, scale=0.5))
+    halo = _bf16_exact(_t(rng, 4, 256, st.HALO, scale=0.5))
+    halo[0] = 0
+    start = torch.tensor([0, 2, 96, 960], dtype=torch.int32)
+    a = torch.arange(-st.HALO, 0)
+    kept = (start[:, None] + a) >= 0  # [B, 5]
+    xe = torch.cat([torch.where(kept[:, None, :], halo, torch.zeros_like(halo)), x], dim=2)
+    got = _cascade_chain(xe, ws, start.long() - st.HALO)[:, :, 20 * st.HALO :]
+    want = st.fused_up2_up3_tail_stream_plain(x, halo, start, *ws)
+    assert got.shape == want.shape == (4, 1, 320)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=_CASCADE_ATOL, rtol=2e-5)
+
+
+def test_seanet_tail_arithmetic_matches_plain():
+    """Kernel 3's bfloat16 arithmetic: y = x exact in bf16, then kernel 2's
+    res3 and final-conv stages, against ``fused_seanet_tail_plain``."""
+    rng = _rng(17)
+    tail = [_bf16_exact(_t(rng, *s_, scale=0.1)) for s_ in st._TAIL_SHAPES]
+    x = _bf16_exact(_t(rng, 2, 64, 96, scale=0.5))
+    got = _tail_from_y(x, *tail)
+    want = st.fused_seanet_tail_plain(x, *tail)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5, rtol=2e-5)
 
 
 @pytest.mark.parametrize(
     "layout,shape",
     [("up2_mma", (128, 256, 10)), ("up3_mma", (64, 128, 8)), ("conv_mma", (64, 128, 3)), ("simt", (64, 128, 3)),
-     ("simt_k1", (128, 64, 1))],
+     ("simt_k1", (128, 64, 1)), ("up3_mma_il", (64, 128, 8)), ("final_mma", (1, 64, 7))],
 )
 def test_kernel_weight_is_cached_until_modified_in_place(layout, shape):
     w = _t(_rng(3), *shape)
