@@ -665,22 +665,24 @@ cascade_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ halo, co
   const int st = start != nullptr ? start[b] : 0;
   const int a_abs_w = st + a0 - 2;  // absolute input column of y2 window column 0
 
-  // Every resident weight, then A's, in flight first of all, while the x
-  // tile loads.
-  for (int i = threadIdx.x; i < kW1 + kW2; i += kThreads) cp_async16(w1s + i, i < kW1 ? w1r2f + i : w2r2f + (i - kW1));
-  seanet_mma::up_tail_weights<kNWT8>(w3s, w1r3f, w2r3f, wf);
-  cp_async_commit();
   {
-    constexpr int kPhase = (kC2 / 16) * kKsU * 32;
-    uint4* ring = reinterpret_cast<uint4*>(smem_raw + kOffRingA + warp * kRingA) + lane;
-    const FragRing<5, kDepthA> wra{ring, wu2f + warp * kKsU * 32 + lane, 32, kPhase, kKsU};
-    wra.start();
+    // The x tile first, then A's ring, then every resident weight (a copy
+    // group committed after the ring's first k-steps, so that it need only
+    // have landed by k-step kDepthA - 2; res2's are read from R1 on): in
+    // that order the tile's loads do not queue behind 160 KB of weights.
     // y2 window column wc is input column a0-2+wc; tap 0 reads column
     // a0-3+wc, at row xoff + wc of the tile (columns from c0 in rows from 1).
     const int c0 = (a0 - 3) & ~7;
     const int xoff = a0 - 2 - c0;
     load_x_tile<kXin, kXCols8, kXs>(x + (size_t)b * kXin * t_in, t_in, c0, xs,
                                     halo != nullptr ? halo + (size_t)b * kXin * kHalo : nullptr, st);
+    constexpr int kPhase = (kC2 / 16) * kKsU * 32;
+    uint4* ring = reinterpret_cast<uint4*>(smem_raw + kOffRingA + warp * kRingA) + lane;
+    const FragRing<5, kDepthA> wra{ring, wu2f + warp * kKsU * 32 + lane, 32, kPhase, kKsU};
+    wra.start();
+    for (int i = threadIdx.x; i < kW1 + kW2; i += kThreads) cp_async16(w1s + i, i < kW1 ? w1r2f + i : w2r2f + (i - kW1));
+    seanet_mma::up_tail_weights<kNWT8>(w3s, w1r3f, w2r3f, wf);
+    cp_async_commit();
 
     // A: U.
     float acc[5][kAWT][4];
