@@ -501,6 +501,13 @@ def check_up2(rows: dict) -> None:
         plain_ms = device_ms(lambda: st.fused_up2_up3_tail_plain(x, *weights), per_graph=3)
         b_ms, b_by = seanet_bound("fused_up2_up3_tail", tuple(x.shape), weights, dtype)
         bf16 = dtype == torch.bfloat16
+        # The streamed decode's last stages (kernel 8, no rounding between
+        # stages) against the one-shot decode's (kernel 7, its output in the
+        # activation dtype, then kernel 2) on the same x.
+        diff = (st.fused_up2_up3_tail(x, *weights).float()
+                - st.fused_seanet_up_tail(st.fused_up2_res(x, *up2), *rest).float())
+        print(f"  {what}: kernel 8 - (kernel 7 then kernel 2): max abs {diff.abs().max().item():.3e}, "
+              f"RMS {diff.pow(2).mean().sqrt().item():.3e}, max |out| {want.float().abs().max().item():.3f}")
         design = f" (SIMT design {SEANET_DESIGN['fused_up2_up3_tail']:.4f} ms)" if bf16 else ""
         blocks_txt = ", ".join(
             f"{n} frames {v:.4f} ms" + (f" (SIMT design {CASCADE_BLOCK_DESIGN[n]:.4f})" if bf16 else "")

@@ -48,9 +48,8 @@ no version, is taken as unmodified):
   (:func:`up_phase_matrices`), a k3 conv as ``[C_out, 3·C_in]``
   (:func:`conv_matrix`), a k1 conv as ``[C_out, C_in]``, and the final k7
   conv as a B operand, one tap a column (:func:`mma_b_fragments`); where a
-  conv reads the
-  kernel's own activations, its K is interleaved as they are
-  (:func:`interleave_k`): res2 and res3 in every kernel, and up3 in the
+  conv reads the kernel's own activations, its K is interleaved as they
+  are (:func:`interleave_k`): res2 and res3 in every kernel, and up3 in the
   cascade, which reads res2's output from shared memory ("up3_mma_il"),
   where kernel 2 reads x from device memory ("up3_mma"). Their float32
   intermediates enter the MMAs as a hi/lo pair of bfloat16
