@@ -367,7 +367,7 @@ def check_seanet(rows: dict) -> None:
             if not up:
                 x = _seanet_x(gen, (3, c_in, 128 * 241), dtype)  # 152-sample blocks: the last one ragged
                 err = _check_one(name, kernel, plain, x, ws, dtype, (3, 1, 128 * 241))
-                print(f"  {name} {dname(dtype)} x={tuple(x.shape)}: max_abs_err {err:.3e}, bit-equal over two calls")
+                print(f"  {name} {dname(dtype)} x={tuple(x.shape)}: max_abs_err {err:.3e}, bit-equal over two calls  [{CARD}]")
             chain_fn = _up_tail_op_chain if up else _tail_op_chain
             for shape in shapes:
                 x = _seanet_x(gen, shape, dtype)
@@ -479,7 +479,7 @@ def check_up2(rows: dict) -> None:
             x8, weights, dtype, (8, 1, 20 * 96 * 4),
         )
         print(f"  fused_up2_up3_tail_stream {dname(dtype)} x={tuple(x8.shape)} starts {start8.tolist()}: "
-              f"max_abs_err {err8:.3e}, bit-equal over two calls")
+              f"max_abs_err {err8:.3e}, bit-equal over two calls  [{CARD}]")
         halo = torch.zeros((1, 256, st.HALO), dtype=dtype, device="cuda")
         start = torch.zeros((1,), dtype=torch.int32, device="cuda")
         blocks = []
@@ -507,7 +507,7 @@ def check_up2(rows: dict) -> None:
         diff = (st.fused_up2_up3_tail(x, *weights).float()
                 - st.fused_seanet_up_tail(st.fused_up2_res(x, *up2), *rest).float())
         print(f"  {what}: kernel 8 - (kernel 7 then kernel 2): max abs {diff.abs().max().item():.3e}, "
-              f"RMS {diff.pow(2).mean().sqrt().item():.3e}, max |out| {want.float().abs().max().item():.3f}")
+              f"RMS {diff.pow(2).mean().sqrt().item():.3e}, max |out| {want.float().abs().max().item():.3f}  [{CARD}]")
         design = f" (SIMT design {SEANET_DESIGN['fused_up2_up3_tail']:.4f} ms)" if bf16 else ""
         blocks_txt = ", ".join(
             f"{n} frames {v:.4f} ms" + (f" (SIMT design {CASCADE_BLOCK_DESIGN[n]:.4f})" if bf16 else "")
