@@ -48,7 +48,28 @@ failure exits non-zero:
    over three chunks; then ``generate_audio`` with a synthetic voice
    embedding and with a synthetic voice model state;
 10. float32 streaming: the streamed PCM against ``generate_audio`` for the
-   same seed, and the streamed path's kernels against their plain versions.
+   same seed, and the streamed path's kernels against their plain versions;
+   then, on the same request, the one-shot path's kernels against its plain
+   versions, the two plain paths against each other, and the streamed PCM
+   truncated to int16 (as ``generate_audio`` truncates it), kernels
+   against plain versions;
+11. the entry points (after the path re-timing below, so that its launches
+   stay out of the kernel table's totals): the seeded checkpoint written
+   as safetensors and a synthetic SentencePiece tokenizer under the
+   git-ignored ``build/phase11/``; ``Service.from_config`` (bfloat16,
+   ``batch_slots=1``) synthesizes a three-chunk text through the pipelined
+   ``generate_audio_async`` route, held at temperature 0 against
+   ``GPURuntime.generate_audio`` on the same chunks' token ids; the port's
+   HTTP server over that service streams three texts (``POST
+   /tts/stream``, frame streaming), printing the time to the first PCM
+   byte and x real time, and answers ``GET /health`` and ``/stats``; the
+   server over the batcher service at ``apply_serving_autotune``'s
+   settings (8 slots, int8 weights and KV cache, burst blocks) answers 8
+   ``POST /tts`` sent at once, each WAV checked (24 kHz mono, frames x
+   1920 samples), printing the aggregate x real time; the phase's
+   launches must include kernels 1, 2, 4 (int8), 5, 7 and 8; last, ``python
+   -m go_pocket_tts_tpu_torch synth`` runs as a subprocess on the card and
+   must write a valid WAV.
 
 Phase 2 also holds the SEANet kernels (bf16 on tensor cores) against
 their plain versions at 160 frames, bit-equal over two calls: kernels 2
@@ -873,16 +894,16 @@ def check_audio(audio: np.ndarray, frames: int, what: str, bounded: bool = True)
         fail(f"{what}: silent audio")
 
 
-def read_launches(phase: str, must, counts: dict) -> None:
+def read_launches(phase: str, must, counts: dict, path_shapes: bool = True) -> None:
     """Read every launch count after a path's run (they were set to 0 just
     before it), fail if a kernel the path runs was not launched, and add the
-    counts to the totals of the kernel table (and the SEANet kernels' counts
-    by input shape to PATH_SHAPES)."""
+    counts to ``counts`` (and, with ``path_shapes``, the SEANet kernels'
+    counts by input shape to PATH_SHAPES)."""
     from go_pocket_tts_tpu_torch import kernels
 
     launches = {fn.__name__: fn.launches for fn in kernels.WRAPPERS}
     print(f"  launches in {phase}: {launches}")
-    for fn in kernels.WRAPPERS:
+    for fn in kernels.WRAPPERS if path_shapes else ():
         for shape, n in getattr(fn, "shapes", {}).items():
             PATH_SHAPES[(fn.__name__, shape)] = PATH_SHAPES.get((fn.__name__, shape), 0) + n
     for name in must:
@@ -1035,7 +1056,7 @@ def plain_versions():
 
 def rms_check(a: np.ndarray, b: np.ndarray, what: str) -> None:
     rms = float(np.sqrt(np.mean((a.astype(np.float64) - b) ** 2)))
-    print(f"  {what}: RMS {rms:.3e} (tolerance {PATH_RMS_TOL})")
+    print(f"  {what}: RMS {rms:.3e} (tolerance {PATH_RMS_TOL})  [{CARD}]")
     if not rms < PATH_RMS_TOL:
         fail(f"{what}: RMS {rms} beyond {PATH_RMS_TOL}")
 
@@ -1323,9 +1344,316 @@ def f32_streaming(model32, arch) -> None:
     undo = plain_versions()
     try:
         plain = np.concatenate(list(stream_generate(GPURuntime(model32, dtype=torch.float32, seed=SEED), tokens, cfg)))
+        whole_plain = GPURuntime(model32, dtype=torch.float32, seed=SEED).generate_audio(tokens, cfg)
     finally:
         undo()
     rms_check(streamed, plain, "f32 real_arch, 40 frames, streamed, kernels - plain")
+    # Where the one-shot path's kernels-vs-plain RMS (phase 4) stands 40x
+    # above the streamed one: each path against its own plain versions, the
+    # two plain paths against each other, and the streamed PCM truncated to
+    # int16 as generate_audio truncates it.
+    rms_check(whole, whole_plain, "f32 real_arch, 40 frames, one-shot, kernels - plain")
+    rms_check(np.clip(plain, -1.0, 1.0), whole_plain, "f32 real_arch, 40 frames, plain versions, streamed - one-shot")
+
+    def as_int16(pcm):
+        return (np.clip(pcm, -1.0, 1.0) * np.float32(32767.0)).astype(np.int16).astype(np.float32) / 32767.0
+
+    rms_check(as_int16(streamed), as_int16(plain), "f32 real_arch, 40 frames, streamed truncated to int16, kernels - plain")
+    print(f"  f32 streamed, kernels - plain: max abs {np.abs(streamed - plain).max():.3e}  [{CARD}]")
+
+
+# -- phase 11: the entry points ------------------------------------------------
+
+# Texts for the fixture tokenizer: the three sentences of the single
+# service's request (31, 25 and 27 tokens: three chunks), the streamed
+# requests (12, 24 and 44 tokens, the lengths of phase 3's) and eight
+# requests of one chunk each for the batcher.
+SERVICE_TEXT = (
+    "The quick brown fox jumps over the sleepy dog. Hello world, the brown fox sings a song. "
+    "The quick fox walks home to the brown den."
+)
+STREAM_TEXTS = (
+    "Hello world, the quick fox.",
+    "Hello world, the quick brown fox jumps high.",
+    "The quick brown fox jumps over the lazy dog near the old mill.",
+)
+BATCH_TEXTS = (
+    "Hello world, the quick fox.",
+    "Hello world and the brown fox.",
+    "The quick brown fox jumps over the sleepy dog.",
+    "The brown fox and the quick hound run to the world and back again.",
+    "Hello, the quick brown fox jumps over the lazy dog by the river.",
+    "Hello world, the brown fox sings a song.",
+    "The quick fox walks home to the brown den.",
+    "Hello world, the quick brown fox jumps high.",
+)
+
+
+def write_fixture_tokenizer(path: str) -> None:
+    """The synthetic SentencePiece tokenizer: seven word pieces and the
+    lower-case letters (35 pieces, far below the model's 4001 ids)."""
+    from go_pocket_tts_tpu_torch.text.sentencepiece import SentencePieceModel
+
+    sp = SentencePieceModel()
+    pieces = [("<unk>", 0.0, 2)] + [(w, -1.0, 1) for w in "▁hello ▁world ▁the ▁quick ▁brown ▁fox .".split()]
+    pieces += [(c, -6.0, 1) for c in "abcdefghijklmnopqrstuvwxyz▁"]
+    for piece, score, kind in pieces:
+        sp.pieces.append(piece)
+        sp.scores.append(score)
+        sp.types.append(kind)
+    with open(path, "wb") as f:
+        f.write(sp.serialize())
+
+
+def entry_fixtures(root: str):
+    """The phase-3 seeded checkpoint written as safetensors and the
+    synthetic tokenizer, both under the git-ignored ``build/phase11/``;
+    returns their paths."""
+    from go_pocket_tts_tpu_torch.utils.safetensors import write_file
+
+    out = os.path.join(root, "build", "phase11")
+    os.makedirs(out, exist_ok=True)
+    model_path = os.path.join(out, "model.safetensors")
+    tok_path = os.path.join(out, "tokenizer.model")
+    _arch, tensors = checkpoint()
+    write_file(model_path, tensors)
+    write_fixture_tokenizer(tok_path)
+    return model_path, tok_path
+
+
+def entry_config(model_path: str, tok_path: str, batch_slots: int, temperature: float):
+    """The config's defaults (the card), then the fields a deployment sets:
+    bfloat16, a seed, and EOS disabled, so each chunk runs its whole
+    ``estimate_max_frames`` budget."""
+    from go_pocket_tts_tpu_torch.config import Config
+
+    cfg = Config()
+    cfg.paths.model_path, cfg.paths.tokenizer_model = model_path, tok_path
+    cfg.runtime.dtype, cfg.runtime.seed, cfg.runtime.batch_slots = "bfloat16", SEED, batch_slots
+    cfg.tts.temperature, cfg.tts.eos_threshold = temperature, 1e9
+    return cfg
+
+
+def chunk_frames(tokenizer, text: str):
+    """(token ids, frames) of each chunk the service cuts ``text`` into."""
+    from go_pocket_tts_tpu_torch.text import estimate_max_frames, prepare_chunks
+    from go_pocket_tts_tpu_torch.tts.service import MAX_TOKENS_PER_CHUNK
+
+    return [(c.token_ids, estimate_max_frames(c.num_tokens)) for c in prepare_chunks(text, tokenizer, MAX_TOKENS_PER_CHUNK)]
+
+
+def _post(url: str, text: str, timeout: float = 300.0) -> bytes:
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps({"text": text}).encode(), method="POST")
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        if resp.status != 200:
+            fail(f"POST {url}: status {resp.status}")
+        return resp.read()
+
+
+def _get_json(url: str) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=60) as resp:
+        if resp.status != 200:
+            fail(f"GET {url}: status {resp.status}")
+        return json.loads(resp.read())
+
+
+def check_wav(body: bytes, frames: int, what: str) -> None:
+    from go_pocket_tts_tpu_torch.utils.wav import decode_wav
+
+    pcm, rate = decode_wav(body)
+    channels = int.from_bytes(body[22:24], "little")
+    if rate != 24000 or channels != 1 or pcm.shape != (frames * 1920,) or not np.abs(pcm).max() > 0:
+        fail(f"{what}: {rate} Hz, {channels} channels, {pcm.shape[0]} samples, want 24000 Hz mono {frames * 1920}")
+
+
+def serve_batcher(model_path: str, tok_path: str) -> None:
+    """Eight POST /tts at once to the port's server over the batcher service
+    at the serving autotune (int8 weights, int8 KV cache, burst blocks)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from go_pocket_tts_tpu_torch.config import apply_serving_autotune
+    from go_pocket_tts_tpu_torch.server import Server
+    from go_pocket_tts_tpu_torch.tts.service import Service
+
+    cfg = entry_config(model_path, tok_path, batch_slots=8, temperature=0.7)
+    print(f"  batcher service: autotune {apply_serving_autotune(cfg)}")
+    svc = Service.from_config(cfg)
+    srv = Server(svc, None, listen_addr="127.0.0.1:0", workers=max(cfg.server.workers, 8), request_timeout=300)
+    srv.start()
+    try:
+        url = f"http://127.0.0.1:{srv.port}"
+        frames = [chunk_frames(svc.tokenizer, text) for text in BATCH_TEXTS]
+        if any(len(f) != 1 for f in frames):
+            fail(f"batcher texts: chunks {[len(f) for f in frames]}, want one each")
+        _post(f"{url}/tts", BATCH_TEXTS[0])  # warm-up
+        with ThreadPoolExecutor(max_workers=len(BATCH_TEXTS)) as pool:
+            t = time.perf_counter()
+            bodies = list(pool.map(lambda text: _post(f"{url}/tts", text), BATCH_TEXTS))
+            wall = time.perf_counter() - t
+        secs = 0.0
+        for i, (body, f) in enumerate(zip(bodies, frames)):
+            check_wav(body, f[0][1], f"batcher POST /tts request {i}")
+            secs += f[0][1] * 1920 / 24000
+        stats = _get_json(f"{url}/stats")
+        if stats["requests_total"] != len(BATCH_TEXTS) + 1 or stats["ok_total"] != len(BATCH_TEXTS) + 1:
+            fail(f"batcher server /stats: {stats}")
+        print(
+            f"  batcher service, POST /tts x{len(bodies)} at once ({[f[0][1] for f in frames]} frames): {secs:.2f} s "
+            f"of audio in {wall * 1e3:.1f} ms wall: x{secs / wall:.2f} real time aggregate  [{CARD}]"
+        )
+    finally:
+        srv.shutdown()
+        svc.close()
+
+
+def stream_over_http(url: str, text: str, frames: int, what: str) -> None:
+    """POST /tts/stream: time to the first PCM byte after the 44-byte WAV
+    header, the PCM length, and the x real time of the whole response."""
+    import http.client
+
+    from go_pocket_tts_tpu_torch.utils.wav import streaming_wav_header
+
+    host, port = url.rsplit("/", 1)[-1].split(":")
+    conn = http.client.HTTPConnection(host, int(port), timeout=300)
+    try:
+        t = time.perf_counter()
+        conn.request("POST", "/tts/stream", body=json.dumps({"text": text}), headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        if resp.status != 200:
+            fail(f"{what}: status {resp.status}")
+        header = resp.read(44)
+        if header != streaming_wav_header():
+            fail(f"{what}: not the streaming WAV header")
+        first = resp.read1(1 << 16)
+        ttfb = time.perf_counter() - t
+        pcm = first + resp.read()
+        wall = time.perf_counter() - t
+    finally:
+        conn.close()
+    if len(pcm) != frames * 1920 * 2:
+        fail(f"{what}: {len(pcm) // 2} samples, want {frames * 1920}")
+    secs = frames * 1920 / 24000
+    print(
+        f"  {what}: {frames} frames, first PCM byte after the header {ttfb * 1e3:.1f} ms, wall "
+        f"{wall * 1e3:.1f} ms  x{secs / wall:.2f} real time  [{CARD}]"
+    )
+
+
+def single_service(model, model_path: str, tok_path: str) -> None:
+    """``Service.synthesize`` of three chunks (the pipelined
+    ``generate_audio_async`` route) against ``GPURuntime.generate_audio`` on
+    the same chunks at temperature 0; then the port's server over that
+    service: POST /tts/stream of three texts (frame streaming, kernel 8),
+    GET /health and /stats."""
+    from go_pocket_tts_tpu_torch.runtime import GenerateConfig, GPURuntime
+    from go_pocket_tts_tpu_torch.server import Server
+    from go_pocket_tts_tpu_torch.tts.service import Service
+
+    svc = Service.from_config(entry_config(model_path, tok_path, batch_slots=1, temperature=0.0))
+    if not isinstance(svc.runtime, GPURuntime) or svc.runtime.dtype != torch.bfloat16:
+        fail(f"single service: runtime {type(svc.runtime).__name__}")
+    chunks = chunk_frames(svc.tokenizer, SERVICE_TEXT)
+    if len(chunks) != 3:
+        fail(f"single service text: {len(chunks)} chunks, want 3")
+    svc.synthesize(STREAM_TEXTS[0])  # warm-up
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    audio = svc.synthesize(SERVICE_TEXT)
+    wall = time.perf_counter() - t
+    frames = sum(f for _, f in chunks)
+    check_audio(audio, frames, "Service.synthesize")
+    rt = GPURuntime(model, dtype=torch.bfloat16, seed=SEED, device="cuda")
+    want = np.concatenate(
+        [rt.generate_audio(ids, GenerateConfig(temperature=0.0, eos_threshold=1e9, max_steps=f)) for ids, f in chunks]
+    )
+    print(
+        f"  Service.synthesize, 3 chunks ({[f for _, f in chunks]} frames) in {wall * 1e3:.1f} ms  "
+        f"x{len(audio) / 24000 / wall:.2f} real time; max abs difference to GPURuntime.generate_audio "
+        f"{np.abs(audio - want).max():.3e}  [{CARD}]"
+    )
+    rms_check(audio, want, "bf16 real_arch, Service.synthesize - GPURuntime.generate_audio, temperature 0")
+
+    srv = Server(svc, None, listen_addr="127.0.0.1:0", request_timeout=300)
+    srv.start()
+    try:
+        url = f"http://127.0.0.1:{srv.port}"
+        for i, text in enumerate(STREAM_TEXTS):
+            (_ids, f), = chunk_frames(svc.tokenizer, text)
+            stream_over_http(url, text, f, f"single service, POST /tts/stream request {i}")
+        health = _get_json(f"{url}/health")
+        stats = _get_json(f"{url}/stats")
+        if health.get("status") != "ok" or stats["requests_total"] != len(STREAM_TEXTS):
+            fail(f"single server: /health {health}, /stats {stats}")
+        print(f"  GET /health {health}; GET /stats requests_total {stats['requests_total']}  [{CARD}]")
+    finally:
+        srv.shutdown()
+        svc.close()
+
+
+def cli_synth(root: str, model_path: str, tok_path: str) -> None:
+    """``python -m go_pocket_tts_tpu_torch synth`` as a subprocess on the card."""
+    out = os.path.join(root, "build", "phase11.wav")
+    if os.path.exists(out):
+        os.remove(out)
+    env = {
+        **os.environ,
+        "PYTHONPATH": root,
+        "POCKETTTS_PATHS_MODEL_PATH": model_path,
+        "POCKETTTS_PATHS_TOKENIZER_MODEL": tok_path,
+        "POCKETTTS_RUNTIME_DTYPE": "bfloat16",
+        "POCKETTTS_RUNTIME_SEED": str(SEED),
+        "POCKETTTS_EOS_THRESHOLD": "1e9",
+    }
+    env.pop("POCKETTTS_PLATFORM", None)
+    text = STREAM_TEXTS[0]
+    cmd = [sys.executable, "-m", "go_pocket_tts_tpu_torch", "synth", "--text", text, "--out", out]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t
+    if proc.returncode != 0:
+        fail(f"CLI synth exited {proc.returncode}: {proc.stderr[-2000:]}")
+    from go_pocket_tts_tpu_torch.text.sentencepiece import load_tokenizer
+
+    (_ids, frames), = chunk_frames(load_tokenizer(tok_path), text)
+    with open(out, "rb") as f:
+        check_wav(f.read(), frames, "CLI synth")
+    print(
+        f"  CLI synth subprocess: {frames} frames to {os.path.relpath(out, root)} in {wall:.1f} s wall "
+        f"(interpreter start, model load, kernel libraries from _build/)  [{CARD}]"
+    )
+
+
+def entry_points(model, root: str) -> None:
+    """Phase 11. Its launches are read into a dict of their own: the kernel
+    table's totals stay those of phases 3, 5, 7 and 9."""
+    from go_pocket_tts_tpu_torch import kernels
+
+    t = time.perf_counter()
+    model_path, tok_path = entry_fixtures(root)
+    print(f"  fixtures written in {time.perf_counter() - t:.1f} s  [{CARD}]")
+    counts: dict = {}
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    single_service(model, model_path, tok_path)
+    serve_batcher(model_path, tok_path)
+    read_launches(
+        "the entry points (Service, HTTP server)",
+        (
+            "decode_attention_step",
+            "fused_seanet_up_tail",
+            "batched_decode_attention_int8",
+            "quantized_matmul",
+            "fused_up2_res",
+            "fused_up2_up3_tail",
+        ),
+        counts,
+        path_shapes=False,
+    )
+    cli_synth(root, model_path, tok_path)
 
 
 def main() -> int:
@@ -1403,6 +1731,11 @@ def main() -> int:
 
     print("the SEANet kernels' device time on the paths of phases 3, 5, 7 and 9 (bfloat16)")
     path_device_times(rows)
+
+    print("phase 11: the entry points: Service, HTTP server and CLI (real_arch, bfloat16)")
+    t = time.perf_counter()
+    entry_points(model, root)
+    print(f"  phase 11 took {time.perf_counter() - t:.1f} s  [{CARD}]")
 
     for name, row in rows.items():
         row["launches"] = counts.get(name, 0)

@@ -57,9 +57,9 @@ from go_pocket_tts_tpu_torch.runtime.generate import (
     HostCopy,
     _full_f32,
     decode_pcm16,
-    estimate_max_frames,
     quantized_model,
 )
+from go_pocket_tts_tpu_torch.text.prepare import estimate_max_frames
 from go_pocket_tts_tpu_torch.utils import buckets as bk
 
 log = logging.getLogger("pockettts.torch.batching")

@@ -49,6 +49,7 @@ from go_pocket_tts_tpu_torch.models import flow_lm as flm
 from go_pocket_tts_tpu_torch.models import flow_transformer as ftr
 from go_pocket_tts_tpu_torch.models.model import PocketTTSModel
 from go_pocket_tts_tpu_torch.models.quantize import quantize_model_params
+from go_pocket_tts_tpu_torch.text.prepare import estimate_max_frames
 from go_pocket_tts_tpu_torch.utils import buckets as bk
 from go_pocket_tts_tpu_torch.utils.safetensors import VoiceModelState
 
@@ -63,18 +64,6 @@ __all__ = [
     "estimate_max_frames",
     "quantized_model",
 ]
-
-DEFAULT_MIMI_FRAME_RATE = 12.5
-
-
-def estimate_max_frames(token_count: int, frame_rate: float = DEFAULT_MIMI_FRAME_RATE) -> int:
-    """Frame budget for a chunk of ``token_count`` tokens (a copy of the
-    reference's ``text.prepare.estimate_max_frames``)."""
-    token_count = max(token_count, 0)
-    if not (frame_rate > 0) or math.isinf(frame_rate):
-        frame_rate = DEFAULT_MIMI_FRAME_RATE
-    return int(math.ceil((token_count / 3.0 + 2.0) * frame_rate))
-
 
 @dataclass
 class ContinuationState:
@@ -398,31 +387,58 @@ class GPURuntime:
         cache = self._prefill(ids, len(tok_np), capacity, voice_cache, voice_emb)
         return cache, max_steps, decode_steps, frame_bucket, len(tok_np)
 
-    def _pcm(self, frames, n_frames, max_steps: int, frame_bucket: int) -> np.ndarray:
-        pcm = self._decode_pcm16(frames, n_frames, min(bk.round_up(max_steps, 32), frame_bucket))
-        n = int(n_frames[0])
+    def _pcm(self, frames, n_frames, max_steps: int, frame_bucket: int) -> Callable[[], np.ndarray]:
+        """Enqueue the decode and the int16 PCM's copy into pinned host
+        memory, without blocking; the returned resolver waits for the copy
+        and trims lane 0 to its frames (float32 PCM)."""
+        pcm = HostCopy(self._decode_pcm16(frames, n_frames, min(bk.round_up(max_steps, 32), frame_bucket))[0, 0])
+        n = HostCopy(n_frames[:1])
         samples_per = self.model.config.mimi.samples_per_latent
-        return pcm[0, 0, : n * samples_per].cpu().numpy().astype(np.float32) / 32767.0
+
+        def resolve() -> np.ndarray:
+            return pcm.numpy()[: int(n.numpy()[0]) * samples_per].astype(np.float32) / 32767.0
+
+        return resolve
 
     # -- entry points ------------------------------------------------------
 
     def generate_audio(self, tokens, cfg: GenerateConfig) -> np.ndarray:
         """Synthesize one chunk of token ids → float32 PCM at 24 kHz."""
+        return self.generate_audio_async(tokens, cfg)()
+
+    def generate_audio_async(self, tokens, cfg: GenerateConfig) -> Callable[[], np.ndarray]:
+        """Dispatch one chunk and return a zero-argument resolver of its
+        float32 PCM (the counterpart of ``TPURuntime.generate_audio_async``).
+
+        Prefill, AR loop and decode are enqueued, and the PCM's copy into
+        pinned host memory is enqueued behind them without blocking; the
+        resolver waits for that copy. A caller can so dispatch chunk k+1
+        before it resolves chunk k (``Service``'s one-deep pipeline). The
+        AR loop still reads ``done`` every ``SYNC_EVERY`` steps, so this
+        returns once the last of those reads has come back, with up to
+        ``SYNC_EVERY`` steps and the decode still in flight.
+        """
         t0 = time.perf_counter()
         with self._compute():
             cache, max_steps, decode_steps, frame_bucket, n_tokens = self._setup(tokens, cfg)
             frames, n_frames, _ = self._ar_loop(cache, cfg, max_steps, decode_steps, frame_bucket)
-            audio = self._pcm(frames, n_frames, max_steps, frame_bucket)
-        n = len(audio) // self.model.config.mimi.samples_per_latent
-        if cfg.step_callback is not None:
-            cfg.step_callback(n, max_steps)
-        log.debug(
-            "generation complete: tokens=%d frames=%d total=%.1fms",
-            n_tokens,
-            n,
-            (time.perf_counter() - t0) * 1e3,
-        )
-        return audio
+            pcm = self._pcm(frames, n_frames, max_steps, frame_bucket)
+        samples_per = self.model.config.mimi.samples_per_latent
+
+        def resolve() -> np.ndarray:
+            audio = pcm()
+            n = len(audio) // samples_per
+            if cfg.step_callback is not None:
+                cfg.step_callback(n, max_steps)
+            log.debug(
+                "generation complete: tokens=%d frames=%d total=%.1fms",
+                n_tokens,
+                n,
+                (time.perf_counter() - t0) * 1e3,
+            )
+            return audio
+
+        return resolve
 
     # Cache size ceiling of a continuity session: a session that fills it
     # resets rather than run past the context the model was trained at.
@@ -506,7 +522,7 @@ class GPURuntime:
                 tokens, cfg, cont
             )
             frames, n_frames, carry = self._ar_loop(cache, cfg, max_steps, decode_steps, frame_bucket)
-            audio = self._pcm(frames, n_frames, max_steps, frame_bucket)
+            audio = self._pcm(frames, n_frames, max_steps, frame_bucket)()
         n = len(audio) // self.model.config.mimi.samples_per_latent
         if cfg.step_callback is not None:
             cfg.step_callback(n, max_steps)

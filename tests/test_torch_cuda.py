@@ -967,3 +967,49 @@ def test_stream_decoder_on_card_matches_plain(card, monkeypatch):
     plain = stream()
     _close(got, plain, torch.float32)
     _close(got, whole, torch.float32)
+
+
+def test_service_on_card_matches_the_runtime(card, tmp_path):
+    """The port's ``Service.from_config`` on the card, bf16, EOS off, on
+    ``tiny_arch()`` with the published head width (64) and a SEANet at the
+    kernels' widths: ``synthesize`` of three chunks (the pipelined
+    ``generate_audio_async`` route) equals ``GPURuntime.generate_audio`` on
+    the same chunks' ids, and the frame-streamed ``synthesize_stream``
+    equals ``stream_generate`` on them, within chip_smoke.PATH_RMS_TOL;
+    kernels 1, 7, 2 and 8 launch."""
+    import chip_smoke
+    from go_pocket_tts_tpu_torch.config import Config
+    from go_pocket_tts_tpu_torch.models.model import load_model
+    from go_pocket_tts_tpu_torch.runtime import stream_generate
+    from go_pocket_tts_tpu_torch.text import prepare_chunks
+    from go_pocket_tts_tpu_torch.tts.service import MAX_TOKENS_PER_CHUNK, Service
+    from go_pocket_tts_tpu_torch.utils.safetensors import write_file
+
+    arch = dataclasses.replace(synthetic.tiny_arch(), d_model=1024, num_heads=16, seanet_channels=(32, 256, 128, 64))
+    cfg = Config()
+    cfg.paths.model_path, cfg.paths.tokenizer_model = str(tmp_path / "model.safetensors"), str(tmp_path / "tok.model")
+    write_file(cfg.paths.model_path, synthetic.build_checkpoint(arch, seed=5))
+    chip_smoke.write_fixture_tokenizer(cfg.paths.tokenizer_model)
+    cfg.runtime.dtype, cfg.runtime.seed = "bfloat16", 1
+    cfg.tts.temperature, cfg.tts.eos_threshold = 0.0, 1e9
+    svc = Service.from_config(cfg)
+    assert svc.runtime.device.type == "cuda" and svc.runtime.dtype == torch.bfloat16
+    chunks = prepare_chunks(chip_smoke.SERVICE_TEXT, svc.tokenizer, MAX_TOKENS_PER_CHUNK)
+    assert len(chunks) == 3
+    kernels.reset_launches()
+    audio = svc.synthesize(chip_smoke.SERVICE_TEXT)
+    streamed = np.concatenate([c.samples for c in svc.synthesize_stream(chip_smoke.SERVICE_TEXT, frame_streaming=True)])
+    launched = (da.decode_attention_step, st.fused_up2_res, st.fused_seanet_up_tail, st.fused_up2_up3_tail)
+    assert all(fn.launches > 0 for fn in launched), [fn.launches for fn in launched]
+
+    rt = GPURuntime(load_model(cfg.paths.model_path, device=card), dtype=torch.bfloat16, seed=1, device=card)
+    gen_cfgs = [GenerateConfig(temperature=0.0, eos_threshold=1e9, max_steps=c.max_frames()) for c in chunks]
+    want = np.concatenate([rt.generate_audio(c.token_ids, g) for c, g in zip(chunks, gen_cfgs)])
+    want_streamed = np.concatenate(
+        [b for c, g in zip(chunks, gen_cfgs) for b in stream_generate(rt, c.token_ids, g)]
+    )
+    assert audio.shape == want.shape == (sum(c.max_frames() for c in chunks) * 1920,)
+    assert streamed.shape == want_streamed.shape == audio.shape
+    for got, ref in ((audio, want), (streamed, want_streamed)):
+        assert np.isfinite(got).all()
+        assert np.sqrt(np.mean((got.astype(np.float64) - ref) ** 2)) < chip_smoke.PATH_RMS_TOL

@@ -134,6 +134,56 @@ print("NO-JAX-STREAM-OK")
 """
 
 
+_ENTRY_SCRIPT = _SCRIPT[: _SCRIPT.index("import numpy as np")] + r"""
+import importlib, io, json, os, pkgutil, tempfile, urllib.request
+from contextlib import redirect_stdout
+import go_pocket_tts_tpu_torch as pkg
+
+for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    if mod.name != "go_pocket_tts_tpu_torch.__main__":
+        importlib.import_module(mod.name)
+from go_pocket_tts_tpu_torch.cli.main import main
+from go_pocket_tts_tpu_torch.config import Config
+from go_pocket_tts_tpu_torch.models import synthetic
+from go_pocket_tts_tpu_torch.server import Server
+from go_pocket_tts_tpu_torch.text.sentencepiece import SentencePieceModel
+from go_pocket_tts_tpu_torch.tts.service import Service
+from go_pocket_tts_tpu_torch.utils.safetensors import write_file
+from go_pocket_tts_tpu_torch.utils.wav import decode_wav
+
+with tempfile.TemporaryDirectory() as tmp:
+    model_path, tok_path = os.path.join(tmp, "model.safetensors"), os.path.join(tmp, "tokenizer.model")
+    write_file(model_path, synthetic.build_checkpoint(synthetic.tiny_arch(), seed=4))
+    sp = SentencePieceModel()
+    for piece in ["<unk>"] + list("abcdefghijklmnopqrstuvwxyz▁"):
+        sp.pieces.append(piece); sp.scores.append(-1.0); sp.types.append(2 if piece == "<unk>" else 1)
+    open(tok_path, "wb").write(sp.serialize())
+    cfg = Config()
+    cfg.paths.model_path, cfg.paths.tokenizer_model, cfg.runtime.device = model_path, tok_path, "cpu"
+    cfg.tts.eos_threshold, cfg.tts.max_steps = 1e9, 3
+    svc = Service.from_config(cfg)
+    assert svc.synthesize("hello world").shape == (3 * 1920,)
+    srv = Server(svc, listen_addr="127.0.0.1:0")
+    srv.start()
+    try:
+        base = f"http://127.0.0.1:{srv.port}"
+        for path in ("/tts", "/tts/stream"):
+            req = urllib.request.Request(base + path, data=json.dumps({"text": "hello"}).encode(), method="POST")
+            with urllib.request.urlopen(req, timeout=60) as r:
+                assert decode_wav(r.read())[0].shape == (3 * 1920,), path
+        assert json.loads(urllib.request.urlopen(base + "/health", timeout=10).read())["status"] == "ok"
+    finally:
+        srv.shutdown()
+    os.environ.update(POCKETTTS_PLATFORM="cpu", POCKETTTS_PATHS_MODEL_PATH=model_path,
+                      POCKETTTS_PATHS_TOKENIZER_MODEL=tok_path, POCKETTTS_MAX_STEPS="2")
+    out = os.path.join(tmp, "out.wav")
+    assert main(["synth", "--text", "hello", "--out", out]) == 0
+    assert decode_wav(open(out, "rb").read())[0].shape == (2 * 1920,)
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "go_pocket_tts_tpu") for m in sys.modules)
+print("NO-JAX-ENTRY-OK")
+"""
+
+
 def _run_blocked(script: str) -> str:
     proc = subprocess.run(
         [sys.executable, "-c", script],
@@ -164,6 +214,13 @@ def test_port_streams_runs_sessions_and_takes_a_voice_with_jax_blocked():
     assert "NO-JAX-STREAM-OK" in _run_blocked(_STREAM_SCRIPT)
 
 
+def test_port_serves_text_with_jax_blocked():
+    """Every module of the port imports, and ``Service``, the HTTP server
+    and the CLI's ``synth`` run on the CPU, with jax and the JAX package
+    unimportable."""
+    assert "NO-JAX-ENTRY-OK" in _run_blocked(_ENTRY_SCRIPT)
+
+
 PORT_FILES = sorted(str(p.relative_to(ROOT)) for p in (ROOT / "go_pocket_tts_tpu_torch").rglob("*.py"))
 
 
@@ -190,7 +247,8 @@ def test_no_jax_imports(path):
 
 def test_scan_covers_every_port_package():
     packages = {Path(p).parts[1] for p in PORT_FILES if len(Path(p).parts) > 2}
-    assert {"kernels", "model_assets", "models", "ops", "parallel", "runtime", "utils"} <= packages
+    assert {"cli", "kernels", "model_assets", "models", "ops", "parallel", "runtime", "server", "text", "tts",
+            "utils"} <= packages
     assert "go_pocket_tts_tpu_torch/parallel/batching.py" in PORT_FILES
 
 
@@ -205,6 +263,9 @@ def test_default_device_is_cuda():
         params_from_jax,
     ):
         assert fn.__defaults__ is not None and "cuda" in fn.__defaults__, fn
+    from go_pocket_tts_tpu_torch.config import RuntimeConfig
+
+    assert RuntimeConfig().device == "cuda"
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):

@@ -1,0 +1,310 @@
+"""The port's ``Service`` over ``GPURuntime(device="cpu")`` against the JAX
+package's ``Service`` over ``TPURuntime``, on the same ``tiny_arch()``
+checkpoint and tokenizer, at temperature 0 in float32: every route of
+``synthesize_stream``, the batcher route, voiced requests, cancellation,
+deadlines, the step limit, ``prewarm`` and ``from_config``."""
+
+import contextlib
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from go_pocket_tts_tpu.config import TTSConfig as JTTSConfig
+from go_pocket_tts_tpu.models import synthetic as j_syn
+from go_pocket_tts_tpu.models.model import load_model_from_store
+from go_pocket_tts_tpu.runtime import TPURuntime
+from go_pocket_tts_tpu.text import ChunkMetadata as JChunk
+from go_pocket_tts_tpu.text.sentencepiece import SentencePieceModel, load_tokenizer_from_bytes as j_tokenizer
+from go_pocket_tts_tpu.tts.parity import rms_delta
+from go_pocket_tts_tpu.tts.service import Service as JService
+from go_pocket_tts_tpu.utils.safetensors import encode_tensors, open_store_from_bytes, write_file
+from go_pocket_tts_tpu_torch import config as t_config
+from go_pocket_tts_tpu_torch.models import synthetic
+from go_pocket_tts_tpu_torch.models.model import load_model_from_tensors
+from go_pocket_tts_tpu_torch.parallel import BatcherRuntime
+from go_pocket_tts_tpu_torch.runtime import GPURuntime
+from go_pocket_tts_tpu_torch.text import ChunkMetadata
+from go_pocket_tts_tpu_torch.text.sentencepiece import load_tokenizer_from_bytes as t_tokenizer
+from go_pocket_tts_tpu_torch.tts.service import CancelledError, PCMChunk, Service
+
+ARCH = synthetic.tiny_arch()
+SEED = 21
+RMS_BUDGET = 1e-3  # the waveform parity budget (BASELINE.md)
+STEPS = 6  # frames per chunk: one 4-frame stream block, then 2
+ONE_CHUNK = "Hello world, the quick fox."
+THREE_CHUNKS = (
+    "The quick brown fox jumps over the sleepy dog. Hello world, the brown fox sings a song. "
+    "The quick fox walks home to the brown den."
+)
+
+
+def tokenizer_bytes() -> bytes:
+    """The verify skill's synthetic tokenizer (35 pieces, below n_bins)."""
+    m = SentencePieceModel()
+    pieces = [("<unk>", 0.0, 2)] + [(w, -1.0, 1) for w in "▁hello ▁world ▁the ▁quick ▁brown ▁fox .".split()]
+    for p, s, t in pieces + [(c, -6.0, 1) for c in "abcdefghijklmnopqrstuvwxyz▁"]:
+        m.pieces.append(p)
+        m.scores.append(s)
+        m.types.append(t)
+    return m.serialize()
+
+
+@pytest.fixture(scope="module")
+def models():
+    jm = load_model_from_store(
+        open_store_from_bytes(encode_tensors(j_syn.build_checkpoint(ARCH, seed=SEED))), num_heads=ARCH.num_heads
+    )
+    tm = load_model_from_tensors(synthetic.build_checkpoint(ARCH, seed=SEED), num_heads=ARCH.num_heads, device="cpu")
+    return jm, tm
+
+
+def _tts(mod_cfg, **kw):
+    base = dict(temperature=0.0, eos_threshold=1e9, max_steps=STEPS)
+    base.update(kw)
+    return mod_cfg(**base)
+
+
+@pytest.fixture(scope="module")
+def services(models):
+    jm, tm = models
+    data = tokenizer_bytes()
+    j = JService(TPURuntime(jm, seed=1, frame_bucket=64), j_tokenizer(data), _tts(JTTSConfig))
+    t = Service(GPURuntime(tm, seed=1, frame_bucket=64, device="cpu"), t_tokenizer(data), _tts(t_config.TTSConfig))
+    return j, t
+
+
+def _run(svc, text, **kw):
+    chunks = list(svc.synthesize_stream(text, **kw))
+    layout = [(c.chunk_index, c.final, len(c.samples)) for c in chunks]
+    return layout, np.concatenate([c.samples for c in chunks])
+
+
+ROUTES = {
+    "plain": (ONE_CHUNK, {}),
+    "pipelined": (THREE_CHUNKS, {}),
+    "continuity": (THREE_CHUNKS, {"continuity": True}),
+    "frames": (THREE_CHUNKS, {"frame_streaming": True}),
+    "frames_continuity": (THREE_CHUNKS, {"frame_streaming": True, "continuity": True}),
+}
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_synthesize_stream_routes_match(services, route, monkeypatch):
+    j, t = services
+    text, kw = ROUTES[route]
+    if route == "pipelined":
+        # The pipelined route dispatches through generate_audio_async.
+        calls = []
+        orig = t.runtime.generate_audio_async
+        monkeypatch.setattr(t.runtime, "generate_audio_async", lambda *a: calls.append(1) or orig(*a))
+    want_layout, want = _run(j, text, **kw)
+    got_layout, got = _run(t, text, **kw)
+    assert got_layout == want_layout
+    assert got.dtype == np.float32 and len(got) > 0
+    assert rms_delta(got, want) < RMS_BUDGET
+    n_chunks = 1 if route == "plain" else 3
+    assert got_layout[-1][:2] == (n_chunks - 1, True)
+    if route.startswith("frames"):
+        assert [n for _, _, n in got_layout] == [4 * 1920, 2 * 1920] * 3
+    if route == "pipelined":
+        assert len(calls) == 3
+
+
+def test_synthesize_concatenates_the_stream(services):
+    _, t = services
+    _, streamed = _run(t, THREE_CHUNKS)
+    np.testing.assert_array_equal(t.synthesize(THREE_CHUNKS), streamed)
+    assert len(streamed) == 3 * STEPS * 1920
+
+
+def test_generate_audio_async_resolves_to_generate_audio(models):
+    from go_pocket_tts_tpu_torch.runtime import GenerateConfig
+
+    _, tm = models
+    seen = []
+    cfg = GenerateConfig(temperature=0.7, eos_threshold=1e9, max_steps=5, step_callback=lambda n, m: seen.append((n, m)))
+    a = GPURuntime(tm, seed=3, frame_bucket=64, device="cpu")
+    b = GPURuntime(tm, seed=3, frame_bucket=64, device="cpu")
+    first, second = a.generate_audio_async([3, 5, 7], cfg), a.generate_audio_async([9, 2], cfg)
+    assert seen == []  # the callback fires when the PCM is resolved
+    got_first, got_second = first(), second()
+    assert seen == [(5, 5), (5, 5)]
+    cfg.step_callback = None
+    np.testing.assert_array_equal(got_first, b.generate_audio([3, 5, 7], cfg))
+    np.testing.assert_array_equal(got_second, b.generate_audio([9, 2], cfg))
+
+
+def _voice_files(tmp_path):
+    rng = np.random.RandomState(4)
+    head_dim = ARCH.d_model // ARCH.num_heads
+    emb = tmp_path / "emb.safetensors"
+    write_file(emb, {"audio_prompt": (rng.randn(5, ARCH.d_model) * 0.1).astype(np.float32)})
+    state = tmp_path / "state.safetensors"
+    tensors = {}
+    for i in range(ARCH.num_layers):
+        tensors[f"transformer.layers.{i}.self_attn/cache"] = (
+            rng.randn(2, 1, 6, ARCH.num_heads, head_dim) * 0.2
+        ).astype(np.float32)
+        tensors[f"transformer.layers.{i}.self_attn/offset"] = np.array([6.0], np.float32)
+    write_file(state, tensors)
+    return {"embedding": str(emb), "model_state": str(state)}
+
+
+@pytest.mark.parametrize("voice", ["embedding", "model_state"])
+def test_voiced_request_matches(services, tmp_path, voice):
+    j, t = services
+    path = _voice_files(tmp_path)[voice]
+    want = j.synthesize(ONE_CHUNK, voice_path=path)
+    got = t.synthesize(ONE_CHUNK, voice_path=path)
+    assert len(got) == len(want) == STEPS * 1920
+    assert rms_delta(got, want) < RMS_BUDGET
+    assert rms_delta(got, t.synthesize(ONE_CHUNK)) > 1e-4  # the voice conditions the audio
+
+
+def test_batcher_route_matches(services, models):
+    j, _ = services
+    _, tm = models
+    rt = BatcherRuntime(tm, slots=2, seed=1, prompt_capacity=64, device="cpu")
+    try:
+        svc = Service(rt, t_tokenizer(tokenizer_bytes()), _tts(t_config.TTSConfig))
+        assert isinstance(svc._lock, contextlib.nullcontext)  # the batcher schedules itself
+        got_layout, got = _run(svc, THREE_CHUNKS)
+    finally:
+        rt.close()
+    want_layout, want = _run(j, THREE_CHUNKS)
+    assert got_layout == want_layout
+    assert rms_delta(got, want) < RMS_BUDGET
+    assert not svc.supports_frame_streaming
+
+
+def test_cancel_raises(services):
+    _, t = services
+    with pytest.raises(CancelledError):
+        list(t.synthesize_stream("hello world.", cancel=lambda: True))
+
+
+def _fields(cfg):
+    return (cfg.temperature, cfg.eos_threshold, cfg.max_steps, cfg.estimated_max_steps, cfg.lsd_decode_steps,
+            cfg.frames_after_eos)
+
+
+@pytest.mark.parametrize("max_steps,user_set", [(256, False), (256, True), (0, False), (12, False)])
+def test_step_limit_matches(services, max_steps, user_set):
+    """The estimate wins unless the user set max_steps, even to the
+    default (the reference's tests/test_service.py)."""
+    j, t = services
+    for svc in (j, t):
+        svc.tts_cfg.max_steps, svc.tts_cfg.max_steps_user_set = max_steps, user_set
+    try:
+        for n_tokens, n_words in ((30, 30), (3, 2), (50, 9)):
+            want = j._generate_config(JChunk(text="x", token_ids=[1] * n_tokens, num_tokens=n_tokens, num_words=n_words))
+            got = t._generate_config(ChunkMetadata(text="x", token_ids=[1] * n_tokens, num_tokens=n_tokens, num_words=n_words))
+            assert _fields(got) == _fields(want)
+    finally:
+        for svc in (j, t):
+            svc.tts_cfg.max_steps, svc.tts_cfg.max_steps_user_set = STEPS, False
+    if (max_steps, user_set) == (256, False):
+        assert got.max_steps == 234  # ceil((50/3 + 2) * 12.5), the estimate
+
+
+def test_deadline_clamps_and_cancels(services):
+    _, t = services
+    t.tts_cfg.max_steps = 0
+    try:
+        chunk = ChunkMetadata(text="x", token_ids=[1] * 30, num_tokens=30, num_words=30)
+        assert t._generate_config(chunk).max_steps == 150
+        assert 1 <= t._generate_config(chunk, deadline=time.monotonic() + 2.0).max_steps <= 25
+        with pytest.raises(CancelledError):
+            t._generate_config(chunk, deadline=time.monotonic() - 1.0)
+    finally:
+        t.tts_cfg.max_steps = STEPS
+    with pytest.raises(CancelledError):
+        list(t.synthesize_stream("hello world.", deadline=time.monotonic() - 1.0))
+
+
+def test_estimate_total_frames_matches(services):
+    j, t = services
+    for text in (ONE_CHUNK, THREE_CHUNKS):
+        assert t.estimate_total_frames(text) == j.estimate_total_frames(text) > 0
+
+
+def test_prewarm_and_prewarm_voice(services, tmp_path):
+    _, t = services
+    t.prewarm(token_lengths=(3,))
+    assert t.prewarm_voice(_voice_files(tmp_path)["embedding"], token_lengths=(3,))
+    assert t.prewarm_voice(str(tmp_path / "missing.safetensors")) is False
+    assert isinstance(next(t.synthesize_stream(ONE_CHUNK)), PCMChunk)
+
+
+# -- from_config ----------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def fixture_files(tmp_path_factory):
+    d = tmp_path_factory.mktemp("service_fixtures")
+    write_file(d / "model.safetensors", synthetic.build_checkpoint(ARCH, seed=SEED))
+    (d / "tokenizer.model").write_bytes(tokenizer_bytes())
+    return str(d / "model.safetensors"), str(d / "tokenizer.model")
+
+
+def _config(fixture_files, **runtime):
+    cfg = t_config.Config()
+    cfg.paths.model_path, cfg.paths.tokenizer_model = fixture_files
+    cfg.runtime.device = "cpu"
+    cfg.tts.temperature, cfg.tts.eos_threshold, cfg.tts.max_steps = 0.0, 1e9, 4
+    for k, v in runtime.items():
+        setattr(cfg.runtime, k, v)
+    return cfg
+
+
+@pytest.mark.parametrize("batch_slots", [0, 2])
+def test_from_config_builds_the_runtime_on_the_configured_device(fixture_files, batch_slots):
+    svc = Service.from_config(_config(fixture_files, batch_slots=batch_slots, seed=3))
+    try:
+        want = BatcherRuntime if batch_slots > 1 else GPURuntime
+        assert isinstance(svc.runtime, want)
+        audio = svc.synthesize(ONE_CHUNK)
+    finally:
+        svc.close()
+    assert audio.shape == (4 * 1920,) and np.isfinite(audio).all()
+
+
+@pytest.mark.parametrize(
+    "runtime,match",
+    [
+        ({"kv_quantize": True}, "requires the batched runtime"),
+        ({"tp_devices": 2, "batch_slots": 4}, "not yet ported"),
+        ({"dp_devices": 2}, "not yet ported"),
+        ({"pallas": "off"}, "no counterpart"),
+        ({"pallas": "sometimes"}, "must be auto or on"),
+    ],
+)
+def test_from_config_refusals(fixture_files, runtime, match):
+    with pytest.raises(ValueError, match=match):
+        Service.from_config(_config(fixture_files, **runtime))
+
+
+@pytest.mark.parametrize("backend", ["torch", "cli", "tpu"])
+def test_from_config_refuses_unported_backends(fixture_files, backend):
+    cfg = _config(fixture_files)
+    cfg.tts.backend = backend
+    with pytest.raises(ValueError, match="not yet ported" if backend != "tpu" else "unsupported backend"):
+        Service.from_config(cfg)
+
+
+def test_from_config_raises_without_cuda(fixture_files, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = _config(fixture_files)
+    cfg.runtime.device = "cuda"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Service.from_config(cfg)
+
+
+def test_compile_cache_dir_names_the_kernel_build_dir(fixture_files, tmp_path, monkeypatch):
+    from go_pocket_tts_tpu_torch.kernels import build
+
+    monkeypatch.setattr(build, "BUILD_DIR", build.BUILD_DIR)
+    Service.from_config(_config(fixture_files, compile_cache_dir=str(tmp_path))).close()
+    assert build.BUILD_DIR == tmp_path
