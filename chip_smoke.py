@@ -69,7 +69,29 @@ failure exits non-zero:
    1920 samples), printing the aggregate x real time; the phase's
    launches must include kernels 1, 2, 4 (int8), 5, 7 and 8; last, ``python
    -m go_pocket_tts_tpu_torch synth`` runs as a subprocess on the card and
-   must write a valid WAV.
+   must write a valid WAV;
+12. batched serving, whole (after phase 11; its launches are read into a
+   dict of their own and its SEANet shapes re-timed apart, so the kernel
+   table's totals stay those of phases 3, 5, 7 and 9): ``BatcherRuntime``
+   at the serving settings (8 slots, int8 weights and KV cache, 8-step
+   blocks and 64-step bursts, prompt capacity 128), after its ``prewarm``:
+   phase 5's 16 requests at once, the first 8 through ``submit_stream``
+   (each lane's time to its first block, the aggregate x real time, and
+   the block sizes the engine ran: 8 exactly while a lane streams, 64
+   otherwise; each stream exactly its frames x 1920 samples); one burst
+   with a voice embedding, a voice model state and two plain requests (the
+   voiced PCM must differ from the plain); a three-chunk ``generate_session``
+   and ``stream_session`` next to plain load (carried, offsets growing); a
+   stream closed after its first block (its lane free within two blocks,
+   the next request served); over the batcher server of phase 11 with a
+   voice manifest, 8 ``POST /tts/stream`` at once (time to the first PCM
+   byte, more than one PCM block per text chunk) and a voiced ``POST
+   /tts``; in float32 at temperature 0, the streamed lanes against the
+   same batcher's one-shot PCM (both int16), the streamed wave's kernels
+   against their plain versions, and a batched session's second chunk
+   against ``GPURuntime.generate_audio_session``'s, each within
+   ``PATH_RMS_TOL``. Its launches must include kernels 8, 4 (int8), 5, 7
+   and 2.
 
 Phase 2 also holds the SEANet kernels (bf16 on tensor cores) against
 their plain versions at 160 frames, bit-equal over two calls: kernels 2
@@ -90,6 +112,7 @@ The last lines are the kernel table as one JSON object, then
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import os
@@ -441,12 +464,35 @@ def _up2_op_chain(x, wu, bu, w1, b1, w2, b2):
     return elu(y + h)
 
 
+MIXED_STARTS = [0, 1, 2, 4, 5, 96, 960, 1537]
+
+
+def _check_stream_lanes(gen, shape, weights, dtype) -> float:
+    """Kernel 8's stream form against its plain version at ``shape`` with a
+    seeded halo and per-lane starts (mixed when there are several lanes),
+    bit-equal over two calls; returns the max abs error."""
+    from go_pocket_tts_tpu_torch.kernels import seanet_tail as st
+
+    x, halo = _seanet_x(gen, shape, dtype), _seanet_x(gen, (shape[0], 256, st.HALO), dtype)
+    starts = MIXED_STARTS[: shape[0]] if shape[0] > 1 else [shape[2]]
+    start = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    err = _check_one(
+        "fused_up2_up3_tail_stream",
+        lambda xx, *ws: st.fused_up2_up3_tail_stream(xx, halo, start, *ws),
+        lambda xx, *ws: st.fused_up2_up3_tail_stream_plain(xx, halo, start, *ws),
+        x, weights, dtype, (shape[0], 1, 20 * shape[2]),
+    )
+    print(f"  fused_up2_up3_tail_stream {dname(dtype)} x={tuple(shape)} starts {starts}: "
+          f"max_abs_err {err:.3e}, bit-equal over two calls  [{CARD}]")
+    return err
+
+
 def check_up2(rows: dict) -> None:
     """Kernel 7 at 160 frames (x [1,256,15360]; on tensor cores in bf16)
     and at the harvest shape (8 lanes x 256 frames) beside its op chain;
     kernel 8 (on tensor cores in bf16) whole at 160 frames, bit-equal over
     two calls, streamed in 16-frame blocks with a carried halo, and at 8
-    lanes of mixed starts; one streamed block timed at 4, 8 and 16 frames,
+    lanes of mixed starts in blocks of 4 and 8 frames; one streamed block timed at 4, 8 and 16 frames,
     each size beside its yardstick, kernel 7 then kernel 2 on the same x
     (one graph): a fused kernel slower than that pair does not pay."""
     from go_pocket_tts_tpu_torch.kernels import seanet_tail as st
@@ -491,16 +537,9 @@ def check_up2(rows: dict) -> None:
                          (1, 1, t_out))
         want = st.fused_up2_up3_tail_plain(x, *weights)
         what = f"fused_up2_up3_tail {dname(dtype)} x={tuple(x.shape)}"
-        x8, halo8 = _seanet_x(gen, (8, 256, 96 * 4), dtype), _seanet_x(gen, (8, 256, st.HALO), dtype)
-        start8 = torch.tensor([0, 1, 2, 4, 5, 96, 960, 1537], dtype=torch.int32, device="cuda")
-        err8 = _check_one(
-            "fused_up2_up3_tail_stream",
-            lambda xx, *ws: st.fused_up2_up3_tail_stream(xx, halo8, start8, *ws),
-            lambda xx, *ws: st.fused_up2_up3_tail_stream_plain(xx, halo8, start8, *ws),
-            x8, weights, dtype, (8, 1, 20 * 96 * 4),
-        )
-        print(f"  fused_up2_up3_tail_stream {dname(dtype)} x={tuple(x8.shape)} starts {start8.tolist()}: "
-              f"max_abs_err {err8:.3e}, bit-equal over two calls  [{CARD}]")
+        err8 = 0.0
+        for n in (4, 8):  # 8: the batched stream decode's block at the serving settings
+            err8 = max(err8, _check_stream_lanes(gen, (8, 256, 96 * n), weights, dtype))
         halo = torch.zeros((1, 256, st.HALO), dtype=dtype, device="cuda")
         start = torch.zeros((1,), dtype=torch.int32, device="cuda")
         blocks = []
@@ -548,11 +587,15 @@ def check_up2(rows: dict) -> None:
             )
 
 
-def path_device_times(rows: dict) -> None:
-    """Each SEANet kernel's device time on the paths of phases 3, 5, 7 and
-    9: every (kernel, input shape) those paths launched, re-timed by
-    CUDA-graph replay on seeded bf16 inputs, times its count; beside the
-    bound at the same shapes. Kernel 8 is timed in its streaming form."""
+def path_device_times(rows: dict, path_shapes: dict = PATH_SHAPES, key: str = "path") -> None:
+    """Each SEANet kernel's device time on the paths of ``path_shapes``
+    (phases 3, 5, 7 and 9, or phase 12's): every (kernel, input shape)
+    those paths launched, re-timed by CUDA-graph replay on seeded bf16
+    inputs, times its count; beside the bound at the same shapes, into the
+    kernel table under ``{key}_ms``, ``{key}_bound_ms`` and
+    ``{key}_shapes``. Kernel 8 is timed in its streaming form, and first
+    held against its plain version at each of its shapes (mixed per-lane
+    starts where the shape has several lanes)."""
     from go_pocket_tts_tpu_torch.kernels import seanet_tail as st
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
@@ -565,9 +608,10 @@ def path_device_times(rows: dict) -> None:
         "fused_up2_up3_tail": up2 + rest,
     }
     totals: dict = {}
-    for (name, shape), n in sorted(PATH_SHAPES.items()):
+    for (name, shape), n in sorted(path_shapes.items()):
         x, ws = _seanet_x(gen, shape, dtype), weights[name]
         if name == "fused_up2_up3_tail":
+            _check_stream_lanes(gen, shape, ws, dtype)
             halo = torch.zeros((shape[0], 256, st.HALO), dtype=dtype, device="cuda")
             start = torch.full((shape[0],), shape[2], dtype=torch.int32, device="cuda")
 
@@ -587,8 +631,8 @@ def path_device_times(rows: dict) -> None:
         tot[2] += n * b_ms
     for name, (n, ms, b_ms) in totals.items():
         print(f"  {name}: device time on the paths {ms:.4f} ms over {n} launches, bound {b_ms:.5f} ms  [{CARD}]")
-        shapes = [[*shape, count] for (kname, shape), count in sorted(PATH_SHAPES.items()) if kname == name]
-        rows[name].update(path_ms=ms, path_bound_ms=b_ms, path_shapes=shapes)
+        shapes = [[*shape, count] for (kname, shape), count in sorted(path_shapes.items()) if kname == name]
+        rows[name].update({f"{key}_ms": ms, f"{key}_bound_ms": b_ms, f"{key}_shapes": shapes})
 
 
 def check_batched_decode_attention(rows: dict) -> None:
@@ -894,18 +938,18 @@ def check_audio(audio: np.ndarray, frames: int, what: str, bounded: bool = True)
         fail(f"{what}: silent audio")
 
 
-def read_launches(phase: str, must, counts: dict, path_shapes: bool = True) -> None:
+def read_launches(phase: str, must, counts: dict, shapes=PATH_SHAPES) -> None:
     """Read every launch count after a path's run (they were set to 0 just
     before it), fail if a kernel the path runs was not launched, and add the
-    counts to ``counts`` (and, with ``path_shapes``, the SEANet kernels'
-    counts by input shape to PATH_SHAPES)."""
+    counts to ``counts`` (and, unless ``shapes`` is None, the SEANet
+    kernels' counts by input shape to ``shapes``)."""
     from go_pocket_tts_tpu_torch import kernels
 
     launches = {fn.__name__: fn.launches for fn in kernels.WRAPPERS}
     print(f"  launches in {phase}: {launches}")
-    for fn in kernels.WRAPPERS if path_shapes else ():
+    for fn in kernels.WRAPPERS if shapes is not None else ():
         for shape, n in getattr(fn, "shapes", {}).items():
-            PATH_SHAPES[(fn.__name__, shape)] = PATH_SHAPES.get((fn.__name__, shape), 0) + n
+            shapes[(fn.__name__, shape)] = shapes.get((fn.__name__, shape), 0) + n
     for name in must:
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched in {phase}")
@@ -1054,11 +1098,12 @@ def plain_versions():
     return undo
 
 
-def rms_check(a: np.ndarray, b: np.ndarray, what: str) -> None:
+def rms_check(a: np.ndarray, b: np.ndarray, what: str, tol: float = PATH_RMS_TOL) -> float:
     rms = float(np.sqrt(np.mean((a.astype(np.float64) - b) ** 2)))
-    print(f"  {what}: RMS {rms:.3e} (tolerance {PATH_RMS_TOL})  [{CARD}]")
-    if not rms < PATH_RMS_TOL:
-        fail(f"{what}: RMS {rms} beyond {PATH_RMS_TOL}")
+    print(f"  {what}: RMS {rms:.3e} (tolerance {tol})  [{CARD}]")
+    if not rms < tol:
+        fail(f"{what}: RMS {rms} beyond {tol}")
+    return rms
 
 
 def f32_parity(model, arch) -> None:
@@ -1108,7 +1153,8 @@ def serve_f32(model, arch, **kw) -> np.ndarray:
     return out
 
 
-def f32_batched_parity(model, arch) -> None:
+def f32_batched_parity(model, arch) -> float:
+    """Returns the int8 batcher's kernels-vs-plain RMS."""
     from go_pocket_tts_tpu_torch.runtime import GPURuntime
 
     tokens, _, cfg = parity_requests(arch)
@@ -1120,7 +1166,7 @@ def f32_batched_parity(model, arch) -> None:
         q_plain = serve_f32(model, arch, quantize=True, kv_quantize=True)
     finally:
         undo()
-    rms_check(q_kernels, q_plain, "f32 real_arch, 40 frames, int8 weights + int8 KV batcher, kernels - plain")
+    return rms_check(q_kernels, q_plain, "f32 real_arch, 40 frames, int8 weights + int8 KV batcher, kernels - plain")
 
 
 def _assert_same_tree(got, want, what: str) -> int:
@@ -1627,9 +1673,10 @@ def cli_synth(root: str, model_path: str, tok_path: str) -> None:
     )
 
 
-def entry_points(model, root: str) -> None:
-    """Phase 11. Its launches are read into a dict of their own: the kernel
-    table's totals stay those of phases 3, 5, 7 and 9."""
+def entry_points(model, root: str):
+    """Phase 11; returns the fixtures' paths. Its launches are read into a
+    dict of their own: the kernel table's totals stay those of phases 3, 5,
+    7 and 9."""
     from go_pocket_tts_tpu_torch import kernels
 
     t = time.perf_counter()
@@ -1651,9 +1698,439 @@ def entry_points(model, root: str) -> None:
             "fused_up2_up3_tail",
         ),
         counts,
-        path_shapes=False,
+        shapes=None,
     )
     cli_synth(root, model_path, tok_path)
+    return model_path, tok_path
+
+
+# -- phase 12: batched serving, whole -------------------------------------------
+
+# The SEANet kernels' launches by input shape in phase 12 (re-timed apart
+# from the kernel table's paths, PATH_SHAPES).
+PHASE12_SHAPES: dict = {}
+# The batcher's serving settings (``config.apply_serving_autotune``), as in
+# phases 5 and 11, at the default 256 frames.
+SERVING = dict(slots=8, prompt_capacity=128, steps_per_sync=8, steps_per_sync_burst=64, quantize=True, kv_quantize=True)
+
+
+class BlockLog:
+    """The size of every AR block the batcher enqueues while it is open,
+    with whether a streaming lane was attached then (the module's
+    ``_batched_ar_multi_step`` wrapped; the engine looks it up per block)."""
+
+    def __init__(self, batcher) -> None:
+        from go_pocket_tts_tpu_torch.parallel import batching
+
+        self.blocks: list = []
+        self._mod, self._orig = batching, batching._batched_ar_multi_step
+
+        def logged(params, cfg, state, k, *args):
+            self.blocks.append((k, batcher._any_streaming()))
+            return self._orig(params, cfg, state, k, *args)
+
+        batching._batched_ar_multi_step = logged
+
+    def __enter__(self) -> "BlockLog":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._mod._batched_ar_multi_step = self._orig
+
+    def runs(self) -> list:
+        """``[[k, streaming, n_blocks], ...]`` in order."""
+        out: list = []
+        for k, streaming in self.blocks:
+            if out and out[-1][:2] == [k, streaming]:
+                out[-1][2] += 1
+            else:
+                out.append([k, streaming, 1])
+        return out
+
+
+def _consume(blocks, t0: float, out: dict) -> None:
+    """Drain a stream, noting when its first block arrived (seconds since
+    ``t0``); an exception is kept for the caller to raise."""
+    try:
+        parts = []
+        for block in blocks:
+            if not parts:
+                out["first"] = time.perf_counter() - t0
+            parts.append(block)
+        out["blocks"] = parts
+    except Exception as exc:  # noqa: BLE001
+        out["error"] = exc
+
+
+def _streams(gens, t0: float) -> list:
+    """Drain the streams ``gens`` at once, each on a thread of its own."""
+    import threading
+
+    outs = [{} for _ in gens]
+    threads = [threading.Thread(target=_consume, args=(g, t0, o)) for g, o in zip(gens, outs)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    for i, out in enumerate(outs):
+        if "error" in out:
+            fail(f"stream {i}: {out['error']!r}")
+        if "blocks" not in out:
+            fail(f"stream {i} did not end")
+    return outs
+
+
+def mixed_wave(rt, arch, counts: dict) -> dict:
+    """Phase 5's 16 requests at once, the first 8 streamed: each streamed
+    lane's time to its first block, the aggregate x real time, and the
+    block sizes (8 while a lane streams, 64 after); returns the first
+    three (seconds) as ``first_s``, ``wall_s`` and ``audio_s``."""
+    from go_pocket_tts_tpu_torch import kernels
+    from go_pocket_tts_tpu_torch.runtime.generate import estimate_max_frames
+
+    batcher = rt.batcher
+    requests, cfg = serving_requests(arch)
+    torch.cuda.synchronize()
+    with BlockLog(batcher) as log:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        gens = [batcher.submit_stream(tokens, cfg, timeout=300) for tokens in requests[:8]]
+        futs = [batcher.submit(tokens, cfg) for tokens in requests[8:]]
+        outs = _streams(gens, t0)
+        plain = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
+    must = ("fused_up2_up3_tail", "batched_decode_attention_int8", "quantized_matmul", "fused_up2_res", "fused_seanet_up_tail")
+    read_launches("phase 12's mixed wave", must, counts, PHASE12_SHAPES)
+    secs = 0.0
+    for i, (tokens, out) in enumerate(zip(requests[:8], outs)):
+        frames = estimate_max_frames(len(tokens))
+        sizes = [len(b) // 1920 for b in out["blocks"]]
+        if any(n != 8 for n in sizes[:-1]) or not 0 < sizes[-1] <= 8:
+            fail(f"streamed lane {i}: blocks of {sizes} frames, want 8s then one of 1-8")
+        check_audio(np.concatenate(out["blocks"]), frames, f"streamed lane {i}")
+        secs += frames * 1920 / 24000
+    for i, (tokens, audio) in enumerate(zip(requests[8:], plain)):
+        check_audio(audio, estimate_max_frames(len(tokens)), f"plain lane {i}")
+        secs += len(audio) / 24000
+    firsts = sorted(out["first"] for out in outs)
+    runs = log.runs()
+    if any((k == 8) != streaming for k, streaming, _ in runs):
+        fail(f"block sizes {runs}: want 8 exactly while a lane streams, 64 otherwise")
+    print(
+        f"  mixed wave, 8 streamed + 8 plain requests of {min(map(len, requests))}-{max(map(len, requests))} "
+        f"tokens: time to first block p50 {statistics.median(firsts) * 1e3:.1f} ms, max {firsts[-1] * 1e3:.1f} ms "
+        f"(all {[round(f * 1e3, 1) for f in firsts]}); {secs:.2f} s of audio in {wall * 1e3:.1f} ms wall: "
+        f"x{secs / wall:.2f} real time aggregate  [{CARD}]"
+    )
+    print(f"  block sizes the engine ran, [k, a lane streaming, blocks] in order: {runs}")
+    return {"first_s": firsts, "wall_s": wall, "audio_s": secs}
+
+
+def voices_sessions_cancel(rt, arch, counts: dict) -> None:
+    """One burst with an embedding voice, a model-state voice and two plain
+    requests (temperature 0); a three-chunk ``generate_session`` and a
+    three-chunk ``stream_session`` next to plain load; a stream closed after
+    its first block."""
+    import threading
+
+    from go_pocket_tts_tpu_torch import kernels
+    from go_pocket_tts_tpu_torch.runtime import GenerateConfig
+
+    batcher = rt.batcher
+    requests = main_requests(arch)
+    tokens, other = requests[1][0], requests[0][0]
+    voice = (np.random.RandomState(SEED + 9).randn(1, 32, arch.d_model) * 0.02).astype(np.float32)
+    cfg0 = GenerateConfig(temperature=0.0, eos_threshold=1e9, max_steps=64)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t = time.perf_counter()
+    futs = [
+        batcher.submit(tokens, dataclasses.replace(cfg0, voice_embedding=voice)),
+        batcher.submit(tokens, dataclasses.replace(cfg0, voice_model_state=synthetic_voice_state(arch, 48, 40))),
+        batcher.submit(tokens, cfg0),
+        batcher.submit(other, cfg0),
+    ]
+    emb, state, plain, _other = (f.result(timeout=300) for f in futs)
+    wall = time.perf_counter() - t
+    for audio, what in ((emb, "embedding-voiced"), (state, "model-state-voiced"), (plain, "plain"), (_other, "other")):
+        check_audio(audio, 64, f"voice burst, {what} request")
+    d_emb, d_state = (float(np.sqrt(np.mean((a - plain) ** 2))) for a in (emb, state))
+    print(
+        f"  voice burst (embedding [1, 32, 1024], model state 48 frames at offset 40, 2 plain; 64 frames each) "
+        f"in {wall * 1e3:.1f} ms; RMS voiced - plain, same tokens: embedding {d_emb:.3e}, model state "
+        f"{d_state:.3e}  [{CARD}]"
+    )
+    if not (d_emb > 1e-3 and d_state > 1e-3):
+        fail("a voiced request's PCM did not differ from the plain request's")
+
+    cfg = GenerateConfig(temperature=0.7, eos_threshold=1e9, max_steps=48)
+    chunks = [tok for tok, _ in requests]
+    report: dict = {"plain": [], "streamed": []}
+
+    def plain_session():
+        cont = None
+        for tok in chunks:
+            t = time.perf_counter()
+            audio, cont = batcher.generate_session(tok, cfg, cont, timeout=300)
+            report["plain"].append((len(audio) // 1920, time.perf_counter() - t, int(cont.offset[0])))
+
+    def streamed_session():
+        cont = None
+        for tok in chunks:
+            t = time.perf_counter()
+            blocks, next_state = batcher.stream_session(tok, cfg, cont, timeout=300)
+            blocks = list(blocks)
+            cont = next_state()
+            report["streamed"].append((sum(len(b) for b in blocks) // 1920, time.perf_counter() - t, int(cont.offset[0])))
+
+    load = [batcher.submit(tok, cfg) for tok, _ in requests * 2]
+    threads = [threading.Thread(target=fn) for fn in (plain_session, streamed_session)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    for f in load:
+        check_audio(f.result(timeout=300), 48, "session load")
+    for kind, rows in report.items():
+        offsets = [r[2] for r in rows]
+        if [r[0] for r in rows] != [48] * 3 or offsets != sorted(offsets):
+            fail(f"{kind} session chunks {rows}: want 48 frames each, carried (offsets growing)")
+        print(
+            f"  {kind} session, 3 chunks of {[len(c) for c in chunks]} tokens x 48 frames next to 6 plain "
+            f"requests: walls {[round(r[1] * 1e3, 1) for r in rows]} ms, carried offsets {offsets}  [{CARD}]"
+        )
+
+    with BlockLog(batcher) as log:
+        blocks = batcher.submit_stream(tokens, dataclasses.replace(cfg, max_steps=200), timeout=300)
+        next(blocks)
+        n0 = len(log.blocks)
+        blocks.close()
+        deadline = time.perf_counter() + 30
+        while any(s.request is not None for s in batcher._slot_info) and time.perf_counter() < deadline:
+            time.sleep(0.001)
+        freed_after = len(log.blocks) - n0
+    if freed_after > 2 or any(s.request is not None for s in batcher._slot_info):
+        fail(f"cancelled stream: lane not free within two blocks ({freed_after} blocks after the close)")
+    check_audio(batcher.generate(other, dataclasses.replace(cfg0, max_steps=16), timeout=300), 16, "after the cancel")
+    print(f"  stream closed after its first block: lane free {freed_after} block(s) after the close; the next request completed")
+    must = ("fused_up2_up3_tail", "batched_decode_attention_int8", "quantized_matmul", "fused_up2_res", "fused_seanet_up_tail")
+    read_launches("phase 12's voices, sessions and cancel", must, counts, PHASE12_SHAPES)
+
+
+def _http_stream_chunks(port: int, text: str, t0: float) -> list:
+    """POST /tts/stream and read its chunked body off the socket: ``[(seconds
+    since t0, payload), ...]``, the WAV header first."""
+    import socket
+
+    body = json.dumps({"text": text}).encode()
+    with socket.create_connection(("127.0.0.1", port), timeout=300) as sock:
+        sock.sendall(
+            b"POST /tts/stream HTTP/1.1\r\nHost: localhost\r\nContent-Type: application/json\r\n"
+            + f"Content-Length: {len(body)}\r\nConnection: close\r\n\r\n".encode()
+            + body
+        )
+        f = sock.makefile("rb")
+        status = f.readline()
+        if b" 200 " not in status:
+            fail(f"POST /tts/stream: {status!r}")
+        while f.readline() not in (b"\r\n", b""):
+            pass
+        chunks = []
+        while True:
+            n = int(f.readline().strip(), 16)
+            if n == 0:
+                return chunks
+            chunks.append((time.perf_counter() - t0, f.read(n)))
+            f.readline()
+
+
+def serve_batcher_streams(model_path: str, tok_path: str, counts: dict) -> None:
+    """The batcher server of phase 11 (8 slots, serving autotune) with a
+    voice manifest: 8 POST /tts/stream at once, then one POST /tts with the
+    manifest's voice."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from go_pocket_tts_tpu_torch import kernels
+    from go_pocket_tts_tpu_torch.config import apply_serving_autotune
+    from go_pocket_tts_tpu_torch.server import Server
+    from go_pocket_tts_tpu_torch.tts.service import Service
+    from go_pocket_tts_tpu_torch.tts.voices import VoiceManager
+    from go_pocket_tts_tpu_torch.utils.safetensors import write_file
+    from go_pocket_tts_tpu_torch.utils.wav import streaming_wav_header
+
+    arch, _ = checkpoint()
+    vdir = os.path.join(os.path.dirname(model_path), "voices")
+    os.makedirs(vdir, exist_ok=True)
+    voice = (np.random.RandomState(SEED + 9).randn(32, arch.d_model) * 0.02).astype(np.float32)
+    write_file(os.path.join(vdir, "synthetic.safetensors"), {"audio_prompt": voice})
+    with open(os.path.join(vdir, "manifest.json"), "w") as f:
+        json.dump({"voices": [{"id": "synthetic", "path": "synthetic.safetensors", "license": "seeded"}]}, f)
+    cfg = entry_config(model_path, tok_path, batch_slots=8, temperature=0.7)
+    apply_serving_autotune(cfg)
+    svc = Service.from_config(cfg)
+    srv = Server(svc, VoiceManager(os.path.join(vdir, "manifest.json")), listen_addr="127.0.0.1:0", workers=8,
+                 request_timeout=300)
+    srv.start()
+    try:
+        frames = [chunk_frames(svc.tokenizer, text)[0][1] for text in BATCH_TEXTS]
+        _http_stream_chunks(srv.port, BATCH_TEXTS[0], time.perf_counter())  # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with ThreadPoolExecutor(max_workers=len(BATCH_TEXTS)) as pool:
+            t0 = time.perf_counter()
+            replies = list(pool.map(lambda text: _http_stream_chunks(srv.port, text, t0), BATCH_TEXTS))
+            wall = time.perf_counter() - t0
+        firsts = []
+        for i, (reply, n) in enumerate(zip(replies, frames)):
+            if reply[0][1] != streaming_wav_header():
+                fail(f"batcher POST /tts/stream {i}: not the streaming WAV header")
+            pcm = reply[1:]
+            if len(pcm) < 2 or sum(len(p) for _, p in pcm) != n * 1920 * 2:
+                fail(f"batcher POST /tts/stream {i}: {len(pcm)} PCM chunks, {sum(len(p) for _, p in pcm)} bytes")
+            firsts.append(pcm[0][0])
+        print(
+            f"  batcher server, 8 POST /tts/stream at once ({frames} frames; one text chunk each, "
+            f"{[len(r) - 1 for r in replies]} PCM blocks): first PCM byte {[round(f * 1e3, 1) for f in firsts]} ms "
+            f"(p50 {statistics.median(firsts) * 1e3:.1f}, max {max(firsts) * 1e3:.1f}); {sum(frames) * 1920 / 24000:.2f} s "
+            f"of audio in {wall * 1e3:.1f} ms wall: x{sum(frames) * 1920 / 24000 / wall:.2f} real time aggregate  [{CARD}]"
+        )
+        t = time.perf_counter()
+        req_body = json.dumps({"text": BATCH_TEXTS[2], "voice": "synthetic"}).encode()
+        import urllib.request
+
+        req = urllib.request.Request(f"http://127.0.0.1:{srv.port}/tts", data=req_body, method="POST")
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            status, body = resp.status, resp.read()
+        if status != 200:
+            fail(f"voiced POST /tts: status {status}")
+        check_wav(body, frames[2], "voiced POST /tts")
+        print(f"  batcher server, POST /tts with the manifest's voice: 200, valid WAV in {(time.perf_counter() - t) * 1e3:.1f} ms  [{CARD}]")
+    finally:
+        srv.shutdown()
+        svc.close()
+    must = ("fused_up2_up3_tail", "batched_decode_attention_int8", "quantized_matmul", "fused_up2_res", "fused_seanet_up_tail")
+    read_launches("phase 12 over HTTP", must, counts, PHASE12_SHAPES)
+
+
+# The float batcher's streamed wave, kernels against plain: only the float
+# kernels' summation order differs (4 and 8), so the PCM, int16 on the
+# device, differs by a few samples flipped one step (phase 10's streamed
+# PCM truncated to int16 reads 8.2e-7).
+F32_FLOAT_STREAM_TOL = 1e-5
+
+
+def f32_batched_streaming(arch, int8_one_shot: float) -> None:
+    """float32, temperature 0, at the serving settings: the streamed lanes
+    against the same batcher's one-shot generate (both int16), the streamed
+    wave with the kernels against their plain versions on the int8 batcher
+    (beside its one-shot wave's kernels against plain and phase 6's
+    ``int8_one_shot``, lane by lane) and on a float-weight float-KV batcher
+    (within ``F32_FLOAT_STREAM_TOL``), and a batched session's second chunk
+    against ``GPURuntime.generate_audio_session``'s. The launches of each
+    kernel run are read, and must include the kernels it runs."""
+    from go_pocket_tts_tpu_torch import kernels
+    from go_pocket_tts_tpu_torch.parallel import ContinuousBatcher
+    from go_pocket_tts_tpu_torch.runtime import GPURuntime
+
+    arch, model32 = build_model(torch.float32)
+    tokens, other, cfg = parity_requests(arch)
+    reqs = [tokens, other] + [tok for tok, _ in main_requests(arch)[:2]]
+    seen: dict = {}  # these checks' launches stay out of phase 12's counts
+    int8_must = ("batched_decode_attention_int8", "quantized_matmul")
+
+    def batcher(**kw):
+        b = ContinuousBatcher(model32, dtype=torch.float32, seed=SEED, device="cuda", **{**SERVING, **kw})
+        b.start()
+        return b
+
+    def run(b, streamed: bool, what: str, must=()):
+        kernels.reset_launches()
+        if streamed:
+            outs = _streams([b.submit_stream(t, cfg, timeout=300) for t in reqs], time.perf_counter())
+            lanes = [np.concatenate(o["blocks"]) for o in outs]
+        else:
+            lanes = [f.result(timeout=300) for f in [b.submit(t, cfg) for t in reqs]]
+        read_launches(f"the f32 {what}", must, seen, None)
+        for lane in lanes:
+            check_audio(lane, 40, f"f32 {what}")
+        return lanes
+
+    def by_lane(a, b):
+        return [float(np.sqrt(np.mean((x.astype(np.float64) - y) ** 2))) for x, y in zip(a, b)]
+
+    b = batcher()
+    try:
+        stream_k = run(b, True, "int8 batcher's streamed wave", ("fused_up2_up3_tail", *int8_must))
+        one_k = run(b, False, "int8 batcher's one-shot wave", ("fused_up2_res", "fused_seanet_up_tail", *int8_must))
+    finally:
+        b.stop()
+    rms_check(np.concatenate(stream_k), np.concatenate(one_k),
+              "f32 real_arch, 4 lanes x 40 frames, int8 batcher, streamed - one-shot (int16)")
+    undo = plain_versions()
+    try:
+        b = batcher()
+        try:
+            stream_p = run(b, True, "int8 batcher's streamed wave, plain versions")
+            one_p = run(b, False, "int8 batcher's one-shot wave, plain versions")
+        finally:
+            b.stop()
+        b = batcher(quantize=False, kv_quantize=False)
+        try:
+            float_p = run(b, True, "float batcher's streamed wave, plain versions")
+        finally:
+            b.stop()
+    finally:
+        undo()
+    rms_check(np.concatenate(stream_k), np.concatenate(stream_p),
+              "f32 real_arch, 4 lanes x 40 frames, int8 batcher streamed, kernels - plain")
+    rms_check(np.concatenate(one_k), np.concatenate(one_p),
+                         "f32 real_arch, 4 lanes x 40 frames, int8 batcher one-shot, kernels - plain")
+    print(
+        f"  the same by lane: streamed {[f'{r:.3e}' for r in by_lane(stream_k, stream_p)]}, one-shot "
+        f"{[f'{r:.3e}' for r in by_lane(one_k, one_p)]}; phase 6 (lanes 1-2 only, default blocks, one-shot) "
+        f"{int8_one_shot:.3e}; plain streamed - plain one-shot "
+        f"{float(np.sqrt(np.mean((np.concatenate(stream_p).astype(np.float64) - np.concatenate(one_p)) ** 2))):.3e}"
+        f"  [{CARD}]"
+    )
+    b = batcher(quantize=False, kv_quantize=False)
+    try:
+        float_k = run(b, True, "float batcher's streamed wave", ("fused_up2_up3_tail", "batched_decode_attention"))
+        _a, cont = b.generate_session(tokens, cfg, None, timeout=300)
+        got, _ = b.generate_session(other, cfg, cont, timeout=300)
+    finally:
+        b.stop()
+    rms_check(np.concatenate(float_k), np.concatenate(float_p),
+              "f32 real_arch, 4 lanes x 40 frames, float batcher streamed, kernels - plain", F32_FLOAT_STREAM_TOL)
+    print(f"  the same by lane: {[f'{r:.3e}' for r in by_lane(float_k, float_p)]}  [{CARD}]")
+    rt = GPURuntime(model32, dtype=torch.float32, seed=SEED, device="cuda")
+    _a, rcont = rt.generate_audio_session(tokens, cfg, None)
+    want, _ = rt.generate_audio_session(other, cfg, rcont)
+    check_audio(got, 40, "f32 batched session, chunk 2")
+    rms_check(got, want, "f32 real_arch, session chunk 2 (40 frames), batcher - GPURuntime.generate_audio_session")
+
+
+def batched_serving_whole(model, arch, fixtures, int8_one_shot: float) -> None:
+    """Phase 12. Its launches are read into a dict of their own, and its
+    SEANet shapes into PHASE12_SHAPES: the kernel table's totals stay those
+    of phases 3, 5, 7 and 9."""
+    from go_pocket_tts_tpu_torch.parallel import BatcherRuntime
+
+    counts: dict = {}
+    rt = BatcherRuntime(model, dtype=torch.bfloat16, seed=SEED, device="cuda", **SERVING)
+    try:
+        t = time.perf_counter()
+        rt.prewarm((12,))
+        print(f"  BatcherRuntime.prewarm((12,)) in {(time.perf_counter() - t) * 1e3:.1f} ms  [{CARD}]")
+        mixed_wave(rt, arch, counts)
+        voices_sessions_cancel(rt, arch, counts)
+    finally:
+        rt.close()
+    del rt
+    torch.cuda.empty_cache()
+    serve_batcher_streams(*fixtures, counts)
+    f32_batched_streaming(arch, int8_one_shot)
+    torch.cuda.empty_cache()
+    print(f"  phase 12 launches: {counts}")
 
 
 def main() -> int:
@@ -1711,7 +2188,7 @@ def main() -> int:
     x_int8 = batched_serving(model, arch, counts)
 
     print("phase 6: float32 batcher against the single runtime and against plain versions")
-    f32_batched_parity(model32, arch)
+    int8_one_shot = f32_batched_parity(model32, arch)
 
     print("phase 7: int4 serving from an exported artifact (real_arch, bfloat16)")
     model4_f32 = int4_serving(model32, arch, counts, x_int8)
@@ -1734,8 +2211,15 @@ def main() -> int:
 
     print("phase 11: the entry points: Service, HTTP server and CLI (real_arch, bfloat16)")
     t = time.perf_counter()
-    entry_points(model, root)
+    fixtures = entry_points(model, root)
     print(f"  phase 11 took {time.perf_counter() - t:.1f} s  [{CARD}]")
+
+    print("phase 12: batched serving, whole: streams, voices, sessions, cancel, HTTP (real_arch, bfloat16)")
+    t = time.perf_counter()
+    batched_serving_whole(model, arch, fixtures, int8_one_shot)
+    print(f"  phase 12 took {time.perf_counter() - t:.1f} s  [{CARD}]")
+    print("the SEANet kernels' device time on phase 12's paths (bfloat16)")
+    path_device_times(rows, PHASE12_SHAPES, "phase12_path")
 
     for name, row in rows.items():
         row["launches"] = counts.get(name, 0)

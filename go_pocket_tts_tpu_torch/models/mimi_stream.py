@@ -73,9 +73,15 @@ _LANE_AXIS = {"kv_k": 1, "kv_v": 1}
 
 def freeze_lanes(new_state: State, old_state: State, live: torch.Tensor) -> State:
     """Keep ``new_state`` for lanes where ``live`` is True, ``old_state``
-    elsewhere: idle lanes must not advance their stream state."""
+    elsewhere: idle lanes must not advance their stream state. A leaf that
+    :func:`decode_block` wrote in place (the K/V buffers, the same tensor in
+    both states) is passed through: see the module docstring for why its
+    rows at an idle lane's offset are harmless."""
     out = {}
     for key, new in new_state.items():
+        if new is old_state[key]:
+            out[key] = new
+            continue
         axis = _LANE_AXIS.get(key, 0)
         shape = [1] * new.ndim
         shape[axis] = live.shape[0]

@@ -1,36 +1,47 @@
 """Continuous batching on the GPU: concurrent requests share one AR step
-(counterpart of ``go_pocket_tts_tpu/parallel/batching.py``, its
-non-streaming path).
+(counterpart of ``go_pocket_tts_tpu/parallel/batching.py``).
 
 A fixed set of request *slots* steps together:
 
 - each slot is a lane of the batched KV cache with its **own offset**
   (``models.flow_transformer.transformer_step_batched``), so requests join
   and leave at any step (different prompt lengths and EOS times);
-- admission is burst-batched: every queued request is prefilled in one
-  batched forward and spliced into the batch state together, the count
-  padded to 1 or the full slot count as the reference pads it;
-- steps run in blocks of ``k`` (``steps_per_sync``, or
-  ``steps_per_sync_burst``): the whole block is enqueued on the device with
-  no host sync, and it ends with one packed flags copy (done, active,
-  n_frames) on its way to the host;
-- blocks pipeline one deep: block N's flags are read while block N+1 runs;
+- admission is burst-batched: every queued plain request (an embedding
+  voice counts in its prompt) is prefilled in one batched forward and
+  spliced into the batch state together, the count padded to 1 or the full
+  slot count as the reference pads it; a request with a voice model state,
+  or a session chunk carrying its predecessor's KV snapshot, is prefilled
+  into its slot on its own;
+- steps run in blocks of ``k``: ``steps_per_sync`` while any streaming lane
+  is attached, ``steps_per_sync_burst`` otherwise. The whole block is
+  enqueued on the device with no host sync; it also gives each lane's
+  frames of this block (``windows``) and their count (``n_new``), so the
+  streaming lanes' PCM is decoded in one batched stream decode enqueued
+  straight behind it (``models/mimi_stream.py``, per-lane offsets; its last
+  SEANet stages are the cascade kernel at each lane's own start);
+- blocks pipeline one deep: block N's flags (done, active, n_frames),
+  streamed int16 PCM and counts are copied to the host together and read
+  while block N+1 runs;
 - the per-lane EOS countdown runs on the device, as in the single runtime;
-- finished lanes are decoded together (int16 PCM) and freed; a drainer
-  thread waits for the PCM and resolves the futures.
+- finished plain lanes are decoded together (int16 PCM) and freed; a
+  drainer thread waits for the PCM and resolves the futures. A finished
+  streamed lane resolves with its concatenated blocks, and ends its stream;
+- a session chunk's lane is snapshotted (a float copy of its KV cache) before
+  its slot is freed (``generate_session``, ``stream_session``);
+- a stream whose consumer goes away frees its lane at the next block.
 
 Unlike the reference, whose state arrays are donated to each program and
-replaced, the KV cache, the frame buffer and the per-lane fields are
-updated IN PLACE. All device work of the engine is issued from its thread
-on one stream, so each in-place write is ordered after every read that was
-enqueued before it. The LSD noise comes from a device ``torch.Generator``
-the batcher owns, drawn per block on the device (JAX's threefry bits cannot
-be reproduced, so the two packages agree at temperature 0 only).
+replaced, the KV caches, the frame buffer, the per-lane fields and the
+stream decoder's K/V buffers are updated IN PLACE. All device work of the
+engine is issued from its thread on one stream, so each in-place write is
+ordered after every read that was enqueued before it; everything the engine
+reads one iteration later (flags, PCM, counts) is a fresh tensor, and a
+session snapshot is a copy. The LSD noise comes from a device
+``torch.Generator`` the batcher owns, drawn per block on the device (JAX's
+threefry bits cannot be reproduced, so the two packages agree at
+temperature 0 only).
 
-Not ported yet (ROADMAP.md): streaming lanes (``submit_stream``),
-sessions, ``prewarm``, dp/tp meshes, voice conditioning (a request whose
-config carries a voice fails with a ``ValueError`` rather than being served
-without it).
+Not ported: the reference's dp and tp meshes (``mesh=``).
 """
 
 from __future__ import annotations
@@ -50,6 +61,7 @@ import torch
 from go_pocket_tts_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from go_pocket_tts_tpu_torch.models import flow_lm as flm
 from go_pocket_tts_tpu_torch.models import flow_transformer as ftr
+from go_pocket_tts_tpu_torch.models import mimi_stream
 from go_pocket_tts_tpu_torch.models.model import PocketTTSModel
 from go_pocket_tts_tpu_torch.models.quantize import quantize_kv_rows
 from go_pocket_tts_tpu_torch.runtime.generate import (
@@ -64,9 +76,27 @@ from go_pocket_tts_tpu_torch.utils import buckets as bk
 
 log = logging.getLogger("pockettts.torch.batching")
 
-__all__ = ["BatcherRuntime", "ContinuousBatcher", "make_batched_state"]
+__all__ = ["BatchContinuation", "BatcherRuntime", "ContinuousBatcher", "make_batched_state"]
 
 State = Dict
+
+
+def _strip_voice_if_carried(cfg: GenerateConfig, cont) -> GenerateConfig:
+    """A carried continuation supersedes voice conditioning (its cache holds
+    the voice since the session's first chunk). The Service applies the
+    voice to every chunk so that a session reset re-applies it; it is
+    dropped here only when the carried state survived validation."""
+    if cont is None or (cfg.voice_embedding is None and cfg.voice_model_state is None):
+        return cfg
+    return dataclasses.replace(cfg, voice_embedding=None, voice_model_state=None)
+
+
+def _fail_request(req: "_Request", exc: Exception) -> None:
+    """Deliver a failure on both channels: the future, and the stream queue
+    (a streaming consumer reads only the queue)."""
+    if req.stream is not None:
+        req.stream.put(exc)
+    _try_resolve(req.future, exc=exc)
 
 
 def _try_resolve(fut: Future, result=None, exc: Optional[Exception] = None) -> None:
@@ -82,7 +112,7 @@ def _try_resolve(fut: Future, result=None, exc: Optional[Exception] = None) -> N
         pass
 
 
-# -- the device side: state, AR block, admission, harvest decode -------------
+# -- the device side: state, AR block, admission, decodes --------------------
 
 
 def make_batched_state(
@@ -171,16 +201,27 @@ def _ar_step_body(params, cfg, state: State, noise: torch.Tensor, decode_steps: 
 def _batched_ar_multi_step(params, cfg, state: State, k: int, decode_steps: int, gen: torch.Generator, time_cond, fused_ada):
     """``k`` AR steps for all lanes, enqueued with no host sync: the noise
     of the whole block is drawn on the device first, scaled per lane by
-    ``sqrt(temperature)``. Returns ``(state, flags)``: ``flags`` is a fresh
-    ``[3, B]`` int32 copy of done/active/n_frames."""
+    ``sqrt(temperature)``.
+
+    Returns ``(state, windows, n_new, flags)``: ``windows [B, k, L]`` is
+    each lane's frames written by this block, left-aligned from its frame
+    count before the block, ``n_new [B]`` their number (0 for a lane that
+    is not live), and ``flags`` a ``[3, B]`` int32 copy of
+    done/active/n_frames. All three are fresh tensors (a gather, a
+    difference, a stack): the engine reads them one iteration later, after
+    the next block and admissions have written the state in place."""
     frame = state["frame"]
     slots, latent = frame.shape[0], frame.shape[2]
+    n_before = state["n_frames"].clone()
     noise = torch.randn((k, slots, latent), generator=gen, device=frame.device, dtype=torch.float32)
     noise = (noise * state["sigma"][None, :, None]).to(frame.dtype)
     for step in range(k):
         state = _ar_step_body(params, cfg, state, noise[step], decode_steps, time_cond, fused_ada)
+    lanes = torch.arange(slots, device=frame.device)[:, None]
+    cols = n_before.long()[:, None] + torch.arange(k, device=frame.device)[None, :]
+    windows = state["frames"][lanes, cols]
     flags = torch.stack([state["done"].int(), state["active"].int(), state["n_frames"]])
-    return state, flags
+    return state, windows, state["n_frames"] - n_before, flags
 
 
 def _set_cache_lanes(cache: State, idx: torch.Tensor, lanes_k: torch.Tensor, lanes_v: torch.Tensor, offsets: torch.Tensor) -> None:
@@ -211,7 +252,7 @@ def _prefill_lanes(params, tcfg, embs: torch.Tensor, capacity: int):
 
 def _insert_lanes(state: State, slots: List[int], lanes_k, lanes_v, offsets, max_steps, eos_thresholds, frames_after_eos, sigmas) -> None:
     """Splice N prefilled lanes into the batch state, in place (duplicate
-    slots carry identical data)."""
+    slots carry identical data). The per-lane values are host lists."""
     dev = state["frame"].device
 
     def lane_values(values, dtype):
@@ -236,6 +277,69 @@ def _harvest_decode_pcm16(model: PocketTTSModel, frames: torch.Tensor, slots: to
     return decode_pcm16(model, frames[slots], n_frames[slots], decode_frames)
 
 
+def _batched_stream_decode(
+    model: PocketTTSModel,
+    stream_state: State,
+    windows: torch.Tensor,
+    n_new: torch.Tensor,
+    streaming_mask: torch.Tensor,
+):
+    """One stream decode for every streaming lane of a block → ``(int16 PCM
+    [B, 1, k·1920], stream state)``.
+
+    ``windows``/``n_new`` are the AR block's own outputs, so this is
+    enqueued straight behind the block with no host read in between. Each
+    lane's frames past its ``n_new`` are zeroed; a lane with ``n_new == 0``
+    (a plain lane, an empty slot, a finished stream) keeps its stream state
+    (``freeze_lanes``). The decoder's K/V rows are written in place for every
+    lane, a frozen one included: those rows lie past its offset, which it
+    does not advance, so it never attends to them, and its next block writes
+    them again before reading them."""
+    k = windows.shape[1]
+    n_new = torch.where(streaming_mask, n_new, torch.zeros_like(n_new))
+    mask = (torch.arange(k, device=windows.device) < n_new[:, None])[:, :, None]
+    latent = torch.where(mask, windows, torch.zeros((), dtype=windows.dtype, device=windows.device))
+    pcm, new_state = mimi_stream.decode_block(
+        model.params["mimi"], model.config.mimi, stream_state, model.latent_to_mimi(latent)
+    )
+    new_state = mimi_stream.freeze_lanes(new_state, stream_state, n_new > 0)
+    # Truncation toward zero, as the harvest decode and the host WAV encoder.
+    return (pcm.float().clamp(-1.0, 1.0) * 32767.0).to(torch.int16), new_state
+
+
+@dataclasses.dataclass
+class BatchContinuation:
+    """Cross-chunk prosody state for the batched engine: one lane's KV cache
+    ``[L, 1, H, capacity, Dh]`` (float: an int8 cache is dequantized by the
+    snapshot and quantized again when it is spliced back) and its offset
+    ``[1]`` int32 on the device. The counterpart of
+    ``runtime.generate.ContinuationState`` for slot-based serving; unlike
+    that, it can be submitted more than once (hydration copies it).
+
+    ``offset_host`` is read lazily by :meth:`ContinuousBatcher.generate_session`
+    on the caller's thread, never the engine's."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    offset: torch.Tensor
+    capacity: int
+    offset_host: Optional[int] = None
+
+
+def _snapshot_lane(cache: State, slot: int):
+    """A copy of one lane of the stacked KV cache (int8 rows dequantized
+    with their scales) and of its offset. A copy, never a view: later
+    blocks write the stacked cache in place."""
+    lane = slice(slot, slot + 1)
+    k, v = cache["k"][:, lane], cache["v"][:, lane]
+    if "k_scale" in cache:
+        k = k.float() * cache["k_scale"][:, lane, ..., None]
+        v = v.float() * cache["v_scale"][:, lane, ..., None]
+    else:
+        k, v = k.clone(), v.clone()
+    return k, v, cache["offset"][lane].clone()
+
+
 # -- the host side: requests, slots, the engine loop -------------------------
 
 
@@ -244,15 +348,31 @@ class _Request:
     tokens: List[int]
     cfg: GenerateConfig
     future: Future
+    # A streaming request's PCM blocks go here as they are decoded (None
+    # ends the stream, an exception raises in the consumer); its future
+    # resolves with the whole concatenated audio as well.
+    stream: Optional["queue.Queue"] = None
+    # Set when the consumer goes away (its generator closed): the engine
+    # frees the lane at the next block.
+    cancelled: threading.Event = dataclasses.field(default_factory=threading.Event)
+    # A session chunk: ``cont`` hydrates the lane from the previous chunk's
+    # snapshot; ``keep_state`` asks for this chunk's snapshot before the
+    # slot is freed, in ``state_out`` (set before the future resolves).
+    cont: Optional[BatchContinuation] = None
+    keep_state: bool = False
+    state_out: Optional[BatchContinuation] = None
 
 
 @dataclasses.dataclass
 class _SlotInfo:
     request: Optional[_Request] = None
+    emitted_frames: int = 0
+    streaming: bool = False
+    stream_parts: Optional[List[np.ndarray]] = None
     # Bumped on every attach and release. A block is read one iteration
     # after it was enqueued; if its slot was harvested and re-admitted in
-    # between, its flags describe the previous occupant. The epoch recorded
-    # with the block keeps a recycled slot from acting on them.
+    # between, its flags and PCM describe the previous occupant. The epoch
+    # recorded with the block keeps a recycled slot from acting on them.
     epoch: int = 0
 
 
@@ -260,8 +380,12 @@ class ContinuousBatcher:
     """Slot-based continuous batching over one model on one device.
 
     ``submit`` is thread-safe and returns a Future resolving to float32 PCM
-    at 24 kHz. ``device`` defaults to ``"cuda"`` and raises on a host
-    without CUDA; ``device="cpu"`` runs the kernels' plain versions there.
+    at 24 kHz; ``submit_stream`` yields PCM blocks of ``steps_per_sync``
+    frames as they are generated; ``generate_session`` and
+    ``stream_session`` carry a lane's KV cache from one chunk into the next.
+    A request's config may carry a voice embedding or a voice model state.
+    ``device`` defaults to ``"cuda"`` and raises on a host without CUDA;
+    ``device="cpu"`` runs the kernels' plain versions there.
     ``quantize=True`` (or 8) runs every linear with int8 weights,
     ``quantize=4`` with packed group-wise int4 weights (a model loaded from a
     pre-quantized checkpoint runs quantized as it is); ``kv_quantize`` keeps
@@ -293,9 +417,11 @@ class ContinuousBatcher:
         self.model = model
         self.slots = slots
         self.steps_per_sync = max(steps_per_sync, 1)
-        # Burst blocks: with no streaming lane (this port has none yet) every
-        # block runs ``steps_per_sync_burst`` steps, rounded up to a multiple
-        # of ``steps_per_sync``; 0 (or a value not above it) keeps blocks at
+        # Burst blocks: while no streaming lane is attached every block runs
+        # ``steps_per_sync_burst`` steps, rounded up to a multiple of
+        # ``steps_per_sync``; a streaming lane drops the next block back to
+        # ``steps_per_sync`` (a stream admitted mid-burst waits out at most
+        # one burst block). 0 (or a value not above it) keeps blocks at
         # ``steps_per_sync``.
         burst = int(steps_per_sync_burst or 0)
         if burst > self.steps_per_sync:
@@ -311,12 +437,18 @@ class ContinuousBatcher:
             self.steps_per_sync_burst = 0
         k_max = self.steps_per_sync_burst or self.steps_per_sync
         self._last_block_k = 0  # block size of the last block enqueued
+        # Aligned to the largest block, so a lane's last window fits.
         self.max_frames = bk.round_up(max_frames, k_max)
         self.capacity = prompt_capacity + self.max_frames
         self.kv_quantize = kv_quantize
 
         self._queue: "queue.Queue[_Request]" = queue.Queue()
         self._slot_info = [_SlotInfo() for _ in range(slots)]
+        # The batched stream decoder's state, one lane per slot, made on the
+        # first streaming admission; the lanes admitted in one burst are
+        # reset together at its end.
+        self._stream_state: Optional[State] = None
+        self._pending_stream_resets: List[int] = []
         self._harvest_pool: Optional[ThreadPoolExecutor] = self._new_pool()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
@@ -347,28 +479,149 @@ class ContinuousBatcher:
 
     # -- public API --------------------------------------------------------
 
-    def submit(self, tokens, cfg: GenerateConfig) -> "Future[np.ndarray]":
-        fut: Future = Future()
-        if cfg.voice_embedding is not None or cfg.voice_model_state is not None:
-            fut.set_exception(
-                ValueError(
-                    "ContinuousBatcher: voice conditioning is not ported to the batcher yet "
-                    "(it comes with the batcher's streaming lanes and sessions); "
-                    "use GPURuntime for a voiced request"
-                )
-            )
-            return fut
-        if self._crashed is not None:
-            fut.set_exception(self._crashed)
-            return fut
-        self._queue.put(_Request(list(tokens), cfg, fut))
+    def _enqueue(self, req: _Request) -> None:
+        self._queue.put(req)
         if self._crashed is not None:
             # Lost the race with a crashing engine: fail what it left queued.
             self._fail_all(self._crashed)
+
+    def submit(self, tokens, cfg: GenerateConfig) -> "Future[np.ndarray]":
+        fut: Future = Future()
+        if self._crashed is not None:
+            fut.set_exception(self._crashed)
+            return fut
+        self._enqueue(_Request(list(tokens), cfg, fut))
         return fut
+
+    def submit_stream(
+        self,
+        tokens,
+        cfg: GenerateConfig,
+        timeout: float = 300.0,
+        cont: Optional[BatchContinuation] = None,
+        keep_state: bool = False,
+        _req_out: Optional[list] = None,
+    ):
+        """Stream PCM blocks (float32, ``steps_per_sync`` frames each, the
+        last one shorter) as they are generated, through the shared batch.
+        ``cont``/``keep_state`` carry a session as :meth:`generate_session`
+        does (:meth:`stream_session` uses them).
+
+        A failed engine or admission raises in the consumer, never ends the
+        stream short; a stream that produces nothing for ``timeout``
+        seconds raises ``TimeoutError``. Closing the generator early frees
+        the lane at the next block."""
+        if self._crashed is not None:
+            raise self._crashed
+        q: "queue.Queue" = queue.Queue()
+        req = _Request(list(tokens), cfg, Future(), stream=q, cont=cont, keep_state=keep_state)
+        if _req_out is not None:
+            _req_out.append(req)
+        self._enqueue(req)
+
+        def gen():
+            try:
+                while True:
+                    try:
+                        item = q.get(timeout=timeout)
+                    except queue.Empty:
+                        raise TimeoutError(f"batcher stream produced no PCM block within {timeout}s") from None
+                    if item is None:
+                        return
+                    if isinstance(item, BaseException):
+                        raise item
+                    yield item
+            finally:
+                # On exhaustion (already harvested: a no-op) and on an early
+                # close of the generator: tell the engine to free the lane.
+                req.cancelled.set()
+
+        return gen()
 
     def generate(self, tokens, cfg: GenerateConfig, timeout: float = 120.0) -> np.ndarray:
         return self.submit(tokens, cfg).result(timeout=timeout)
+
+    def generate_session(
+        self,
+        tokens,
+        cfg: GenerateConfig,
+        cont: Optional[BatchContinuation] = None,
+        timeout: float = 120.0,
+    ):
+        """Synthesize one chunk through the batch, carrying the KV cache
+        across calls (the counterpart of ``GPURuntime.generate_audio_session``):
+        the chunk's lane is hydrated from ``cont``, generates with attention
+        over the session so far, and is snapshotted before it is freed.
+        Returns ``(audio, next BatchContinuation)``. Other requests go on
+        sharing the batch.
+
+        A chunk that cannot fit in the engine's KV capacity after ``cont``
+        starts a fresh session; size ``prompt_capacity`` for the session
+        length to carry."""
+        cont = self._validate_cont(tokens, cfg, cont)
+        cfg = _strip_voice_if_carried(cfg, cont)
+        if self._crashed is not None:
+            raise self._crashed
+        req = _Request(list(tokens), cfg, Future(), cont=cont, keep_state=True)
+        self._enqueue(req)
+        audio = req.future.result(timeout=timeout)
+        return audio, req.state_out
+
+    def _validate_cont(self, tokens, cfg: GenerateConfig, cont: Optional[BatchContinuation]) -> Optional[BatchContinuation]:
+        """``cont``, or None (a fresh session) when the next chunk cannot
+        fit after it: the bound the slot prefill enforces. Reads the host
+        offset on the caller's thread."""
+        if cont is None:
+            return None
+        if cont.offset_host is None:
+            cont.offset_host = int(cont.offset.reshape(-1)[0])
+        bucket = bk.pick_bucket(len(tokens), bk.PROMPT_BUCKETS)
+        max_steps = min(cfg.max_steps or cfg.estimated_max_steps or estimate_max_frames(len(tokens)), self.max_frames)
+        if cont.capacity != self.capacity or cont.offset_host + bucket + max_steps > self.capacity:
+            return None
+        return cont
+
+    def stream_session(
+        self,
+        tokens,
+        cfg: GenerateConfig,
+        cont: Optional[BatchContinuation] = None,
+        timeout: float = 300.0,
+    ):
+        """Frame streaming with continuity: ``(blocks, next_state)``. Drain
+        ``blocks``, then ``next_state()`` gives the chunk's snapshot (None if
+        the stream was closed before it finished)."""
+        cont = self._validate_cont(tokens, cfg, cont)
+        cfg = _strip_voice_if_carried(cfg, cont)
+        box: list = []
+        blocks = self.submit_stream(tokens, cfg, timeout=timeout, cont=cont, keep_state=True, _req_out=box)
+        return blocks, lambda: box[0].state_out if box else None
+
+    def prewarm(self, token_lengths=(10, 30, 50), timeout: float = 600.0) -> None:
+        """Run the engine's admission and streaming waves once before serving.
+
+        The port compiles nothing per shape, but a first wave still pays for
+        loading the kernel libraries, the kernels' first launches, the
+        caching allocator's first blocks and the stream decoder's state:
+        a full-slot admission at each token length, a single admission, a
+        streamed single and a streamed full-slot wave. Sweeping the
+        harvest-decode buckets as well (the reference's, against compile
+        stalls) moved no first wave's latency on an H100
+        (``scripts/torch_prewarm_ab.py``) and is not done."""
+        for n_tokens in token_lengths:
+            cfg = GenerateConfig(temperature=0.0, eos_threshold=1e9, max_steps=estimate_max_frames(n_tokens))
+            for f in [self.submit([0] * n_tokens, cfg) for _ in range(self.slots)]:
+                f.result(timeout=timeout)
+            log.info("prewarmed batch bucket: %d tokens x %d slots", n_tokens, self.slots)
+        short = GenerateConfig(temperature=0.0, eos_threshold=1e9, max_steps=self.steps_per_sync)
+        tokens = [0] * token_lengths[0]
+        self.generate(tokens, short, timeout=timeout)
+        for _ in self.submit_stream(tokens, short, timeout=timeout):
+            pass
+        for blocks in [self.submit_stream(tokens, short, timeout=timeout) for _ in range(self.slots)]:
+            for _ in blocks:
+                pass
+        log.info("prewarmed single admission and the stream decode")
 
     def start(self) -> None:
         self._stop.clear()
@@ -385,7 +638,8 @@ class ContinuousBatcher:
         if self._harvest_pool is not None:
             self._harvest_pool.shutdown(wait=True)
             self._harvest_pool = None
-        # Never strand a caller: fail whatever is still attached or queued.
+        # Never strand a caller or a stream consumer: fail whatever is still
+        # attached or queued.
         if any(info.request is not None for info in self._slot_info) or not self._queue.empty():
             self._fail_all(RuntimeError("batcher stopped with requests in flight"))
 
@@ -408,37 +662,79 @@ class ContinuousBatcher:
             except queue.Empty:
                 break
             pending.append((free.pop(0), req))
-        if pending:
-            self._admit_batch(pending)
+        if not pending:
+            return
+        # A voice model state or a carried session hydrates an existing KV
+        # cache, one lane at a time; the rest prefill together.
+        batchable = []
+        for slot, req in pending:
+            if req.cfg.voice_model_state is not None or req.cont is not None:
+                try:
+                    self._prefill_into_slot(slot, req)
+                except Exception as exc:  # noqa: BLE001
+                    _fail_request(req, exc)
+            else:
+                batchable.append((slot, req))
+        if batchable:
+            self._admit_batch(batchable)
+        if self._pending_stream_resets:
+            # One in-place reset of every stream lane admitted this burst,
+            # after the stream decode enqueued before the admission.
+            idx = torch.as_tensor(self._pending_stream_resets).to(self.device, non_blocking=True)
+            self._stream_state = mimi_stream.reset_lanes(self._stream_state, idx)
+            self._pending_stream_resets = []
+
+    def _tokens(self, req: _Request) -> np.ndarray:
+        tokens = np.asarray(req.tokens, np.int64)
+        n_bins = self.model.params["flow_lm"]["conditioner_embed"].shape[0]
+        if np.any(tokens < 0) or np.any(tokens >= n_bins):
+            raise ValueError(f"token id out of range [0,{n_bins})")
+        return tokens
+
+    def _max_steps(self, cfg: GenerateConfig, n_tokens: int) -> int:
+        return min(cfg.max_steps or cfg.estimated_max_steps or estimate_max_frames(n_tokens), self.max_frames)
+
+    def _embed(self, tokens: np.ndarray, width: int) -> torch.Tensor:
+        """Text embeddings ``[1, width, D]`` of ``tokens`` padded to
+        ``width`` on the host; the pad ids' K/V sit past the lane's offset
+        and are never attended."""
+        ids = np.zeros((1, width), np.int64)
+        ids[0, : len(tokens)] = tokens
+        flow = self.model.params["flow_lm"]
+        return flm.text_embeddings(flow, torch.from_numpy(ids).to(self.device)).to(self.dtype)
 
     def _admit_batch(self, items) -> None:
-        """Prefill N requests in one batched forward and splice them in."""
+        """Prefill N requests in one batched forward and splice them in. An
+        embedding voice goes in front of the text and counts in the prompt
+        bucket."""
         flow = self.model.params["flow_lm"]
         flow_cfg = self.model.config.flow_lm
-        n_bins = flow["conditioner_embed"].shape[0]
+        d_model = flow["conditioner_embed"].shape[1]
         prepped = []
         for slot, req in items:
             try:
                 cfg = req.cfg
-                tokens = np.asarray(req.tokens, np.int64)
-                if np.any(tokens < 0) or np.any(tokens >= n_bins):
-                    raise ValueError(f"token id out of range [0,{n_bins})")
-                max_steps = cfg.max_steps or cfg.estimated_max_steps or estimate_max_frames(len(tokens))
-                max_steps = min(max_steps, self.max_frames)
-                bucket = bk.pick_bucket(len(tokens), bk.PROMPT_BUCKETS)
+                tokens = self._tokens(req)
+                max_steps = self._max_steps(cfg, len(tokens))
+                voice = None
+                if cfg.voice_embedding is not None:
+                    voice = torch.as_tensor(np.asarray(cfg.voice_embedding, np.float32)).to(self.device, self.dtype)
+                    if voice.ndim != 3 or voice.shape[0] != 1 or voice.shape[2] != d_model:
+                        raise ValueError(f"voice embedding shape {tuple(voice.shape)}, want [1, T, {d_model}]")
+                voice_len = 0 if voice is None else voice.shape[1]
+                prompt_len = voice_len + len(tokens)
+                bucket = bk.pick_bucket(prompt_len, bk.PROMPT_BUCKETS)
                 if bucket + self.max_frames > self.capacity:
                     raise ValueError(
-                        f"prompt ({len(tokens)} tokens) exceeds batcher capacity "
+                        f"prompt ({prompt_len} tokens) exceeds batcher capacity "
                         f"{self.capacity - self.max_frames}; raise prompt_capacity"
                     )
-                # Padded to the bucket on the host; the pad ids' K/V sit past
-                # the lane's offset and are never attended.
-                ids = np.zeros((1, bucket), np.int64)
-                ids[0, : len(tokens)] = tokens
-                emb = flm.text_embeddings(flow, torch.from_numpy(ids).to(self.device)).to(self.dtype)
-                prepped.append((slot, req, emb, len(tokens), bucket, max_steps))
+                emb = self._embed(tokens, bucket - voice_len)
+                if voice is not None:
+                    emb = torch.cat([voice, emb], dim=1)
+                prepped.append((slot, req, emb, prompt_len, bucket, max_steps))
             except Exception as exc:  # noqa: BLE001
-                _try_resolve(req.future, exc=exc)
+                _fail_request(req, exc)
         if not prepped:
             return
 
@@ -464,22 +760,123 @@ class ContinuousBatcher:
             )
         except Exception as exc:  # noqa: BLE001
             for _slot, req, *_ in prepped:
-                _try_resolve(req.future, exc=exc)
+                _fail_request(req, exc)
             return
         for slot, req, *_ in prepped:
-            info = self._slot_info[slot]
-            info.epoch += 1
-            info.request = req
+            self._attach_request(slot, req)
+
+    def _prefill_into_slot(self, slot: int, req: _Request) -> None:
+        """Hydrate one lane from a voice model state or a session's
+        snapshot, prefill the chunk's text after it and splice it in."""
+        cfg = req.cfg
+        if cfg.voice_embedding is not None:
+            # A session's chunks arrive stripped (_strip_voice_if_carried).
+            raise ValueError("voice embedding and model-state/session conditioning are mutually exclusive")
+        flow = self.model.params["flow_lm"]
+        flow_cfg = self.model.config.flow_lm
+        tokens = self._tokens(req)
+        max_steps = self._max_steps(cfg, len(tokens))
+        prompt_len = len(tokens)
+        bucket = bk.pick_bucket(prompt_len, bk.PROMPT_BUCKETS)
+        if cfg.voice_model_state is not None:
+            first = next(iter(cfg.voice_model_state.modules.values()))
+            voice_frames = int(np.asarray(first["offset"]).reshape(-1)[0])
+        else:
+            voice_frames = int(req.cont.offset_host)  # read by _validate_cont
+        # Bound by this chunk's own step budget, not the engine's max_frames:
+        # the lane writes K/V at offset .. offset + bucket + max_steps.
+        if voice_frames + bucket + max_steps > self.capacity:
+            raise ValueError(
+                f"prompt ({voice_frames} voice + {prompt_len} text tokens) + {max_steps} steps "
+                f"exceeds batcher KV capacity {self.capacity}; raise prompt_capacity"
+            )
+        if cfg.voice_model_state is not None:
+            lane = ftr.kv_cache_from_voice_state(
+                flow_cfg.transformer, cfg.voice_model_state.modules, self.capacity, self.dtype, self.device
+            )
+        else:
+            # Copies: the prefill writes the cache it is given in place, and
+            # a continuation may be submitted again.
+            lane = {
+                "k": req.cont.k.to(self.device, self.dtype, copy=True),
+                "v": req.cont.v.to(self.device, self.dtype, copy=True),
+                "offset": req.cont.offset.to(self.device, copy=True).reshape(()),
+            }
+        lane = flm.prompt(flow, flow_cfg, lane, self._embed(tokens, bucket), prompt_len)
+        _insert_lanes(
+            self._state,
+            [slot],
+            lane["k"],
+            lane["v"],
+            [voice_frames + prompt_len],
+            [max_steps],
+            [cfg.eos_threshold],
+            [cfg.frames_after_eos],
+            [math.sqrt(max(float(cfg.temperature), 0.0))],
+        )
+        self._attach_request(slot, req)
+
+    def _attach_request(self, slot: int, req: _Request) -> None:
+        info = self._slot_info[slot]
+        info.epoch += 1
+        info.request = req
+        info.emitted_frames = 0
+        info.streaming = req.stream is not None
+        info.stream_parts = None
+        if info.streaming:
+            if self._stream_state is None:
+                mimi_cfg = self.model.config.mimi
+                self._stream_state = mimi_stream.init_stream_state(
+                    self.model.params["mimi"],
+                    mimi_cfg,
+                    batch=self.slots,
+                    max_steps=self.max_frames * mimi_cfg.steps_per_latent,
+                    dtype=self.dtype,
+                    per_lane_offsets=True,
+                )
+            self._pending_stream_resets.append(slot)
+            info.stream_parts = []
+
+    def _any_streaming(self) -> bool:
+        return any(s.request is not None and s.streaming for s in self._slot_info)
+
+    def _emit_streams(self, pcm_np: np.ndarray, n_new: np.ndarray, epochs) -> None:
+        """Hand one decoded block (on the host) to the streaming slots'
+        consumers; ``epochs`` gates recycled slots."""
+        samples_per = self.model.config.mimi.samples_per_latent
+        for slot, info in enumerate(self._slot_info):
+            n = int(n_new[slot])
+            if info.request is None or not info.streaming or n <= 0 or info.epoch != epochs[slot]:
+                continue
+            block = pcm_np[slot, 0, : n * samples_per].astype(np.float32) / 32767.0
+            info.emitted_frames += n
+            info.stream_parts.append(block)
+            info.request.stream.put(block)
+
+    def _snapshot(self, slot: int) -> BatchContinuation:
+        k, v, offset = _snapshot_lane(self._state["cache"], slot)
+        return BatchContinuation(k=k, v=v, offset=offset, capacity=self.capacity)
 
     def _harvest(self, done, active, n_frames, epochs) -> None:
-        to_decode = []  # (slot, n) of finished requests
-        for slot in range(self.slots):
-            info = self._slot_info[slot]
+        to_decode = []  # (slot, n) of finished plain requests
+        for slot, info in enumerate(self._slot_info):
             if info.request is None or not (active[slot] and done[slot]):
                 continue
             if info.epoch != epochs[slot]:
                 continue  # stale block: its flags describe the previous occupant
-            to_decode.append((slot, int(n_frames[slot])))
+            if info.streaming:
+                # Every block was emitted already.
+                req = info.request
+                audio = np.concatenate(info.stream_parts) if info.stream_parts else np.zeros(0, np.float32)
+                if req.keep_state:
+                    # Before the end of the stream: stream_session's
+                    # next_state() is read once the generator has ended.
+                    req.state_out = self._snapshot(slot)
+                req.stream.put(None)
+                _try_resolve(req.future, result=audio)
+                self._release_slots([slot])
+            else:
+                to_decode.append((slot, int(n_frames[slot])))
         if not to_decode:
             return
         # All finished lanes decode together (count padded like admission);
@@ -497,6 +894,12 @@ class ContinuousBatcher:
         )
         # Padding lanes are dropped before the copy to the host.
         pcm = HostCopy(pcm[: len(to_decode)])
+        for slot, _n in to_decode:
+            req = self._slot_info[slot].request
+            if req.keep_state:
+                # Before the slot is freed, and before the drainer resolves
+                # the future.
+                req.state_out = self._snapshot(slot)
         items = [(self._slot_info[s].request, n) for s, n in to_decode]
         self._release_slots([s for s, _n in to_decode])
         self._harvest_pool.submit(self._drain_harvest, pcm, items)
@@ -520,6 +923,8 @@ class ContinuousBatcher:
             info = self._slot_info[slot]
             info.epoch += 1
             info.request = None
+            info.streaming = False
+            info.stream_parts = None
         idx = torch.as_tensor(slots_, dtype=torch.long).to(self.device)
         self._state["active"][idx] = False
 
@@ -537,29 +942,49 @@ class ContinuousBatcher:
 
     def _fail_all(self, exc: Exception) -> None:
         # Harvested waves belong to the drainer, which resolves them itself.
+        # A stream consumer gets the exception itself, never a clean end.
         for info in self._slot_info:
             if info.request is not None:
-                _try_resolve(info.request.future, exc=exc)
+                _fail_request(info.request, exc)
                 info.request = None
         while True:
             try:
                 req = self._queue.get_nowait()
             except queue.Empty:
                 break
-            _try_resolve(req.future, exc=exc)
+            _fail_request(req, exc)
+
+    def _reap_cancelled(self) -> None:
+        """Free the lanes whose stream consumer went away. A block already
+        enqueued runs the lane once more, for nobody; the future resolves
+        with the audio streamed so far."""
+        for slot, info in enumerate(self._slot_info):
+            req = info.request
+            if req is None or not req.cancelled.is_set():
+                continue
+            if req.stream is not None:
+                req.stream.put(None)
+            parts = info.stream_parts or []
+            _try_resolve(req.future, result=np.concatenate(parts) if parts else np.zeros(0, np.float32))
+            self._release_slots([slot])
 
     def _resolve_block(self, blk) -> None:
-        """Read a block's flags (enqueued one iteration ago, so the wait
-        overlaps the next block) and harvest the lanes it finished."""
+        """Read a block's outputs (their copies were enqueued with it, one
+        iteration ago, so the wait overlaps the next block): emit the
+        streamed PCM, then harvest the lanes it finished."""
         flags = blk["flags"].numpy()
+        if blk["pcm"] is not None:
+            self._emit_streams(blk["pcm"].numpy(), blk["n_new"].numpy(), blk["epochs"])
         self._harvest(flags[0].astype(bool), flags[1].astype(bool), flags[2], blk["epochs"])
 
     def _loop_inner(self) -> None:
         params = self.model.params["flow_lm"]
         cfg = self.model.config.flow_lm
-        k = self.steps_per_sync_burst or self.steps_per_sync
-        pending = None  # the previous block's flags, not read yet
+        k_lo = self.steps_per_sync
+        k_hi = self.steps_per_sync_burst or k_lo
+        pending = None  # the previous block's outputs, not read yet
         while not self._stop.is_set():
+            self._reap_cancelled()
             if all(s.request is None for s in self._slot_info):
                 # Nothing attached: a pending block has no reader. Admit
                 # synchronously, or wait for a request.
@@ -572,16 +997,31 @@ class ContinuousBatcher:
                     except queue.Empty:
                         pass
                     continue
+            # Streaming consumers need steps_per_sync cadence; plain traffic
+            # takes the burst block. Slots change only in _admit and harvest
+            # (this thread), so the stream decode below sees the same set.
+            streaming = [s.request is not None and s.streaming for s in self._slot_info]
+            k = k_lo if any(streaming) else k_hi
             self._last_block_k = k
-            self._state, flags = _batched_ar_multi_step(
+            self._state, windows, n_new, flags = _batched_ar_multi_step(
                 params, cfg, self._state, k, 1, self._gen, self._time_cond, self._fused_ada
             )
+            pcm = n_new_host = None
+            if any(streaming):
+                mask = torch.as_tensor(streaming).to(self.device, non_blocking=True)
+                pcm16, self._stream_state = _batched_stream_decode(self.model, self._stream_state, windows, n_new, mask)
+                pcm, n_new_host = HostCopy(pcm16), HostCopy(n_new)
             flags = HostCopy(flags)
             # Admission after the block is enqueued: the host prepares it
             # while the device runs the block, and admitted lanes join from
             # the next block on.
             self._admit()
-            prev, pending = pending, {"flags": flags, "epochs": [s.epoch for s in self._slot_info]}
+            prev, pending = pending, {
+                "flags": flags,
+                "pcm": pcm,
+                "n_new": n_new_host,
+                "epochs": [s.epoch for s in self._slot_info],
+            }
             if prev is not None:
                 self._resolve_block(prev)
         if pending is not None:  # so stop() strands no consumer
@@ -590,8 +1030,10 @@ class ContinuousBatcher:
 
 class BatcherRuntime:
     """Runtime adapter over :class:`ContinuousBatcher` with the single
-    runtime's interface (``generate_audio``, ``mimi_timing``); safe to call
-    from many threads at once (``concurrent_safe``)."""
+    runtime's interface (``generate_audio``, ``generate_audio_session``,
+    ``stream_generate``, ``stream_generate_session``, ``prewarm``,
+    ``mimi_timing``); safe to call from many threads at once
+    (``concurrent_safe``). The Service picks its routes by these names."""
 
     concurrent_safe = True
 
@@ -631,6 +1073,21 @@ class BatcherRuntime:
 
     def generate_audio(self, tokens, cfg: GenerateConfig) -> np.ndarray:
         return self.batcher.generate(tokens, cfg, timeout=self._timeout)
+
+    def generate_audio_session(self, tokens, cfg: GenerateConfig, cont: Optional[BatchContinuation] = None):
+        """Continuity through the batch: ``(audio, next state)``."""
+        return self.batcher.generate_session(tokens, cfg, cont, timeout=self._timeout)
+
+    def stream_generate(self, tokens, cfg: GenerateConfig):
+        """Frame streaming through the shared batch: PCM blocks."""
+        return self.batcher.submit_stream(tokens, cfg, timeout=self._timeout)
+
+    def stream_generate_session(self, tokens, cfg: GenerateConfig, cont: Optional[BatchContinuation] = None):
+        """Frame streaming with continuity: ``(blocks, next_state)``."""
+        return self.batcher.stream_session(tokens, cfg, cont, timeout=self._timeout)
+
+    def prewarm(self, token_lengths=(10, 30, 50)) -> None:
+        self.batcher.prewarm(token_lengths)
 
     def close(self) -> None:
         self.batcher.stop()

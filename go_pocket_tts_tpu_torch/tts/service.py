@@ -5,7 +5,8 @@ package's ``tts/service.py``).
 :func:`prepare_chunks` (≤50-token chunks) → per-chunk voice-conditioned
 generation → concatenated float32 PCM at 24 kHz. Streaming yields one
 :class:`PCMChunk` per text chunk, or, where the runtime streams frames
-(:class:`GPURuntime`), one per PCM block of a few latent frames.
+(:class:`GPURuntime`, :class:`BatcherRuntime`), one per PCM block of a few
+latent frames.
 
 The runtime is :class:`GPURuntime` (one request at a time) or, with
 ``runtime.batch_slots > 1``, :class:`BatcherRuntime` (the continuous
@@ -443,8 +444,26 @@ class Service:
         first launches and the caching allocator's first blocks. Voices
         take their own buckets, so pass the serving voices' files in
         ``voice_paths`` (``serve --prewarm`` passes every voice in the
-        manifest).
+        manifest). A runtime with a ``prewarm`` of its own (the continuous
+        batcher) runs its own traffic shapes (both admission counts, the
+        stream decode, every harvest-decode bucket), then one plain session
+        of two chunks.
         """
+        own = getattr(self.runtime, "prewarm", None)
+        if own is not None:
+            own(token_lengths)
+            # Clients can ask for continuity per request ({"continuity":
+            # true}) even when the server default is off.
+            if hasattr(self.runtime, "generate_audio_session"):
+                cfg = self._generate_config(ChunkMetadata(text="", token_ids=[0, 0, 0], num_tokens=3, num_words=3))
+                cfg.max_steps = 2
+                cfg.eos_threshold = 1e9  # pin the step count during warmup
+                _pcm, cont = self.runtime.generate_audio_session([0, 0, 0], cfg, None)
+                if cont is not None:
+                    self.runtime.generate_audio_session([0, 0, 0], cfg, cont)
+                log.info("prewarmed continuity session path")
+            self._prewarm_voices(voice_paths, token_lengths)
+            return
         gen = getattr(self.runtime, "generate_audio", None)
         if gen is None:
             return

@@ -631,6 +631,50 @@ def test_tiny_int4_batcher_kernels_match_plain(card, monkeypatch):
         assert np.sqrt(np.mean((g - w) ** 2)) < 1e-3
 
 
+def test_tiny_batched_stream_kernels_match_plain(card, monkeypatch):
+    """The float32 batcher streaming two lanes at mixed starts (the second
+    admitted a block after the first) at its serving knobs, on a tiny model
+    with 64-wide heads and a SEANet at the kernels' widths: kernels 8 (the
+    batched stream decode, per-lane starts), 4 (int8) and 5 launch, and the
+    streamed PCM is the plain versions' within the path budget."""
+    import chip_smoke
+    from go_pocket_tts_tpu_torch.parallel import ContinuousBatcher
+
+    arch = dataclasses.replace(
+        synthetic.tiny_arch(), d_model=128, num_heads=2, ffn_dim=256, seanet_channels=(32, 256, 128, 64)
+    )
+    model = load_model_from_tensors(synthetic.build_checkpoint(arch, seed=2), num_heads=arch.num_heads, device=card)
+    cfg = GenerateConfig(temperature=0.0, eos_threshold=1e9, max_steps=12)
+
+    def serve():
+        batcher = ContinuousBatcher(
+            model, slots=2, prompt_capacity=16, max_frames=16, seed=1, steps_per_sync=4, quantize=True,
+            kv_quantize=True, device=card,
+        )
+        batcher.start()
+        try:
+            first = batcher.submit_stream([3, 17, 41], cfg, timeout=120)
+            blocks = [next(first)]
+            second = batcher.submit_stream([5, 9, 2, 60, 7], cfg, timeout=120)
+            return [np.concatenate(blocks + list(first)), np.concatenate(list(second))]
+        finally:
+            batcher.stop()
+
+    kernels.reset_launches()
+    got = serve()
+    assert st.fused_up2_up3_tail.launches > 0
+    assert bda.batched_decode_attention_int8.launches > 0 and qmm.quantized_matmul.launches > 0
+    monkeypatch.setattr(bda, "batched_decode_attention_step", bda.batched_decode_attention_step_plain)
+    monkeypatch.setattr(qmm, "quantized_matmul", qmm.quantized_matmul_plain)
+    monkeypatch.setattr(st, "fused_up2_up3_tail_stream", st.fused_up2_up3_tail_stream_plain)
+    kernels.reset_launches()
+    want = serve()
+    assert [fn.launches for fn in kernels.WRAPPERS] == [0] * len(kernels.WRAPPERS)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape == (12 * 1920,)
+        assert np.sqrt(np.mean((g - w) ** 2)) < chip_smoke.PATH_RMS_TOL
+
+
 def _quantized_linears(node, path=""):
     """(path, linear) for every quantized linear of a parameter tree."""
     if isinstance(node, dict) and "w" in node and "scale" in node:

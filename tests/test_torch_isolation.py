@@ -129,6 +129,20 @@ with tempfile.TemporaryDirectory() as tmp:
 for vcfg in voices:
     voiced = rt.generate_audio([3, 17, 41], vcfg)
     assert voiced.shape == (3 * 1920,) and np.isfinite(voiced).all()
+from go_pocket_tts_tpu_torch.parallel import ContinuousBatcher
+batcher = ContinuousBatcher(model, slots=2, prompt_capacity=32, max_frames=16, seed=1, device="cpu", steps_per_sync=2)
+batcher.start()
+try:
+    blocks = list(batcher.submit_stream([3, 17, 41], cfg))
+    assert [len(b) for b in blocks] == [2 * 1920] * 3, [len(b) for b in blocks]
+    for vcfg in voices:
+        assert batcher.generate([3, 17, 41], vcfg).shape == (3 * 1920,)
+    cont = None
+    for chunk in ([3, 17, 41], [5, 9]):
+        audio, cont = batcher.generate_session(chunk, cfg, cont)
+        assert audio.shape == (6 * 1920,) and int(cont.offset[0]) > 0
+finally:
+    batcher.stop()
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "go_pocket_tts_tpu") for m in sys.modules)
 print("NO-JAX-STREAM-OK")
 """
@@ -209,8 +223,9 @@ def test_port_serves_an_int4_artifact_with_jax_blocked():
 
 def test_port_streams_runs_sessions_and_takes_a_voice_with_jax_blocked():
     """Frame streaming, a streamed and a plain session, and both kinds of
-    voice file (written, loaded and conditioned on), with jax and the JAX
-    package unimportable."""
+    voice file (written, loaded and conditioned on), on the single runtime
+    and through the continuous batcher (a streamed, a voiced and a session
+    request), with jax and the JAX package unimportable."""
     assert "NO-JAX-STREAM-OK" in _run_blocked(_STREAM_SCRIPT)
 
 

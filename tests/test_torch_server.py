@@ -2,10 +2,12 @@
 of tests/test_server.py (status codes, headers, WAV/FLAC framing, SSE,
 400/403/404/405/413/500/503/504, ``/stats`` and ``/metrics``), each sent to
 both servers with the bodies compared; then one request end to end through
-the port's ``Service`` on the CPU against the JAX package's."""
+the port's ``Service`` on the CPU against the JAX package's, and ``POST
+/tts/stream`` over both packages' batcher services."""
 
 import http.client
 import json
+import socket
 import threading
 import time
 
@@ -19,6 +21,8 @@ from go_pocket_tts_tpu_torch.server import Server, probe_http
 from go_pocket_tts_tpu_torch.server.http import make_handler
 from go_pocket_tts_tpu_torch.tts.service import CancelledError, PCMChunk
 from go_pocket_tts_tpu_torch.utils import wav
+from test_torch_batch_session import build_models, service_pair
+from test_torch_service import THREE_CHUNKS
 
 
 class _StubService:
@@ -324,3 +328,58 @@ def test_tts_end_to_end_through_the_services():
     assert rate == 24000 and got.shape == want.shape == (5 * 1920,)
     assert rms_delta(got, want) < 1e-3
     assert stats["ok_total"] == 1 and stats["audio_seconds_total"] == 0.4
+
+
+# -- the batcher's frame streaming over HTTP -----------------------------------
+
+
+def _chunk_sizes(port: int, path: str, body: dict):
+    """The chunk sizes of a chunked HTTP response, read off the wire."""
+    with socket.create_connection(("127.0.0.1", port), timeout=120) as sock:
+        data = json.dumps(body).encode()
+        sock.sendall(
+            f"POST {path} HTTP/1.1\r\nHost: x\r\nContent-Type: application/json\r\nContent-Length: {len(data)}\r\n"
+            f"Connection: close\r\n\r\n".encode() + data
+        )
+        raw = b""
+        while True:
+            part = sock.recv(1 << 16)
+            if not part:
+                break
+            raw += part
+    head, rest = raw.split(b"\r\n\r\n", 1)
+    assert head.startswith(b"HTTP/1.1 200") or head.startswith(b"HTTP/1.0 200"), head[:40]
+    sizes = []
+    while True:
+        line, rest = rest.split(b"\r\n", 1)
+        n = int(line, 16)
+        if n == 0:
+            return sizes
+        sizes.append(n)
+        rest = rest[n + 2 :]
+
+
+@pytest.fixture(scope="module")
+def batcher_services():
+    with service_pair(build_models()) as pair:
+        yield pair
+
+
+def test_stream_over_http_gives_the_reference_layout(batcher_services):
+    """``POST /tts/stream`` over the batcher services: the port's server
+    sends the JAX server's chunks (the WAV header, then one PCM block per
+    chunk of 4 frames and its remainder), several per text chunk."""
+    pair = [cls(svc, None, listen_addr="127.0.0.1:0", request_timeout=120) for cls, svc in zip((JServer, Server), batcher_services)]
+    for srv in pair:
+        srv.start()
+    try:
+        want, got = (_chunk_sizes(srv.port, "/tts/stream", {"text": THREE_CHUNKS}) for srv in pair)
+        conn = http.client.HTTPConnection("127.0.0.1", pair[1].port, timeout=120)
+        conn.request("GET", "/stats")
+        stats = json.loads(conn.getresponse().read())
+        conn.close()
+    finally:
+        for srv in pair:
+            srv.shutdown()
+    assert got == want == [44] + [4 * 1920 * 2, 2 * 1920 * 2] * 3
+    assert stats["ok_total"] == 1

@@ -176,7 +176,7 @@ def test_batcher_route_matches(services, models):
     want_layout, want = _run(j, THREE_CHUNKS)
     assert got_layout == want_layout
     assert rms_delta(got, want) < RMS_BUDGET
-    assert not svc.supports_frame_streaming
+    assert svc.supports_frame_streaming  # the batcher streams frames (BatcherRuntime.stream_generate)
 
 
 def test_cancel_raises(services):

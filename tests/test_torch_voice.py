@@ -246,10 +246,17 @@ def test_voice_embedding_validation_matches_reference(models):
 
 @pytest.mark.parametrize("kind", ["embedding", "model_state"])
 def test_batcher_rejects_a_voiced_request(models, kind):
-    """The batcher has no voice path yet: it fails the request, naming the
-    slice that brings it, rather than serve it without the voice."""
+    """The batcher serves a voiced request with its voice: the single
+    runtime's audio for the same voice (against the JAX batcher:
+    tests/test_torch_batch_session.py)."""
     _, tm = models
     _, tcfg = _configs(kind)
-    batcher = ContinuousBatcher(tm, slots=2, prompt_capacity=16, max_frames=16, seed=1, device="cpu")
-    with pytest.raises(ValueError, match="voice conditioning is not ported to the batcher"):
-        batcher.submit(TOKENS, tcfg).result(timeout=10)
+    want = GPURuntime(tm, seed=1, frame_bucket=64, device="cpu").generate_audio(TOKENS, tcfg)
+    batcher = ContinuousBatcher(tm, slots=2, prompt_capacity=64, max_frames=16, seed=1, device="cpu")
+    batcher.start()
+    try:
+        got = batcher.submit(TOKENS, tcfg).result(timeout=60)
+    finally:
+        batcher.stop()
+    assert got.shape == want.shape == (12 * 1920,)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-3)
