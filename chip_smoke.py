@@ -92,6 +92,26 @@ failure exits non-zero:
    against ``GPURuntime.generate_audio_session``'s, each within
    ``PATH_RMS_TOL``. Its launches must include kernels 8, 4 (int8), 5, 7
    and 2.
+13. voice cloning (after phase 12's path re-timing; its launches in a dict
+   of their own): a seeded 10 s speaker clip written as 16-bit 24 kHz WAV
+   under the git-ignored ``build/phase13/``; the float32 ``real_arch()``
+   Mimi encoder and speaker projection on the card against the same
+   function on the CPU (TF32 switched on in this process: the encoder
+   scopes float32 itself), held at ``ENCODE_RTOL`` relative RMS, and
+   padded (blocked local attention) against unpadded (dense); the encode's
+   device time at each upload bucket (64, 128, 256, 512 frames) beside its
+   bound (its operations from the shapes, float32 CUDA cores), and its
+   peak memory; both voice kinds exported from the clip, their kinds
+   checked, then 24 tokens synthesized with each through ``GPURuntime``
+   (bfloat16, temperature 0; kernels 1, 7, 2), each differing from the
+   plain request; the port's server over the 8-slot int8 batcher with a
+   ``VoiceUploader``: ``POST /voices`` (the first builds the encoder; then
+   with and without prewarm), ``GET /voices``, a voiced ``POST /tts`` and
+   ``POST /tts/stream`` (kernels 4, 5, 7, 2, 8), 409 for a duplicate id,
+   400 for a 45 s clip, and a wave of 8 ``POST /tts`` with and without an
+   upload beside it; last, ``python -m go_pocket_tts_tpu_torch
+   export-voice`` in both formats as two subprocesses at once (default
+   TF32 flags), held against the in-process exports.
 
 Phase 2 also holds the SEANet kernels (bf16 on tensor cores) against
 their plain versions at 160 frames, bit-equal over two calls: kernels 2
@@ -1917,12 +1937,13 @@ def voices_sessions_cancel(rt, arch, counts: dict) -> None:
     read_launches("phase 12's voices, sessions and cancel", must, counts, PHASE12_SHAPES)
 
 
-def _http_stream_chunks(port: int, text: str, t0: float) -> list:
-    """POST /tts/stream and read its chunked body off the socket: ``[(seconds
-    since t0, payload), ...]``, the WAV header first."""
+def _http_stream_chunks(port: int, text: str, t0: float, voice: str = "") -> list:
+    """POST /tts/stream (with ``voice``, if given) and read its chunked body
+    off the socket: ``[(seconds since t0, payload), ...]``, the WAV header
+    first."""
     import socket
 
-    body = json.dumps({"text": text}).encode()
+    body = json.dumps({"text": text, **({"voice": voice} if voice else {})}).encode()
     with socket.create_connection(("127.0.0.1", port), timeout=300) as sock:
         sock.sendall(
             b"POST /tts/stream HTTP/1.1\r\nHost: localhost\r\nContent-Type: application/json\r\n"
@@ -2133,6 +2154,422 @@ def batched_serving_whole(model, arch, fixtures, int8_one_shot: float) -> None:
     print(f"  phase 12 launches: {counts}")
 
 
+# -- phase 13: voice cloning ------------------------------------------------------
+
+CLIP_SECONDS = 10.0
+LONG_CLIP_SECONDS = 45.0  # past the encoder's 40.96 s: refused with 400
+ENCODE_RTOL = 1e-4  # relative RMS of an encode against the CPU's, float32
+ENCODE_BUCKETS = (64, 128, 256, 512)  # the upload buckets, in frames
+
+
+def speaker_clip(seconds: float, seed: int) -> np.ndarray:
+    """A seeded voice-like clip at 24 kHz: a gliding fundamental and two
+    harmonics, syllable-rate amplitude, and noise; float32 in [-1, 1]."""
+    rng = np.random.RandomState(seed)
+    t = np.arange(int(seconds * 24000)) / 24000
+    f0 = 120 + 30 * np.sin(2 * np.pi * 0.4 * t) + 5 * rng.randn()
+    phase = 2 * np.pi * np.cumsum(f0) / 24000
+    x = 0.3 * np.sin(phase) + 0.15 * np.sin(2 * phase + 0.3) + 0.08 * np.sin(3 * phase + 1.1)
+    x = x * (0.6 + 0.4 * np.sin(2 * np.pi * 3.0 * t)) + 0.02 * rng.randn(t.size)
+    return np.clip(x, -1, 1).astype(np.float32)
+
+
+def rel_rms(got: np.ndarray, want: np.ndarray) -> float:
+    return float(np.sqrt(np.mean((got - want) ** 2)) / np.sqrt(np.mean(want**2)))
+
+
+def encode_work(encoder, n: int):
+    """(bytes, operations) of one encode of ``n`` samples and its speaker
+    projection: the PCM, every weight and the conditioning once; each
+    convolution at its output length, the transformer's linears, its
+    windowed attention over the causal pairs its window holds (QK and PV),
+    the downsample and the projection; a multiply-add is two operations."""
+    from go_pocket_tts_tpu_torch.models.params import tree_map
+
+    params, cfg = encoder.encoder, encoder.cfg
+
+    def conv(p, t_out: int) -> float:
+        o, i, k = p["w"].shape
+        return 2.0 * o * i * k * t_out
+
+    t = n
+    flops = conv(params["init_conv"], t)
+    for slot, stride in enumerate(reversed(cfg.seanet_strides)):
+        res = params[f"res{slot + 1}"]
+        flops += conv(res["conv1"], t) + conv(res["conv2"], t)
+        t //= stride
+        flops += conv(params[f"down{slot + 1}"], t)
+    flops += conv(params["final_conv"], t)
+    d = params["final_conv"]["w"].shape[0]
+    pairs = float(np.minimum(np.arange(1, t + 1), cfg.context).sum())
+    for layer in params["transformer"]["layers"]:
+        flops += 2.0 * t * sum(layer[k]["w"].numel() for k in ("in_proj", "out_proj", "linear1", "linear2"))
+        flops += 2 * 2.0 * pairs * d
+    frames = t // cfg.steps_per_latent
+    flops += conv(params["downsample"], frames) + 2.0 * frames * encoder.speaker_proj.numel()
+    sizes: list = []
+    tree_map(lambda _path, leaf: sizes.append(leaf.numel() * leaf.element_size()), params)
+    weights = sum(sizes) + encoder.speaker_proj.numel() * 4
+    return 4.0 * n + weights + 4.0 * frames * encoder.speaker_proj.shape[0], flops
+
+
+def encoder_on_card(tensors, clip: np.ndarray) -> None:
+    """The float32 encoder on the card against the same function on the CPU
+    (the card's run with TF32 switched on in this process: the encoder
+    scopes float32 itself), padded against unpadded on the card, and the
+    encode's device time at each upload bucket beside its bound."""
+    from go_pocket_tts_tpu_torch.device import exact_float32
+    from go_pocket_tts_tpu_torch.models.mimi_encoder import mimi_encode
+    from go_pocket_tts_tpu_torch.tts.voice_export import VoiceEncoder
+
+    t = time.perf_counter()
+    card = VoiceEncoder(tensors, device="cuda")
+    cpu = VoiceEncoder(tensors, device="cpu")
+    print(f"  VoiceEncoder built on the card and on the CPU in {time.perf_counter() - t:.1f} s  [{CARD}]")
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = card.encode_samples(clip, 24000)
+        padded = card.encode_samples(clip, 24000, pad_to_bucket=True)
+        if (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) != (True, True):
+            fail("the encode did not restore the caller's TF32 flags")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    t = time.perf_counter()
+    want = cpu.encode_samples(clip, 24000)
+    cpu_s = time.perf_counter() - t
+    frames = len(clip) // 1920
+    want_shape = (1, frames, card.speaker_proj.shape[0])
+    if got.shape != want_shape or not np.isfinite(got).all():
+        fail(f"encoder on the card: {got.shape}, want {want_shape}, finite")
+    err = rel_rms(got, want)
+    pad_err = float(np.abs(padded - got).max())
+    print(
+        f"  encoder float32, {CLIP_SECONDS:.0f} s clip -> {got.shape}: card (TF32 on in the process) against CPU: "
+        f"RMS {np.sqrt(np.mean(want ** 2)):.4e}, max abs {np.abs(got - want).max():.3e}, relative RMS {err:.3e} "
+        f"(budget {ENCODE_RTOL}); padded to {next(b for b in ENCODE_BUCKETS if b >= frames)} frames (local attention) against unpadded (dense), "
+        f"card: max abs {pad_err:.3e}; the CPU encode took {cpu_s:.2f} s  [{CARD}]"
+    )
+    if err > ENCODE_RTOL or pad_err > 1e-5:
+        fail(f"encoder: card against CPU relative RMS {err:.3e}, padded against unpadded {pad_err:.3e}")
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for frames in ENCODE_BUCKETS:
+        n = frames * 1920
+        pcm = torch.randn((1, 1, n), generator=gen, device="cuda") * 0.1
+
+        def encode():
+            emb = mimi_encode(card.encoder, card.cfg, pcm)
+            return torch.matmul(emb.transpose(1, 2), card.speaker_proj.T)
+
+        with torch.inference_mode(), exact_float32():
+            encode()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ms = eager_ms(encode, 5)
+            peak = torch.cuda.max_memory_allocated()
+        bytes_moved, flops = encode_work(card, n)
+        b_ms, by = bound(bytes_moved, flops, torch.float32)
+        print(
+            f"  encode, {frames} frames ({n / 24000:.2f} s, {n // 120} steps at 200 Hz): {ms:.3f} ms (median of 5, "
+            f"CUDA events) against a bound of {b_ms:.3f} ms ({by}: {flops / 1e9:.1f} GFLOP float32 at "
+            f"{PEAK_FLOPS[torch.float32] / 1e12:.0f} TFLOP/s), x{ms / b_ms:.1f}; {flops / ms / 1e9:.1f} TFLOP/s; "
+            f"peak memory {peak / 2**20:.0f} MiB ({(peak - base) / 2**20:.0f} MiB above the "
+            f"{base / 2**20:.0f} MiB held before)  [{CARD}]"
+        )
+
+
+def exported_voices(model, arch, root: str, model_path: str, clip_path: str, counts: dict):
+    """Both voice kinds exported from the clip on the card, their kinds
+    checked, then 24 tokens synthesized with each through ``GPURuntime``
+    (bfloat16, temperature 0) beside the plain request; returns the
+    exported embedding and model state."""
+    from go_pocket_tts_tpu_torch import kernels
+    from go_pocket_tts_tpu_torch.runtime import GenerateConfig, GPURuntime
+    from go_pocket_tts_tpu_torch.runtime.generate import estimate_max_frames
+    from go_pocket_tts_tpu_torch.tts.voice_export import export_voice_embedding, export_voice_model_state
+    from go_pocket_tts_tpu_torch.utils.safetensors import (
+        VoiceFileKind,
+        inspect_voice_file,
+        load_voice_embedding,
+        load_voice_model_state,
+    )
+
+    out = os.path.join(root, "build", "phase13")
+    emb_path, state_path = os.path.join(out, "voice_embedding.safetensors"), os.path.join(out, "voice_state.safetensors")
+    t = time.perf_counter()
+    emb = export_voice_embedding(model_path, clip_path, emb_path, device="cuda")
+    t_emb = time.perf_counter() - t
+    t = time.perf_counter()
+    offset = export_voice_model_state(model_path, clip_path, state_path, num_heads=arch.num_heads, device="cuda")
+    t_state = time.perf_counter() - t
+    kinds = (inspect_voice_file(emb_path), inspect_voice_file(state_path))
+    if kinds != (VoiceFileKind.EMBEDDING, VoiceFileKind.MODEL_STATE) or offset != emb.shape[1]:
+        fail(f"exported voices: kinds {kinds}, offset {offset} for {emb.shape[1]} frames")
+    state = load_voice_model_state(state_path)
+    print(
+        f"  export-voice in process: embedding {emb.shape} in {t_emb:.1f} s, model state ({len(state.modules)} layers, "
+        f"offset {offset}) in {t_state:.1f} s (each: checkpoint read, encoder load, encode; the state also the "
+        f"float32 model and its prefill)  [{CARD}]"
+    )
+
+    rt = GPURuntime(model, dtype=torch.bfloat16, seed=SEED, device="cuda")
+    tokens = main_requests(arch)[1][0]
+    frames = estimate_max_frames(len(tokens))
+    cfg0 = GenerateConfig(temperature=0.0, eos_threshold=1e9)
+    rt.generate_audio(tokens, dataclasses.replace(cfg0, voice_embedding=load_voice_embedding(emb_path)))  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    walls = {}
+    audio = {}
+    for what, cfg in (
+        ("plain", cfg0),
+        ("embedding", dataclasses.replace(cfg0, voice_embedding=load_voice_embedding(emb_path))),
+        ("model state", dataclasses.replace(cfg0, voice_model_state=state)),
+    ):
+        t = time.perf_counter()
+        audio[what] = rt.generate_audio(tokens, cfg)
+        walls[what] = time.perf_counter() - t
+        check_audio(audio[what], frames, f"GPURuntime, {what}")
+    read_launches(
+        "phase 13's voiced GPURuntime requests",
+        ("decode_attention_step", "fused_up2_res", "fused_seanet_up_tail"),
+        counts,
+        shapes=None,
+    )
+    d_emb, d_state = (float(np.sqrt(np.mean((audio[w] - audio["plain"]) ** 2))) for w in ("embedding", "model state"))
+    print(
+        f"  GPURuntime bf16, {len(tokens)} tokens, {frames} frames, temperature 0: walls "
+        f"{ {k: round(v * 1e3, 1) for k, v in walls.items()} } ms; RMS voiced - plain: exported embedding "
+        f"{d_emb:.3e}, exported model state {d_state:.3e}  [{CARD}]"
+    )
+    if not (d_emb > 1e-3 and d_state > 1e-3):
+        fail("a request voiced by an exported voice did not differ from the plain request")
+    return emb, state
+
+
+def _post_json(port: int, path: str, obj, timeout: float = 300.0):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("POST", path, body=json.dumps(obj), headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def _tts_wave(port: int, frames, upload=None):
+    """8 POST /tts at once (BATCH_TEXTS), each WAV checked; with ``upload``
+    (an id and a WAV) one POST /voices sent beside them. Returns the wave's
+    wall, its PCM and the upload's (status, wall)."""
+    import base64
+    from concurrent.futures import ThreadPoolExecutor
+
+    from go_pocket_tts_tpu_torch.utils.wav import decode_wav
+
+    def tts(text):
+        status, body = _post_json(port, "/tts", {"text": text})
+        if status != 200:
+            fail(f"POST /tts in a wave: status {status}: {body[:200]!r}")
+        return body
+
+    def up():
+        t = time.perf_counter()
+        status, body = _post_json(port, "/voices", {"id": upload[0], "audio": base64.b64encode(upload[1]).decode()})
+        return status, time.perf_counter() - t, body
+
+    with ThreadPoolExecutor(max_workers=len(BATCH_TEXTS) + 1) as pool:
+        t0 = time.perf_counter()
+        futs = [pool.submit(tts, text) for text in BATCH_TEXTS]
+        uploaded = pool.submit(up) if upload else None
+        bodies = [f.result() for f in futs]
+        wall = time.perf_counter() - t0
+        up_result = uploaded.result() if uploaded else None
+    for i, (body, n) in enumerate(zip(bodies, frames)):
+        check_wav(body, n, f"wave POST /tts {i}")
+    return wall, [decode_wav(b)[0] for b in bodies], up_result
+
+
+def upload_server(model_path: str, tok_path: str, clip_wav: bytes, long_wav: bytes, counts: dict) -> None:
+    """The port's server over the 8-slot int8 batcher service (serving
+    autotune, temperature 0) with a ``VoiceUploader`` over a temporary
+    directory: uploads with and without prewarm, ``GET /voices``, a voiced
+    ``POST /tts`` and ``POST /tts/stream``, 409 and 400, and a wave of 8
+    ``POST /tts`` with and without an upload beside it."""
+    import base64
+    import urllib.request
+
+    from go_pocket_tts_tpu_torch import kernels
+    from go_pocket_tts_tpu_torch.config import apply_serving_autotune
+    from go_pocket_tts_tpu_torch.server import Server
+    from go_pocket_tts_tpu_torch.tts.service import Service
+    from go_pocket_tts_tpu_torch.tts.voice_upload import VoiceUploader
+    from go_pocket_tts_tpu_torch.tts.voices import VoiceManager
+    from go_pocket_tts_tpu_torch.utils.wav import decode_wav, streaming_wav_header
+
+    cfg = entry_config(model_path, tok_path, batch_slots=8, temperature=0.0)
+    apply_serving_autotune(cfg)
+    # A 10 s voice takes 125 prompt positions: with a text chunk the prompt
+    # buckets to 256, past the default KV room of 128.
+    cfg.runtime.batch_prompt_capacity = 256
+    svc = Service.from_config(cfg)
+    with tempfile.TemporaryDirectory() as vdir:
+        voices = VoiceManager.in_memory(vdir)
+        uploader = VoiceUploader(model_path, vdir, voices, service=svc, prewarm=True, device="cuda")
+        srv = Server(svc, voices, listen_addr="127.0.0.1:0", workers=8, request_timeout=300, voice_uploader=uploader)
+        srv.start()
+        try:
+            port = srv.port
+            audio = base64.b64encode(clip_wav).decode()
+            frames = [chunk_frames(svc.tokenizer, text)[0][1] for text in BATCH_TEXTS]
+            _post_json(port, "/tts", {"text": BATCH_TEXTS[0]})  # warm-up
+            walls = []
+            # The first upload builds the encoder (checkpoint read); the
+            # next two encode with it, with and without the prewarm.
+            for vid, prewarm in (("first", False), ("cloned", True), ("cloned-cold", False)):
+                uploader.prewarm = prewarm
+                t = time.perf_counter()
+                status, body = _post_json(port, "/voices", {"id": vid, "audio": audio})
+                walls.append(time.perf_counter() - t)
+                record = json.loads(body).get("voice", {}) if status == 200 else {}
+                if status != 200 or record.get("frames") != int(CLIP_SECONDS * 12.5) or record.get("prewarmed") != prewarm:
+                    fail(f"POST /voices {vid}: {status} {body[:300]!r}")
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/voices", timeout=60) as resp:
+                listed = [v["id"] for v in json.loads(resp.read())["voices"]]
+            if listed != ["first", "cloned", "cloned-cold"]:
+                fail(f"GET /voices after the uploads: {listed}")
+            print(
+                f"  POST /voices, {CLIP_SECONDS:.0f} s clip ({len(clip_wav)} WAV bytes): the first (encoder build, "
+                f"no prewarm) {walls[0] * 1e3:.1f} ms, then with prewarm {walls[1] * 1e3:.1f} ms, without prewarm "
+                f"{walls[2] * 1e3:.1f} ms; GET /voices lists {listed}  [{CARD}]"
+            )
+
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t = time.perf_counter()
+            status, body = _post_json(port, "/tts", {"text": BATCH_TEXTS[2], "voice": "cloned"})
+            t_tts = time.perf_counter() - t
+            if status != 200:
+                fail(f"voiced POST /tts: {status} {body[:200]!r}")
+            check_wav(body, frames[2], "POST /tts with the uploaded voice")
+            plain_status, plain = _post_json(port, "/tts", {"text": BATCH_TEXTS[2]})
+            d_voice = float(np.sqrt(np.mean((decode_wav(body)[0] - decode_wav(plain)[0]) ** 2)))
+            t = time.perf_counter()
+            reply = _http_stream_chunks(port, BATCH_TEXTS[3], t, voice="cloned")
+            t_stream = time.perf_counter() - t
+            if reply[0][1] != streaming_wav_header() or sum(len(p) for _, p in reply[1:]) != frames[3] * 1920 * 2:
+                fail("POST /tts/stream with the uploaded voice: wrong header or length")
+            read_launches(
+                "phase 13's voiced requests over the upload server",
+                ("batched_decode_attention_int8", "quantized_matmul", "fused_up2_res", "fused_seanet_up_tail",
+                 "fused_up2_up3_tail"),
+                counts,
+                shapes=None,
+            )
+            print(
+                f"  with the uploaded voice: POST /tts {frames[2]} frames in {t_tts * 1e3:.1f} ms (RMS voiced - "
+                f"plain {d_voice:.3e}), POST /tts/stream {frames[3]} frames in {len(reply) - 1} PCM blocks, "
+                f"first after {reply[1][0] * 1e3:.1f} ms, whole {t_stream * 1e3:.1f} ms  [{CARD}]"
+            )
+            if plain_status != 200 or not d_voice > 1e-3:
+                fail(f"voiced POST /tts did not differ from the plain one (RMS {d_voice:.3e})")
+
+            status, body = _post_json(port, "/voices", {"id": "cloned", "audio": audio})
+            if status != 409:
+                fail(f"duplicate POST /voices: {status}, want 409")
+            status, long_body = _post_json(port, "/voices", {"id": "too-long", "audio": base64.b64encode(long_wav).decode()})
+            if status != 400 or b"40.96 s" not in long_body:
+                fail(f"{LONG_CLIP_SECONDS:.0f} s POST /voices: {status} {long_body[:300]!r}, want 400 naming 40.96 s")
+            print(f"  duplicate id: 409; {LONG_CLIP_SECONDS:.0f} s clip: 400 {json.loads(long_body)['error']!r}")
+
+            uploader.prewarm = False
+            wall, base_pcm, _ = _tts_wave(port, frames)
+            wall_up, up_pcm, (up_status, up_wall, up_body) = _tts_wave(port, frames, ("during-wave", clip_wav))
+            if up_status != 200:
+                fail(f"POST /voices beside the wave: {up_status} {up_body[:200]!r}")
+            secs = sum(frames) * 1920 / 24000
+            diff = max(float(np.abs(a - b).max()) for a, b in zip(base_pcm, up_pcm))
+            print(
+                f"  8 POST /tts at once ({frames} frames, temperature 0): x{secs / wall:.2f} real time aggregate "
+                f"({wall * 1e3:.1f} ms) without an upload, x{secs / wall_up:.2f} ({wall_up * 1e3:.1f} ms) with one "
+                f"POST /voices beside it (its wall {up_wall * 1e3:.1f} ms); max abs PCM difference between the two "
+                f"waves {diff:.3e}  [{CARD}]"
+            )
+        finally:
+            srv.shutdown()
+            svc.close()
+
+
+def cli_export_voice(root: str, model_path: str, clip_path: str, emb: np.ndarray, state) -> None:
+    """``python -m go_pocket_tts_tpu_torch export-voice`` in both formats, as
+    two subprocesses at once on the card with the process's default TF32
+    flags, held against the in-process exports."""
+    from go_pocket_tts_tpu_torch.utils.safetensors import load_voice_embedding, load_voice_model_state
+
+    out = os.path.join(root, "build", "phase13")
+    env = {**os.environ, "PYTHONPATH": root, "POCKETTTS_PATHS_MODEL_PATH": model_path}
+    env.pop("POCKETTTS_PLATFORM", None)
+    paths = {fmt: os.path.join(out, f"cli_{fmt}.safetensors") for fmt in ("embedding", "model-state")}
+    t = time.perf_counter()
+    procs = {
+        fmt: subprocess.Popen(
+            [sys.executable, "-m", "go_pocket_tts_tpu_torch", "export-voice", "--input", clip_path, "--output", path,
+             "--format", fmt, "--voice-id", "cli"],
+            cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        for fmt, path in paths.items()
+    }
+    for fmt, proc in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=300)
+        finally:
+            proc.kill()
+        lines = stdout.strip().splitlines()
+        if proc.returncode != 0 or len(lines) != 2 or json.loads(lines[0])["frames"] != emb.shape[1]:
+            fail(f"CLI export-voice --format {fmt} exited {proc.returncode}: {stdout[-500:]} {stderr[-2000:]}")
+    wall = time.perf_counter() - t
+    err_emb = rel_rms(load_voice_embedding(paths["embedding"]), emb)
+    got = load_voice_model_state(paths["model-state"]).modules
+    err_state = max(rel_rms(got[m]["cache"], state.modules[m]["cache"]) for m in state.modules)
+    print(
+        f"  CLI export-voice subprocesses (both formats at once, default TF32 flags) in {wall:.1f} s wall; against "
+        f"the in-process exports: embedding relative RMS {err_emb:.3e}, model-state caches {err_state:.3e} "
+        f"(budget {ENCODE_RTOL})  [{CARD}]"
+    )
+    if err_emb > ENCODE_RTOL or err_state > ENCODE_RTOL:
+        fail(f"CLI export-voice against the in-process export: {err_emb:.3e}, {err_state:.3e}")
+
+
+def voice_cloning(model, arch, fixtures, root: str) -> None:
+    """Phase 13. Its launches are read into a dict of their own: the kernel
+    table's totals stay those of phases 3, 5, 7 and 9."""
+    from go_pocket_tts_tpu_torch.utils.wav import decode_wav, encode_wav
+
+    model_path, tok_path = fixtures
+    _, tensors = checkpoint()
+    if "condition_provider.conditioners.speaker_wavs.output_proj.weight" not in tensors:
+        fail("the seeded checkpoint has no speaker projection")
+    out = os.path.join(root, "build", "phase13")
+    os.makedirs(out, exist_ok=True)
+    clip_wav = encode_wav(speaker_clip(CLIP_SECONDS, SEED + 13), 24000)
+    long_wav = encode_wav(speaker_clip(LONG_CLIP_SECONDS, SEED + 14), 24000)
+    clip_path = os.path.join(out, "speaker.wav")
+    with open(clip_path, "wb") as f:
+        f.write(clip_wav)
+    clip = decode_wav(clip_wav)[0]  # the 16-bit samples the encoders read
+    counts: dict = {}
+    encoder_on_card(tensors, clip)
+    emb, state = exported_voices(model, arch, root, model_path, clip_path, counts)
+    torch.cuda.empty_cache()
+    upload_server(model_path, tok_path, clip_wav, long_wav, counts)
+    torch.cuda.empty_cache()
+    cli_export_voice(root, model_path, clip_path, emb, state)
+    print(f"  phase 13 launches: {counts}")
+
+
 def main() -> int:
     global CARD
     if not torch.cuda.is_available():
@@ -2220,6 +2657,11 @@ def main() -> int:
     print(f"  phase 12 took {time.perf_counter() - t:.1f} s  [{CARD}]")
     print("the SEANet kernels' device time on phase 12's paths (bfloat16)")
     path_device_times(rows, PHASE12_SHAPES, "phase12_path")
+
+    print("phase 13: voice cloning: encoder, export-voice, POST /voices, voiced synthesis (real_arch)")
+    t = time.perf_counter()
+    voice_cloning(model, arch, fixtures, root)
+    print(f"  phase 13 took {time.perf_counter() - t:.1f} s  [{CARD}]")
 
     for name, row in rows.items():
         row["launches"] = counts.get(name, 0)

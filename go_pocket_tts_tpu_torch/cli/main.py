@@ -1,11 +1,12 @@
 """CLI entry point of the port (counterpart of the reference package's
 ``cli/main.py``).
 
-Subcommands: ``synth``, ``serve`` and ``health``. Run via
+Subcommands: ``synth``, ``serve`` (with ``--voice-upload-dir``, ``POST
+/voices``), ``export-voice`` and ``health``. Run via
 ``python -m go_pocket_tts_tpu_torch <cmd> ...`` or ``pockettts-gpu <cmd>``.
-The reference's other subcommands (``export-voice``, ``bench``,
-``stageprof``, ``doctor``, ``model …``, ``voice download``) are not ported
-yet: calling one exits 2 with a message (``ROADMAP.md`` §1).
+The reference's other subcommands (``bench``, ``stageprof``, ``doctor``,
+``model …``, ``voice download``) are not ported yet: calling one exits 2
+with a message (``ROADMAP.md`` §1).
 
 Every subcommand loads flags > env (``POCKETTTS_*``) > config file >
 defaults before running (`cmd/pockettts/root.go:24-38`).
@@ -39,7 +40,7 @@ _LOG_LEVELS = {
 }
 
 # The reference's subcommands that this package does not have yet.
-NOT_PORTED = ("export-voice", "bench", "stageprof", "doctor", "model", "voice")
+NOT_PORTED = ("bench", "stageprof", "doctor", "model", "voice")
 
 
 def _setup_logging(level: str) -> None:
@@ -174,6 +175,27 @@ def cmd_serve(args) -> int:
                 except (KeyError, FileNotFoundError) as exc:
                     log.warning("prewarm: voice %r unavailable (%s)", v.id, exc)
         svc.prewarm(voice_paths=voice_paths)
+    uploader = None
+    if cfg.server.voice_upload_dir:
+        # Runtime voice cloning (POST /voices): uploads encode through the
+        # Mimi encoder on the service's device, land in this directory,
+        # register with the live voice list, and prewarm when the server
+        # itself prewarmed.
+        from go_pocket_tts_tpu_torch.tts.voice_upload import VoiceUploader
+        from go_pocket_tts_tpu_torch.tts.voices import VoiceManager
+
+        if voices is None:
+            voices = VoiceManager.in_memory(cfg.server.voice_upload_dir)
+        uploader = VoiceUploader(
+            model_path=cfg.paths.model_path,
+            upload_dir=cfg.server.voice_upload_dir,
+            voices=voices,
+            service=svc,
+            max_audio_bytes=cfg.server.max_voice_audio_bytes,
+            prewarm=bool(args.prewarm),
+            device=cfg.runtime.device,
+        )
+        log.info("voice upload enabled: dir=%s", cfg.server.voice_upload_dir)
     # With continuous batching, request concurrency should cover the slots —
     # the semaphore otherwise starves the batch.
     workers = max(cfg.server.workers, cfg.runtime.batch_slots)
@@ -185,6 +207,7 @@ def cmd_serve(args) -> int:
         max_text_bytes=cfg.server.max_text_bytes,
         request_timeout=cfg.server.request_timeout_secs,
         shutdown_timeout=cfg.server.shutdown_timeout_secs,
+        voice_uploader=uploader,
     )
     log.info("serving on %s (backend=%s device=%s)", cfg.server.listen_addr, cfg.tts.backend, cfg.runtime.device)
 
@@ -197,6 +220,30 @@ def cmd_serve(args) -> int:
         srv.serve_forever()
     finally:
         svc.close()
+    return 0
+
+
+# -- export-voice ------------------------------------------------------------
+
+
+def cmd_export_voice(args) -> int:
+    cfg = _load_config(args)
+    _setup_logging(cfg.log_level)
+    from go_pocket_tts_tpu_torch.tts.voice_export import export_voice_embedding, export_voice_model_state
+
+    if args.format == "model-state":
+        frames = export_voice_model_state(
+            model_path=cfg.paths.model_path, input_audio=args.input, output_path=args.output, device=cfg.runtime.device
+        )
+    else:
+        out = export_voice_embedding(
+            model_path=cfg.paths.model_path, input_audio=args.input, output_path=args.output, device=cfg.runtime.device
+        )
+        frames = out.shape[1]
+    print(json.dumps({"output": args.output, "frames": frames, "format": args.format}))
+    print(
+        json.dumps({"suggested_manifest_entry": {"id": args.voice_id or "custom", "path": args.output, "license": ""}})
+    )
     return 0
 
 
@@ -270,6 +317,21 @@ def build_parser() -> argparse.ArgumentParser:
         "--prewarm",
         action="store_true",
         help="Run the common shape buckets once before accepting traffic",
+    )
+
+    p = add("export-voice", cmd_export_voice, "Export a voice from a WAV prompt")
+    p.add_argument(
+        "--input", "--audio", dest="input", required=True, help="Input speaker WAV (--audio: reference alias)"
+    )
+    p.add_argument(
+        "--output", "--out", dest="output", required=True, help="Output .safetensors path (--out: reference alias)"
+    )
+    p.add_argument("--voice-id", default="", help="Suggested manifest id")
+    p.add_argument(
+        "--format",
+        default="embedding",
+        choices=("embedding", "model-state"),
+        help="Voice file format: legacy audio_prompt embedding or upstream KV model-state",
     )
 
     p = add("health", cmd_health, "Probe a running server's /health")

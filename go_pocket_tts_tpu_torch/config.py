@@ -15,7 +15,7 @@ same ``apply_serving_autotune``. The differences are the port's:
 - ``runtime.compile_cache_dir`` names the directory of the built CUDA
   kernel libraries (empty: the package's ``_build/``);
 - the options of the unported parts (the ``cli`` backend's pass-through
-  settings, XLA's matmul precision, voice upload) are not parsed.
+  settings, XLA's matmul precision) are not parsed.
 """
 
 from __future__ import annotations
@@ -108,6 +108,10 @@ class ServerConfig:
     shutdown_timeout_secs: int = 30
     max_text_bytes: int = 4096
     request_timeout_secs: int = 60
+    # POST /voices upload (runtime voice cloning). Off unless a directory is
+    # configured: an open server must not accept file writes by default.
+    voice_upload_dir: str = ""
+    max_voice_audio_bytes: int = 16 << 20
 
 
 @dataclass
@@ -186,6 +190,11 @@ _FLAG_MAP = [
     ("workers", "server", "workers", int, "Max concurrent synthesis requests"),
     ("shutdown-timeout", "server", "shutdown_timeout_secs", int, "Graceful shutdown drain timeout (s)"),
     ("max-text-bytes", "server", "max_text_bytes", int, "Maximum POST /tts text size in bytes"),
+    ("voice-upload-dir", "server", "voice_upload_dir", str,
+     "Enable POST /voices (runtime voice cloning): uploaded voices are "
+     "encoded, stored here, and prewarmed (empty string disables)"),
+    ("max-voice-audio-bytes", "server", "max_voice_audio_bytes", int,
+     "Maximum decoded WAV size accepted by POST /voices"),
     ("request-timeout", "server", "request_timeout_secs", int, "Per-request synthesis timeout (s)"),
     ("backend", "tts", "backend", str, "Synthesis backend (gpu|cuda|native)"),
     ("tts-voice", "tts", "voice", str, "Voice name or .safetensors file path"),

@@ -10,6 +10,10 @@ RoPE tables, the scales of int8 linears and the fused latent→mimi projector
 stay float32; a quantized tree's int8 weights stay int8. The fused SEANet
 kernels and the stream decoder read the same up2, res2, up3, res3 and
 final-conv leaves as ``mimi_decode``, so they need nothing converted.
+
+The same call carries the reference's Mimi encoder tree
+(``mimi_encoder.load_mimi_encoder``) into the port's
+(:mod:`models.mimi_encoder`): the two share its keys and layouts too.
 """
 
 from __future__ import annotations
@@ -42,7 +46,8 @@ def params_from_jax(
     device: Union[str, torch.device] = DEFAULT_DEVICE,
     dtype: torch.dtype = torch.float32,
 ):
-    """The reference parameter tree (nested dicts/lists of arrays) as the
-    port's parameter tree on ``device`` in ``dtype``."""
+    """The reference parameter tree (nested dicts/lists of arrays: the
+    model's, or the Mimi encoder's) as the port's parameter tree on
+    ``device`` in ``dtype``."""
     dev = resolve_device(device)
     return cast_params(tree_map(_to_numpy, tree), dev, dtype)

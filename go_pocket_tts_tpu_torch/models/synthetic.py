@@ -9,8 +9,9 @@ Builds ``{name: np.ndarray}`` with the exact key naming the loader expects:
 
 Weights are scaled Gaussian (≈ 1/sqrt(fan_in)) so activations stay O(1);
 emb_std is strictly positive. The same seed gives the same arrays as the
-reference builder for every key the synthesis path reads; the reference's
-encoder and speaker-projection tensors, drawn last there, are left out.
+reference builder for every key, in the same order: the decoder's first,
+then the Mimi encoder's and the speaker projection (voice cloning), drawn
+after every tensor the synthesis path reads so that those keep their bits.
 """
 
 from __future__ import annotations
@@ -20,7 +21,9 @@ from typing import Dict, Tuple
 
 import numpy as np
 
-__all__ = ["SynthArch", "tiny_arch", "real_arch", "build_checkpoint"]
+from go_pocket_tts_tpu_torch.utils.safetensors import encode_tensors
+
+__all__ = ["SynthArch", "tiny_arch", "real_arch", "build_checkpoint", "build_checkpoint_bytes"]
 
 
 @dataclass(frozen=True)
@@ -176,4 +179,39 @@ def build_checkpoint(arch: SynthArch, seed: int = 0) -> Dict[str, np.ndarray]:
         _conv(rng, cout, cout // 2, 1, True, t, f"mimi.decoder.model.{res_idx}.block.3.conv")
     _conv(rng, 1, ch[-1], arch.seanet_kernel_final, True, t, "mimi.decoder.model.11.conv")
 
+    # -- mimi encoder (voice cloning; the decoder mirrored) -------------------
+    rev = tuple(reversed(ch))  # e.g. (64, 128, 256, 512)
+    _conv(rng, rev[0], 1, arch.seanet_kernel_init, True, t, "mimi.encoder.model.0.conv")
+    enc_strides = tuple(reversed(arch.seanet_strides))  # 4, 5, 6
+    for bi, (res_idx, down_idx) in enumerate([(1, 3), (4, 6), (7, 9)]):
+        cin, cout = rev[bi], rev[bi + 1]
+        _conv(rng, cin // 2, cin, 3, True, t, f"mimi.encoder.model.{res_idx}.block.1.conv")
+        _conv(rng, cin, cin // 2, 1, True, t, f"mimi.encoder.model.{res_idx}.block.3.conv")
+        _conv(rng, cout, cin, 2 * enc_strides[bi], True, t, f"mimi.encoder.model.{down_idx}.conv")
+    _conv(rng, C, rev[-1], 3, True, t, "mimi.encoder.model.11.conv")
+
+    for i in range(arch.mimi_layers):
+        p = f"mimi.encoder_transformer.transformer.layers.{i}"
+        _ln(rng, C, t, f"{p}.norm1")
+        _ln(rng, C, t, f"{p}.norm2")
+        _lin(rng, 3 * C, C, False, t, f"{p}.self_attn.in_proj")
+        _lin(rng, C, C, False, t, f"{p}.self_attn.out_proj")
+        _lin(rng, arch.mimi_ffn, C, False, t, f"{p}.linear1")
+        _lin(rng, C, arch.mimi_ffn, False, t, f"{p}.linear2")
+        t[f"{p}.layer_scale_1.scale"] = np.full(C, 0.01, np.float32)
+        t[f"{p}.layer_scale_2.scale"] = np.full(C, 0.01, np.float32)
+
+    # Depthwise strided downsample (200 Hz → 12.5 Hz), quantizer input proj.
+    _conv(rng, C, 1, 2 * arch.upsample_stride, False, t, "mimi.downsample.conv.conv")
+    _conv(rng, L, C, 1, False, t, "mimi.quantizer.input_proj")
+
+    # Speaker projection of the voice conditioning.
+    t["condition_provider.conditioners.speaker_wavs.output_proj.weight"] = (
+        rng.randn(d, C).astype(np.float32) / np.sqrt(C)
+    )
     return t
+
+
+def build_checkpoint_bytes(arch: SynthArch, seed: int = 0) -> bytes:
+    """:func:`build_checkpoint` as a safetensors payload."""
+    return encode_tensors(build_checkpoint(arch, seed))

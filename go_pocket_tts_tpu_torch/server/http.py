@@ -15,9 +15,12 @@ A copy of the reference package's ``server/http.py`` over the port's
   complete base64 WAV/FLAC
 - ``POST /tts/stream`` — chunked streaming WAV: unknown-length header then
   PCM16 per synthesized chunk (`server.go:302-396`)
-- ``POST /voices`` — runtime voice cloning in the reference package; it
-  needs the Mimi encoder, which is not ported yet, so it answers 403 as the
-  reference does when no upload directory is configured
+- ``POST /voices`` — runtime voice cloning (beyond the Go reference, whose
+  voice list is immutable after start): ``{"id", "audio": <base64 WAV>,
+  "license"?}`` → encode through the Mimi encoder on the card, persist,
+  register, prewarm (`tts/voice_upload.py`). 403 unless ``serve
+  --voice-upload-dir`` opted in; 409 on a duplicate id; 413 past the audio
+  cap; 400 on bad input, audio past the encoder's 40.96 s included
 - both accept ``"format": "flac"`` for losslessly compressed responses
   (typically 2-3× smaller; ``audio/flac``) — beyond the reference, which
   serves WAV only; WAV stays the default and the parity format
@@ -38,6 +41,8 @@ queueing and memory.
 
 from __future__ import annotations
 
+import base64
+import binascii
 import json
 import logging
 import threading
@@ -184,11 +189,15 @@ def make_handler(
     request_timeout: float = 60.0,
     workers: int = 2,
     queue_timeout: float = 5.0,
+    voice_uploader=None,
 ):
     """Build the request-handler class bound to a Service.
 
     ``service`` must expose ``synthesize_stream(text, voice)`` (a Service or
     compatible stub); ``voices`` optionally exposes ``list_voices()``.
+    ``voice_uploader`` (a ``tts.voice_upload.VoiceUploader``) enables
+    ``POST /voices``; when None the route answers 403: an open server must
+    not accept file writes unless the operator opted in.
     """
     pool = _WorkerPool(workers)
     stats = _Stats()
@@ -425,14 +434,78 @@ def make_handler(
             elif self.path == "/tts/stream":
                 self._handle_tts_stream()
             elif self.path == "/voices":
-                # The reference's runtime voice cloning needs the Mimi
-                # encoder, not ported yet: refused as the reference refuses
-                # it with no uploader configured.
-                self._error(403, "voice upload is disabled (voice cloning is not yet ported to go_pocket_tts_tpu_torch)")
+                self._handle_voice_upload()
             elif self.path == "/health":
                 self._error(405, "method not allowed")
             else:
                 self._error(404, "not found")
+
+        def _handle_voice_upload(self):
+            """POST /voices: ``{"id", "audio": <base64 WAV>, "license"?}`` →
+            encode, register, prewarm.
+
+            Runs in the handler thread, outside the synthesis worker pool:
+            uploads are rare admin operations and must not take a synthesis
+            slot; the encode shares the device with the engine.
+            """
+            if voice_uploader is None:
+                self._error(403, "voice upload is disabled (start serve with --voice-upload-dir)")
+                return
+            try:
+                length = int(self.headers.get("Content-Length", 0))
+            except (TypeError, ValueError):
+                self._error(400, "invalid Content-Length")
+                return
+            if length <= 0:
+                self._error(400, "request body is required")
+                return
+            # Cap BEFORE reading (the header is the client's, same rule as
+            # /tts): base64 inflates 4/3, plus the JSON envelope.
+            max_audio = voice_uploader.max_audio_bytes
+            if length > max_audio * 4 // 3 + 8192:
+                self._error(413, f"request exceeds maximum size ({max_audio} audio bytes)")
+                return
+            raw = self.rfile.read(length)
+            self._body_read = len(raw)
+            try:
+                req = json.loads(raw.decode("utf-8"))
+            except (UnicodeDecodeError, json.JSONDecodeError) as exc:
+                self._error(400, f"invalid JSON: {exc}")
+                return
+            if not isinstance(req, dict):
+                self._error(400, "request body must be a JSON object")
+                return
+            vid, audio_b64, lic = req.get("id", ""), req.get("audio", ""), req.get("license", "")
+            if not isinstance(vid, str) or not isinstance(audio_b64, str) or not isinstance(lic, str):
+                self._error(400, "id, audio and license must be strings")
+                return
+            if not audio_b64:
+                self._error(400, "audio field is required (base64-encoded WAV)")
+                return
+            try:
+                wav_bytes = base64.b64decode(audio_b64, validate=True)
+            except (binascii.Error, ValueError) as exc:
+                self._error(400, f"audio is not valid base64: {exc}")
+                return
+            if len(wav_bytes) > max_audio:
+                self._error(413, f"voice audio exceeds maximum size ({max_audio} bytes)")
+                return
+            from go_pocket_tts_tpu_torch.tts.voice_upload import DuplicateVoice
+
+            try:
+                record = voice_uploader.upload(vid, wav_bytes, license=lic)
+            except DuplicateVoice as exc:
+                self._error(409, str(exc))
+                return
+            except ValueError as exc:
+                self._error(400, str(exc))
+                return
+            except Exception as exc:  # noqa: BLE001 - report, don't crash the thread
+                log.error("voice upload failed", exc_info=True)
+                self._error(500, f"voice upload failed: {exc}")
+                return
+            stats.count("voices_uploaded_total")
+            self._json(200, {"voice": record})
 
         def _collect_pcm(
             self,
@@ -763,6 +836,7 @@ class Server:
         max_text_bytes: int = 4096,
         request_timeout: float = 60.0,
         shutdown_timeout: float = 30.0,
+        voice_uploader=None,
     ) -> None:
         host, _, port = listen_addr.rpartition(":")
         self._addr = (host or "0.0.0.0", int(port))
@@ -773,6 +847,7 @@ class Server:
             max_text_bytes=max_text_bytes,
             request_timeout=request_timeout,
             workers=workers,
+            voice_uploader=voice_uploader,
         )
         self._httpd = _QuietThreadingHTTPServer(self._addr, handler)
         self._httpd.daemon_threads = True

@@ -8,31 +8,18 @@ capacity and resets, and the Service's continuity, frame-streaming and
 voiced routes (``POST /tts/stream`` over these services is in
 ``test_torch_server.py``)."""
 
-import contextlib
-
 import numpy as np
 import pytest
 
-from go_pocket_tts_tpu.config import TTSConfig as JTTSConfig
-from go_pocket_tts_tpu.models import synthetic as j_syn
-from go_pocket_tts_tpu.models.model import load_model_from_store
-from go_pocket_tts_tpu.parallel import BatcherRuntime as JBatcherRuntime
 from go_pocket_tts_tpu.parallel import ContinuousBatcher as JBatcher
 from go_pocket_tts_tpu.runtime import GenerateConfig as JConfig
-from go_pocket_tts_tpu.text.sentencepiece import load_tokenizer_from_bytes as j_tokenizer
 from go_pocket_tts_tpu.tts.parity import rms_delta
-from go_pocket_tts_tpu.tts.service import Service as JService
 from go_pocket_tts_tpu.utils import safetensors as j_st
-from go_pocket_tts_tpu.utils.safetensors import encode_tensors, open_store_from_bytes
-from go_pocket_tts_tpu_torch import config as t_config
 from go_pocket_tts_tpu_torch.models import synthetic
-from go_pocket_tts_tpu_torch.models.model import load_model_from_tensors
-from go_pocket_tts_tpu_torch.parallel import BatcherRuntime, ContinuousBatcher
+from go_pocket_tts_tpu_torch.parallel import ContinuousBatcher
 from go_pocket_tts_tpu_torch.runtime import GenerateConfig, GPURuntime
-from go_pocket_tts_tpu_torch.text.sentencepiece import load_tokenizer_from_bytes as t_tokenizer
-from go_pocket_tts_tpu_torch.tts.service import Service
 from go_pocket_tts_tpu_torch.utils import safetensors as t_st
-from test_torch_service import ONE_CHUNK, THREE_CHUNKS, _run, _tts, _voice_files, tokenizer_bytes
+from torch_fixtures import ONE_CHUNK, THREE_CHUNKS, build_models, run_stream, service_pair, voice_files
 
 ARCH = synthetic.tiny_arch()
 SEED = 55
@@ -42,19 +29,9 @@ RMS_BUDGET = 1e-3
 COMMON = dict(slots=2, prompt_capacity=128, max_frames=64, seed=3)
 
 
-def build_models():
-    """The JAX package's model and the port's, from the same seeded
-    ``tiny_arch()`` checkpoint."""
-    jm = load_model_from_store(
-        open_store_from_bytes(encode_tensors(j_syn.build_checkpoint(ARCH, seed=SEED))), num_heads=ARCH.num_heads
-    )
-    tm = load_model_from_tensors(synthetic.build_checkpoint(ARCH, seed=SEED), num_heads=ARCH.num_heads, device="cpu")
-    return jm, tm
-
-
 @pytest.fixture(scope="module")
 def models():
-    return build_models()
+    return build_models(SEED)
 
 
 def _cfg(**kw):
@@ -257,21 +234,6 @@ def test_prewarm_then_serve(models):
 # -- the Service and the server over the batcher --------------------------------
 
 
-@contextlib.contextmanager
-def service_pair(models):
-    """The JAX Service over the JAX BatcherRuntime and the port's over its
-    own, both at 2 slots and 4-frame blocks."""
-    jm, tm = models
-    data = tokenizer_bytes()
-    jrt = JBatcherRuntime(jm, slots=2, seed=1, prompt_capacity=64, steps_per_sync=4)
-    trt = BatcherRuntime(tm, slots=2, seed=1, prompt_capacity=64, steps_per_sync=4, device="cpu")
-    try:
-        yield JService(jrt, j_tokenizer(data), _tts(JTTSConfig)), Service(trt, t_tokenizer(data), _tts(t_config.TTSConfig))
-    finally:
-        jrt.close()
-        trt.close()
-
-
 @pytest.fixture(scope="module")
 def batcher_services(models):
     with service_pair(models) as pair:
@@ -294,8 +256,8 @@ def test_service_routes_over_the_batcher_match(batcher_services, route, monkeypa
     name = {"continuity": "generate_audio_session", "frames": "stream_generate"}.get(route, "stream_generate_session")
     orig = getattr(t.runtime, name)
     monkeypatch.setattr(t.runtime, name, lambda *a: calls.append(1) or orig(*a))
-    want_layout, want = _run(j, text, **kw)
-    got_layout, got = _run(t, text, **kw)
+    want_layout, want = run_stream(j, text, **kw)
+    got_layout, got = run_stream(t, text, **kw)
     assert len(calls) == 3  # the route went through the batcher's own method
     assert got_layout == want_layout
     if route.startswith("frames"):
@@ -306,7 +268,7 @@ def test_service_routes_over_the_batcher_match(batcher_services, route, monkeypa
 @pytest.mark.parametrize("voice", ["embedding", "model_state"])
 def test_voiced_service_request_over_the_batcher_matches(batcher_services, tmp_path, voice):
     j, t = batcher_services
-    path = _voice_files(tmp_path)[voice]
+    path = voice_files(tmp_path)[voice]
     want = j.synthesize(ONE_CHUNK, voice_path=path)
     got = t.synthesize(ONE_CHUNK, voice_path=path)
     assert len(got) == len(want) > 0

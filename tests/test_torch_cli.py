@@ -30,11 +30,10 @@ from go_pocket_tts_tpu_torch.utils.safetensors import write_file
 ROOT = Path(__file__).resolve().parent.parent
 SECTIONS = ("paths", "runtime", "server", "tts")
 # The JAX package's fields the port does not parse (the unported cli
-# backend's settings, XLA's matmul precision, voice upload), and the one it
-# adds (where the runtimes run; set by the CLI from POCKETTTS_PLATFORM).
+# backend's settings, XLA's matmul precision), and the one it adds (where
+# the runtimes run; set by the CLI from POCKETTTS_PLATFORM).
 NOT_PARSED = {
     "runtime": {"matmul_precision"},
-    "server": {"voice_upload_dir", "max_voice_audio_bytes"},
     "tts": {"cli_path", "cli_args", "quiet", "cli_config_path"},
 }
 ADDED = {"runtime": {"device"}}

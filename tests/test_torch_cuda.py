@@ -1057,3 +1057,28 @@ def test_service_on_card_matches_the_runtime(card, tmp_path):
     for got, ref in ((audio, want), (streamed, want_streamed)):
         assert np.isfinite(got).all()
         assert np.sqrt(np.mean((got.astype(np.float64) - ref) ** 2)) < chip_smoke.PATH_RMS_TOL
+
+
+def test_voice_encoder_on_card_matches_cpu_with_tf32_at_default():
+    """The float32 Mimi encoder and speaker projection on the card against
+    the CPU, the process's TF32 flags at PyTorch's defaults (cuDNN's on):
+    the encoder scopes float32 itself and leaves the flags as it found
+    them. 1.5 s of audio at the published encoder widths."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the encoder's device path runs only there")
+    from go_pocket_tts_tpu_torch.tts.voice_export import VoiceEncoder
+
+    arch = dataclasses.replace(synthetic.real_arch(), num_layers=1, flow_depth=1, n_bins=64)
+    tensors = synthetic.build_checkpoint(arch, seed=6)
+    samples = (np.random.RandomState(6).randn(36000) * 0.1).astype(np.float32)
+    want = VoiceEncoder(tensors, device="cpu").encode_samples(samples, 24000)
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    try:
+        got = VoiceEncoder(tensors, device="cuda").encode_samples(samples, 24000)
+        assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == (True, False)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    assert got.shape == want.shape == (1, 18, arch.d_model)
+    rel = np.sqrt(np.mean((got - want) ** 2)) / np.sqrt(np.mean(want**2))
+    assert rel <= 1e-4, rel

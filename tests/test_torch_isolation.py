@@ -17,6 +17,8 @@ from go_pocket_tts_tpu_torch.models.model import load_model_from_tensors
 from go_pocket_tts_tpu_torch.parallel import BatcherRuntime, ContinuousBatcher
 from go_pocket_tts_tpu_torch.parallel.batching import make_batched_state
 from go_pocket_tts_tpu_torch.runtime import GPURuntime
+from go_pocket_tts_tpu_torch.tts.voice_export import VoiceEncoder, export_voice_embedding, export_voice_model_state
+from go_pocket_tts_tpu_torch.tts.voice_upload import VoiceUploader
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "go_pocket_tts_tpu")
@@ -198,6 +200,66 @@ print("NO-JAX-ENTRY-OK")
 """
 
 
+_CLONE_SCRIPT = _SCRIPT[: _SCRIPT.index("import numpy as np")] + r"""
+import base64, json, os, tempfile, urllib.request
+from contextlib import redirect_stdout
+import io
+import numpy as np
+from go_pocket_tts_tpu_torch.cli.main import main
+from go_pocket_tts_tpu_torch.models import synthetic
+from go_pocket_tts_tpu_torch.models.model import load_model_from_tensors
+from go_pocket_tts_tpu_torch.runtime import GPURuntime
+from go_pocket_tts_tpu_torch.server import Server
+from go_pocket_tts_tpu_torch.tts.service import Service
+from go_pocket_tts_tpu_torch.tts.voice_export import VoiceEncoder, export_voice_embedding, export_voice_model_state
+from go_pocket_tts_tpu_torch.tts.voice_upload import VoiceUploader
+from go_pocket_tts_tpu_torch.tts.voices import VoiceManager
+from go_pocket_tts_tpu_torch.config import TTSConfig
+from go_pocket_tts_tpu_torch.utils.safetensors import inspect_voice_file, write_file
+from go_pocket_tts_tpu_torch.utils.wav import decode_wav, encode_wav
+
+class Words:
+    def encode(self, s):
+        return [len(w) for w in s.split()]
+
+arch = synthetic.tiny_arch()
+tensors = synthetic.build_checkpoint(arch, seed=4)
+speaker = encode_wav((np.random.RandomState(0).randn(12000) * 0.1).astype(np.float32))
+emb = VoiceEncoder(tensors, device="cpu").encode_wav_bytes(speaker, pad_to_bucket=True)
+assert emb.shape == (1, 6, arch.d_model) and np.isfinite(emb).all(), emb.shape
+with tempfile.TemporaryDirectory() as tmp:
+    model_path, wav_path = os.path.join(tmp, "model.safetensors"), os.path.join(tmp, "speaker.wav")
+    write_file(model_path, tensors)
+    open(wav_path, "wb").write(speaker)
+    export_voice_embedding(model_path, wav_path, os.path.join(tmp, "e.safetensors"), device="cpu")
+    assert export_voice_model_state(model_path, wav_path, os.path.join(tmp, "s.safetensors"), num_heads=arch.num_heads, device="cpu") == 6
+    assert inspect_voice_file(os.path.join(tmp, "s.safetensors")) == "model_state"
+    model = load_model_from_tensors(tensors, num_heads=arch.num_heads, device="cpu")
+    svc = Service(GPURuntime(model, seed=1, frame_bucket=64, device="cpu"), Words(),
+                  TTSConfig(temperature=0.0, eos_threshold=1e9, max_steps=3))
+    voices = VoiceManager.in_memory(tmp)
+    uploader = VoiceUploader(model_path, os.path.join(tmp, "voices"), voices, service=svc, device="cpu")
+    srv = Server(svc, voices, listen_addr="127.0.0.1:0", voice_uploader=uploader)
+    srv.start()
+    try:
+        base = f"http://127.0.0.1:{srv.port}"
+        body = json.dumps({"id": "v", "audio": base64.b64encode(speaker).decode()}).encode()
+        with urllib.request.urlopen(urllib.request.Request(base + "/voices", data=body, method="POST"), timeout=120) as r:
+            assert json.loads(r.read())["voice"]["prewarmed"] is True
+        req = urllib.request.Request(base + "/tts", data=json.dumps({"text": "a b", "voice": "v"}).encode(), method="POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            assert decode_wav(r.read())[0].shape == (3 * 1920,)
+    finally:
+        srv.shutdown()
+    os.environ.update(POCKETTTS_PLATFORM="cpu", POCKETTTS_PATHS_MODEL_PATH=model_path)
+    with redirect_stdout(io.StringIO()) as out:
+        assert main(["export-voice", "--input", wav_path, "--output", os.path.join(tmp, "c.safetensors")]) == 0
+    assert json.loads(out.getvalue().splitlines()[0])["frames"] == 6
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "go_pocket_tts_tpu") for m in sys.modules)
+print("NO-JAX-CLONE-OK")
+"""
+
+
 def _run_blocked(script: str) -> str:
     proc = subprocess.run(
         [sys.executable, "-c", script],
@@ -234,6 +296,13 @@ def test_port_serves_text_with_jax_blocked():
     and the CLI's ``synth`` run on the CPU, with jax and the JAX package
     unimportable."""
     assert "NO-JAX-ENTRY-OK" in _run_blocked(_ENTRY_SCRIPT)
+
+
+def test_port_clones_a_voice_with_jax_blocked():
+    """The Mimi encoder, both export formats, ``POST /voices`` through the
+    server (prewarmed, then served by ``POST /tts``) and the CLI's
+    ``export-voice``, with jax and the JAX package unimportable."""
+    assert "NO-JAX-CLONE-OK" in _run_blocked(_CLONE_SCRIPT)
 
 
 PORT_FILES = sorted(str(p.relative_to(ROOT)) for p in (ROOT / "go_pocket_tts_tpu_torch").rglob("*.py"))
@@ -276,6 +345,10 @@ def test_default_device_is_cuda():
         make_batched_state,
         load_model_from_tensors,
         params_from_jax,
+        VoiceEncoder.__init__,
+        VoiceUploader.__init__,
+        export_voice_embedding,
+        export_voice_model_state,
     ):
         assert fn.__defaults__ is not None and "cuda" in fn.__defaults__, fn
     from go_pocket_tts_tpu_torch.config import RuntimeConfig

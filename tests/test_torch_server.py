@@ -21,8 +21,7 @@ from go_pocket_tts_tpu_torch.server import Server, probe_http
 from go_pocket_tts_tpu_torch.server.http import make_handler
 from go_pocket_tts_tpu_torch.tts.service import CancelledError, PCMChunk
 from go_pocket_tts_tpu_torch.utils import wav
-from test_torch_batch_session import build_models, service_pair
-from test_torch_service import THREE_CHUNKS
+from torch_fixtures import THREE_CHUNKS, build_models, service_pair, tokenizer_bytes
 
 
 class _StubService:
@@ -255,8 +254,8 @@ def test_voice_upload_is_refused_as_without_an_uploader(stub_pair):
     body = {"id": "v", "audio": "UklGRg=="}
     (j_status, _, j_body), (t_status, _, t_body) = _both(stub_pair, "POST", "/voices", body)
     assert t_status == j_status == 403
-    assert "voice upload is disabled" in json.loads(t_body)["error"]
-    assert "error" in json.loads(j_body)
+    assert json.loads(t_body) == json.loads(j_body)
+    assert "--voice-upload-dir" in json.loads(t_body)["error"]
 
 
 def test_web_demo_is_the_ports_own(stub_pair):
@@ -299,7 +298,6 @@ def test_tts_end_to_end_through_the_services():
     from go_pocket_tts_tpu_torch.runtime import GPURuntime
     from go_pocket_tts_tpu_torch.text.sentencepiece import load_tokenizer_from_bytes
     from go_pocket_tts_tpu_torch.tts.service import Service
-    from test_torch_service import tokenizer_bytes
 
     arch, seed = synthetic.tiny_arch(), 8
     jm = load_model_from_store(open_store_from_bytes(encode_tensors(j_syn.build_checkpoint(arch, seed=seed))),

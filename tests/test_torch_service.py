@@ -16,7 +16,7 @@ from go_pocket_tts_tpu.models import synthetic as j_syn
 from go_pocket_tts_tpu.models.model import load_model_from_store
 from go_pocket_tts_tpu.runtime import TPURuntime
 from go_pocket_tts_tpu.text import ChunkMetadata as JChunk
-from go_pocket_tts_tpu.text.sentencepiece import SentencePieceModel, load_tokenizer_from_bytes as j_tokenizer
+from go_pocket_tts_tpu.text.sentencepiece import load_tokenizer_from_bytes as j_tokenizer
 from go_pocket_tts_tpu.tts.parity import rms_delta
 from go_pocket_tts_tpu.tts.service import Service as JService
 from go_pocket_tts_tpu.utils.safetensors import encode_tensors, open_store_from_bytes, write_file
@@ -28,27 +28,11 @@ from go_pocket_tts_tpu_torch.runtime import GPURuntime
 from go_pocket_tts_tpu_torch.text import ChunkMetadata
 from go_pocket_tts_tpu_torch.text.sentencepiece import load_tokenizer_from_bytes as t_tokenizer
 from go_pocket_tts_tpu_torch.tts.service import CancelledError, PCMChunk, Service
+from torch_fixtures import ONE_CHUNK, STEPS, THREE_CHUNKS, run_stream, tokenizer_bytes, tts_config, voice_files
 
 ARCH = synthetic.tiny_arch()
 SEED = 21
 RMS_BUDGET = 1e-3  # the waveform parity budget (BASELINE.md)
-STEPS = 6  # frames per chunk: one 4-frame stream block, then 2
-ONE_CHUNK = "Hello world, the quick fox."
-THREE_CHUNKS = (
-    "The quick brown fox jumps over the sleepy dog. Hello world, the brown fox sings a song. "
-    "The quick fox walks home to the brown den."
-)
-
-
-def tokenizer_bytes() -> bytes:
-    """The verify skill's synthetic tokenizer (35 pieces, below n_bins)."""
-    m = SentencePieceModel()
-    pieces = [("<unk>", 0.0, 2)] + [(w, -1.0, 1) for w in "▁hello ▁world ▁the ▁quick ▁brown ▁fox .".split()]
-    for p, s, t in pieces + [(c, -6.0, 1) for c in "abcdefghijklmnopqrstuvwxyz▁"]:
-        m.pieces.append(p)
-        m.scores.append(s)
-        m.types.append(t)
-    return m.serialize()
 
 
 @pytest.fixture(scope="module")
@@ -60,25 +44,13 @@ def models():
     return jm, tm
 
 
-def _tts(mod_cfg, **kw):
-    base = dict(temperature=0.0, eos_threshold=1e9, max_steps=STEPS)
-    base.update(kw)
-    return mod_cfg(**base)
-
-
 @pytest.fixture(scope="module")
 def services(models):
     jm, tm = models
     data = tokenizer_bytes()
-    j = JService(TPURuntime(jm, seed=1, frame_bucket=64), j_tokenizer(data), _tts(JTTSConfig))
-    t = Service(GPURuntime(tm, seed=1, frame_bucket=64, device="cpu"), t_tokenizer(data), _tts(t_config.TTSConfig))
+    j = JService(TPURuntime(jm, seed=1, frame_bucket=64), j_tokenizer(data), tts_config(JTTSConfig))
+    t = Service(GPURuntime(tm, seed=1, frame_bucket=64, device="cpu"), t_tokenizer(data), tts_config(t_config.TTSConfig))
     return j, t
-
-
-def _run(svc, text, **kw):
-    chunks = list(svc.synthesize_stream(text, **kw))
-    layout = [(c.chunk_index, c.final, len(c.samples)) for c in chunks]
-    return layout, np.concatenate([c.samples for c in chunks])
 
 
 ROUTES = {
@@ -99,8 +71,8 @@ def test_synthesize_stream_routes_match(services, route, monkeypatch):
         calls = []
         orig = t.runtime.generate_audio_async
         monkeypatch.setattr(t.runtime, "generate_audio_async", lambda *a: calls.append(1) or orig(*a))
-    want_layout, want = _run(j, text, **kw)
-    got_layout, got = _run(t, text, **kw)
+    want_layout, want = run_stream(j, text, **kw)
+    got_layout, got = run_stream(t, text, **kw)
     assert got_layout == want_layout
     assert got.dtype == np.float32 and len(got) > 0
     assert rms_delta(got, want) < RMS_BUDGET
@@ -114,7 +86,7 @@ def test_synthesize_stream_routes_match(services, route, monkeypatch):
 
 def test_synthesize_concatenates_the_stream(services):
     _, t = services
-    _, streamed = _run(t, THREE_CHUNKS)
+    _, streamed = run_stream(t, THREE_CHUNKS)
     np.testing.assert_array_equal(t.synthesize(THREE_CHUNKS), streamed)
     assert len(streamed) == 3 * STEPS * 1920
 
@@ -136,26 +108,10 @@ def test_generate_audio_async_resolves_to_generate_audio(models):
     np.testing.assert_array_equal(got_second, b.generate_audio([9, 2], cfg))
 
 
-def _voice_files(tmp_path):
-    rng = np.random.RandomState(4)
-    head_dim = ARCH.d_model // ARCH.num_heads
-    emb = tmp_path / "emb.safetensors"
-    write_file(emb, {"audio_prompt": (rng.randn(5, ARCH.d_model) * 0.1).astype(np.float32)})
-    state = tmp_path / "state.safetensors"
-    tensors = {}
-    for i in range(ARCH.num_layers):
-        tensors[f"transformer.layers.{i}.self_attn/cache"] = (
-            rng.randn(2, 1, 6, ARCH.num_heads, head_dim) * 0.2
-        ).astype(np.float32)
-        tensors[f"transformer.layers.{i}.self_attn/offset"] = np.array([6.0], np.float32)
-    write_file(state, tensors)
-    return {"embedding": str(emb), "model_state": str(state)}
-
-
 @pytest.mark.parametrize("voice", ["embedding", "model_state"])
 def test_voiced_request_matches(services, tmp_path, voice):
     j, t = services
-    path = _voice_files(tmp_path)[voice]
+    path = voice_files(tmp_path)[voice]
     want = j.synthesize(ONE_CHUNK, voice_path=path)
     got = t.synthesize(ONE_CHUNK, voice_path=path)
     assert len(got) == len(want) == STEPS * 1920
@@ -168,12 +124,12 @@ def test_batcher_route_matches(services, models):
     _, tm = models
     rt = BatcherRuntime(tm, slots=2, seed=1, prompt_capacity=64, device="cpu")
     try:
-        svc = Service(rt, t_tokenizer(tokenizer_bytes()), _tts(t_config.TTSConfig))
+        svc = Service(rt, t_tokenizer(tokenizer_bytes()), tts_config(t_config.TTSConfig))
         assert isinstance(svc._lock, contextlib.nullcontext)  # the batcher schedules itself
-        got_layout, got = _run(svc, THREE_CHUNKS)
+        got_layout, got = run_stream(svc, THREE_CHUNKS)
     finally:
         rt.close()
-    want_layout, want = _run(j, THREE_CHUNKS)
+    want_layout, want = run_stream(j, THREE_CHUNKS)
     assert got_layout == want_layout
     assert rms_delta(got, want) < RMS_BUDGET
     assert svc.supports_frame_streaming  # the batcher streams frames (BatcherRuntime.stream_generate)
@@ -233,7 +189,7 @@ def test_estimate_total_frames_matches(services):
 def test_prewarm_and_prewarm_voice(services, tmp_path):
     _, t = services
     t.prewarm(token_lengths=(3,))
-    assert t.prewarm_voice(_voice_files(tmp_path)["embedding"], token_lengths=(3,))
+    assert t.prewarm_voice(voice_files(tmp_path)["embedding"], token_lengths=(3,))
     assert t.prewarm_voice(str(tmp_path / "missing.safetensors")) is False
     assert isinstance(next(t.synthesize_stream(ONE_CHUNK)), PCMChunk)
 

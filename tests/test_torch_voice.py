@@ -245,7 +245,7 @@ def test_voice_embedding_validation_matches_reference(models):
 
 
 @pytest.mark.parametrize("kind", ["embedding", "model_state"])
-def test_batcher_rejects_a_voiced_request(models, kind):
+def test_batcher_serves_a_voiced_request(models, kind):
     """The batcher serves a voiced request with its voice: the single
     runtime's audio for the same voice (against the JAX batcher:
     tests/test_torch_batch_session.py)."""
