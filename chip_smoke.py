@@ -112,6 +112,26 @@ failure exits non-zero:
    upload beside it; last, ``python -m go_pocket_tts_tpu_torch
    export-voice`` in both formats as two subprocesses at once (default
    TF32 flags), held against the in-process exports.
+14. the CLI's tools (after phase 13; its launches in a dict of their own),
+   on phase 11's fixtures: ``python -m go_pocket_tts_tpu_torch doctor`` as
+   a subprocess (exit 0, every line ✓, the card's name and power limit and
+   the ``sm_90a`` libraries named); ``model export`` through the CLI in
+   process, ``--strip-voice-cloning``, ``--quantize int8`` and
+   ``--quantize int4``, each file's sha256 equal to the in-process
+   exporter's, then ``model verify`` (smoke load on the card) and ``model
+   dump-header`` of each; ``model download-bundle`` of a ``file://`` tar.gz
+   holding the int4 artifact, the tokenizer and a ``bundle-manifest.json``,
+   with ``--sha256`` (the extracted files equal the originals, ``model
+   verify`` on them), and a copy with one byte flipped refused; ``bench
+   --runs 3 --json`` over the single runtime (bf16; kernels 1, 7, 2) and over
+   the 8-slot int8 batcher at the serving autotune (kernels 4, 5, 7, 2),
+   each run's audio exactly its frames x 0.08 s, its time to first audio
+   within its synthesis time, the cold run flagged; ``stageprof
+   --trace-dir`` (the stage table; the Chrome trace names kernel 1's and
+   kernel 2's CUDA symbols); ``generate_audio_staged`` against
+   ``generate_audio`` in float32 at temperature 0 within one PCM16 step;
+   last, ``python -m go_pocket_tts_tpu_torch.bench.microbench`` as a
+   subprocess (the card line and six ops).
 
 Phase 2 also holds the SEANet kernels (bf16 on tensor cores) against
 their plain versions at 160 frames, bit-equal over two calls: kernels 2
@@ -2570,6 +2590,338 @@ def voice_cloning(model, arch, fixtures, root: str) -> None:
     print(f"  phase 13 launches: {counts}")
 
 
+# -- phase 14: the CLI's tools: doctor, model assets, bench, stageprof -----------
+
+# The bench and stageprof text (the CLI's default), one chunk for the
+# fixture tokenizer.
+TOOLS_TEXT = "The quick brown fox jumps over the lazy dog."
+# One PCM16 step: generate_audio truncates toward zero, the staged PCM is float.
+PCM16_STEP = 1.0 / 32767 + 1e-6
+
+
+class _Env:
+    """Set environment variables for a block (the in-process CLI reads its
+    config from them), and restore the earlier values after it."""
+
+    def __init__(self, **values: str) -> None:
+        self.values = values
+        self.saved: dict = {}
+
+    def __enter__(self) -> "_Env":
+        for key, value in self.values.items():
+            self.saved[key] = os.environ.get(key)
+            os.environ[key] = value
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for key, value in self.saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+
+
+def run_cli(args) -> tuple:
+    """``cli.main.main(args)`` in this process: (exit code, stdout, stderr)."""
+    import contextlib
+    import io
+
+    from go_pocket_tts_tpu_torch.cli.main import main as cli_main
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli_main(list(args))
+    return rc, out.getvalue(), err.getvalue()
+
+
+def _sha256(path: str) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 24), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+def _doctor_start(root: str, model_path: str, tok_path: str):
+    """``python -m go_pocket_tts_tpu_torch doctor`` as a subprocess on the card."""
+    env = {**os.environ, "PYTHONPATH": root, "POCKETTTS_PATHS_MODEL_PATH": model_path,
+           "POCKETTTS_PATHS_TOKENIZER_MODEL": tok_path}
+    env.pop("POCKETTTS_PLATFORM", None)
+    cmd = [sys.executable, "-m", "go_pocket_tts_tpu_torch", "doctor"]
+    return subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _doctor_check(proc, t0: float) -> None:
+    from go_pocket_tts_tpu_torch.kernels import build
+
+    out, err = proc.communicate(timeout=300)
+    wall = time.perf_counter() - t0
+    lines = out.strip().splitlines()
+    for line in lines:
+        print(f"    {line}")
+    if proc.returncode != 0 or not lines or not all(line.startswith("✓") for line in lines):
+        fail(f"doctor exited {proc.returncode} with a line not ✓: {out[-2000:]} {err[-2000:]}")
+    backend = next((line for line in lines if line.startswith("✓ cuda backend")), "")
+    kernel_line = next((line for line in lines if line.startswith("✓ cuda kernels")), "")
+    if CARD not in backend or torch.cuda.get_device_name(0) not in backend:
+        fail(f"doctor's cuda backend line does not name the card and its power limit ({CARD}): {backend}")
+    libs = [build._target(name).name for name in build.SOURCES]
+    if "sm_90a" not in kernel_line or not all(lib in kernel_line for lib in libs):
+        fail(f"doctor's cuda kernels line does not name the sm_90a libraries {libs}: {kernel_line}")
+    print(f"  doctor subprocess: {len(lines)} checks, all ✓, exit 0, {wall:.1f} s wall  [{CARD}]")
+
+
+def exports(root: str, model_path: str, tok_path: str) -> dict:
+    """``model export`` three ways through the CLI in process, each file's
+    sha256 against the in-process exporter's on the same store, then
+    ``model verify`` (smoke load on the card) and ``model dump-header`` of
+    each; returns the paths by kind."""
+    from go_pocket_tts_tpu_torch.cli.main import VOICE_CLONING_PREFIXES
+    from go_pocket_tts_tpu_torch.model_assets.quantize_export import build_quantized_checkpoint, reencode_tensor
+    from go_pocket_tts_tpu_torch.utils.safetensors import REQUIRED_MODEL_KEYS, encode_tensors, open_store
+
+    import hashlib
+
+    out = os.path.join(root, "build", "phase14")
+    os.makedirs(out, exist_ok=True)
+    store = open_store(model_path)
+    kinds = {
+        "strip": ["--strip-voice-cloning"],
+        "int8": ["--quantize", "int8"],
+        "int4": ["--quantize", "int4"],
+    }
+    paths = {}
+    for kind, flags in kinds.items():
+        path = os.path.join(out, f"{kind}.safetensors")
+        t = time.perf_counter()
+        with _Env(POCKETTTS_PATHS_MODEL_PATH=model_path):
+            rc, stdout, stderr = run_cli(["model", "export", "--output", path, *flags])
+        wall = time.perf_counter() - t
+        if rc != 0:
+            fail(f"model export {kind}: exit {rc}: {stderr[-2000:]}")
+        if kind == "strip":
+            keep = [n for n in store.names() if not n.startswith(VOICE_CLONING_PREFIXES)]
+            tensors, meta = {n: reencode_tensor(store, n, "f32") for n in keep}, dict(store.metadata) or None
+        else:
+            tensors, meta, _ = build_quantized_checkpoint(store, 8 if kind == "int8" else 4, metadata=store.metadata)
+        want = hashlib.sha256(encode_tensors(tensors, metadata=meta)).hexdigest()
+        got = _sha256(path)
+        if got != want:
+            fail(f"model export {kind}: sha256 {got} != the in-process exporter's {want}")
+        t = time.perf_counter()
+        rc_v, verify_out, verify_err = run_cli(
+            ["model", "verify", "--paths-model-path", path, "--paths-tokenizer-model", tok_path]
+        )
+        verify_wall = time.perf_counter() - t
+        if rc_v != 0 or "✓ model smoke load" not in verify_out:
+            fail(f"model verify {kind}: exit {rc_v}: {verify_out} {verify_err[-2000:]}")
+        rc_d, header_out, _ = run_cli(["model", "dump-header", "--path", path])
+        header = json.loads(header_out)
+        if rc_d != 0 or header["required_keys_missing"] != [] or header["tensor_count"] != len(tensors):
+            fail(f"model dump-header {kind}: exit {rc_d}, missing {header.get('required_keys_missing')}, "
+                 f"{header.get('tensor_count')} tensors, want {len(tensors)}")
+        smoke = next(line for line in verify_out.splitlines() if "smoke load" in line)
+        print(
+            f"  model export {' '.join(flags)}: {json.loads(stdout)}, {os.path.getsize(path) / 1e6:.1f} MB in {wall:.1f} s, "
+            f"sha256 {got[:16]}… = the in-process exporter's; model verify (load on the card) {verify_wall:.1f} s: "
+            f"{smoke}; dump-header {header['tensor_count']} tensors, required keys missing "
+            f"{header['required_keys_missing']} (of {len(REQUIRED_MODEL_KEYS)})  [{CARD}]"
+        )
+        paths[kind] = path
+    return paths
+
+
+def _tar_gz(path: str, members: dict) -> None:
+    import tarfile
+
+    with tarfile.open(path, "w:gz", compresslevel=1) as tf:
+        for name, source in members.items():
+            tf.add(source, arcname=name)
+
+
+def bundle(root: str, artifact: str, tok_path: str) -> None:
+    """``model download-bundle`` of a ``file://`` tar.gz holding a
+    checkpoint, the tokenizer and a ``bundle-manifest.json``, with
+    ``--sha256``; the extracted files against the originals, ``model
+    verify`` on them; a copy with one byte flipped is refused."""
+    out = os.path.join(root, "build", "phase14")
+    manifest = os.path.join(out, "bundle-manifest.json")
+    originals = {"model.safetensors": artifact, "tokenizer.model": tok_path}
+    digests = {name: _sha256(src) for name, src in originals.items()}
+    with open(manifest, "w") as f:
+        json.dump({"files": [{"path": n, "sha256": d} for n, d in digests.items()]}, f)
+    archive = os.path.join(out, "bundle.tar.gz")
+    t = time.perf_counter()
+    _tar_gz(archive, {**originals, "bundle-manifest.json": manifest})
+    pack = time.perf_counter() - t
+    digest = _sha256(archive)
+    dest = os.path.join(out, "bundle")
+    t = time.perf_counter()
+    rc, stdout, stderr = run_cli(["model", "download-bundle", "--bundle-url", f"file://{archive}", "--sha256", digest,
+                                  "--out-dir", dest])
+    wall = time.perf_counter() - t
+    if rc != 0 or json.loads(stdout)["files"] != 2:
+        fail(f"model download-bundle: exit {rc}: {stdout} {stderr[-2000:]}")
+    for name, want in digests.items():
+        if _sha256(os.path.join(dest, name)) != want:
+            fail(f"download-bundle: {name} differs from its original")
+    rc_v, verify_out, verify_err = run_cli(["model", "verify", "--paths-model-path", os.path.join(dest, "model.safetensors"),
+                                            "--paths-tokenizer-model", os.path.join(dest, "tokenizer.model")])
+    if rc_v != 0:
+        fail(f"model verify of the extracted bundle: exit {rc_v}: {verify_out} {verify_err[-2000:]}")
+    corrupt = os.path.join(out, "corrupt.tar.gz")
+    with open(archive, "rb") as f:
+        data = bytearray(f.read())
+    data[len(data) // 2] ^= 0xFF
+    with open(corrupt, "wb") as f:
+        f.write(data)
+    refused_dest = os.path.join(out, "refused")
+    rc_c, _, err_c = run_cli(["model", "download-bundle", "--bundle-url", f"file://{corrupt}", "--sha256", digest,
+                              "--out-dir", refused_dest])
+    if rc_c == 0 or "checksum mismatch" not in err_c or os.path.exists(os.path.join(refused_dest, "model.safetensors")):
+        fail(f"download-bundle accepted a corrupted archive: exit {rc_c}: {err_c[-2000:]}")
+    print(
+        f"  model download-bundle file:// tar.gz ({os.path.getsize(archive) / 1e6:.1f} MB, packed in {pack:.1f} s): "
+        f"{json.loads(stdout)} in {wall:.1f} s, both files' sha256 = the originals', model verify exit 0; "
+        f"a copy with one byte flipped refused (exit {rc_c}: {err_c.strip().splitlines()[-1][:90]})  [{CARD}]"
+    )
+
+
+def bench_cli(model_path: str, tok_path: str, frames: int, what: str, env: dict) -> dict:
+    """``bench --runs 3 --json`` through the CLI in process; checks each
+    run and prints the readings."""
+    with _Env(POCKETTTS_PATHS_MODEL_PATH=model_path, POCKETTTS_PATHS_TOKENIZER_MODEL=tok_path,
+              POCKETTTS_RUNTIME_DTYPE="bfloat16", POCKETTTS_RUNTIME_SEED=str(SEED), POCKETTTS_EOS_THRESHOLD="1e9",
+              **env):
+        rc, stdout, stderr = run_cli(["bench", "--text", TOOLS_TEXT, "--runs", "3", "--json"])
+    if rc != 0:
+        fail(f"bench {what}: exit {rc}: {stderr[-2000:]}")
+    out = json.loads(stdout)
+    runs = out["runs"]
+    if [r["cold"] for r in runs] != [True, False, False, False]:
+        fail(f"bench {what}: runs {[(r['run'], r['cold']) for r in runs]}, want a cold run then 3")
+    for r in runs:
+        if abs(r["audio_seconds"] - frames * 0.08) > 1e-9 or not 0 < r["ttfa_seconds"] <= r["synth_seconds"]:
+            fail(f"bench {what}: run {r}: want {frames} frames ({frames * 0.08:.2f} s) and TTFA <= synth time")
+    warm = [r["x_realtime"] for r in runs[1:]]
+    print(
+        f"  bench {what}, {frames} frames a run: rtf min/mean/max {out['rtf_min']:.4f}/{out['rtf_mean']:.4f}/"
+        f"{out['rtf_max']:.4f}, x real time {min(warm):.2f}–{max(warm):.2f} (cold {runs[0]['x_realtime']:.2f}), "
+        f"TTFA p50 {out['ttfa_p50_seconds'] * 1e3:.1f} ms (cold {runs[0]['ttfa_seconds'] * 1e3:.1f})  [{CARD}]"
+    )
+    return out
+
+
+def stageprof_cli(root: str, model_path: str, tok_path: str, frames: int) -> None:
+    """``stageprof --trace-dir`` through the CLI in process on the single
+    runtime: the stage table, and the Chrome trace naming kernel 1's and
+    kernel 2's CUDA symbols."""
+    trace_dir = os.path.join(root, "build", "phase14", "trace")
+    with _Env(POCKETTTS_PATHS_MODEL_PATH=model_path, POCKETTTS_PATHS_TOKENIZER_MODEL=tok_path,
+              POCKETTTS_RUNTIME_DTYPE="bfloat16", POCKETTTS_RUNTIME_SEED=str(SEED), POCKETTTS_EOS_THRESHOLD="1e9"):
+        rc, _, stderr = run_cli(["stageprof", "--text", TOOLS_TEXT])  # warm
+        t = time.perf_counter()
+        rc2, stdout, stderr2 = run_cli(["stageprof", "--text", TOOLS_TEXT, "--trace-dir", trace_dir])
+        wall = time.perf_counter() - t
+    if rc != 0 or rc2 != 0:
+        fail(f"stageprof: exit {rc}/{rc2}: {stderr[-1000:]} {stderr2[-1000:]}")
+    table = stdout.strip().splitlines()
+    stages = {line.split()[0]: float(line.split()[1]) for line in table[1:-1]}
+    if list(stages) != ["prepare", "prefill", "ar", "decode", "generate", "encode"] or not table[-1].endswith(
+        f"audio={frames * 0.08:.2f}s"
+    ):
+        fail(f"stageprof table: {table}")
+    path = os.path.join(trace_dir, "stageprof.trace.json")
+    with open(path) as f:
+        trace = f.read()
+    symbols = {"kernel 1 (split_kv_attention)": "split_kv_attention", "kernel 2 (up_tail_mma_kernel)": "up_tail_mma_kernel"}
+    missing = [k for k, sym in symbols.items() if sym not in trace]
+    if missing:
+        fail(f"stageprof trace {path} does not name {missing}")
+    print(
+        f"  stageprof (single runtime, bf16, {frames} frames, under torch.profiler): "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in stages.items())
+        + f"; {table[-1]}; Chrome trace {os.path.getsize(path) / 1e6:.1f} MB names kernels 1 and 2; {wall:.1f} s wall  [{CARD}]"
+    )
+
+
+def staged_f32(tokens, frames: int) -> None:
+    """``generate_audio_staged`` against ``generate_audio`` in float32 at
+    temperature 0, on the card."""
+    from go_pocket_tts_tpu_torch.runtime import GenerateConfig, GPURuntime
+
+    _arch, model32 = build_model(torch.float32)
+    rt = GPURuntime(model32, dtype=torch.float32, seed=SEED, device="cuda")
+    cfg = GenerateConfig(temperature=0.0, eos_threshold=1e9, max_steps=frames)
+    staged, stages = rt.generate_audio_staged(tokens, cfg)
+    whole = rt.generate_audio(tokens, cfg)
+    check_audio(staged, frames, "staged float32", bounded=False)
+    err = float(np.abs(staged - whole).max())
+    if err > PCM16_STEP:
+        fail(f"staged float32 against generate_audio: max abs {err:.3e} > one PCM16 step {PCM16_STEP:.3e}")
+    print(
+        f"  generate_audio_staged float32, temperature 0, {frames} frames: max abs to generate_audio {err:.3e} "
+        f"(one PCM16 step {PCM16_STEP:.3e}), RMS {float(np.sqrt(np.mean((staged - whole) ** 2))):.3e}; stages "
+        + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in stages.items())
+        + f"  [{CARD}]"
+    )
+
+
+def microbench_subprocess(root: str) -> None:
+    env = {**os.environ, "PYTHONPATH": root}
+    cmd = [sys.executable, "-m", "go_pocket_tts_tpu_torch.bench.microbench"]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or len(lines) != 7 or not lines[0].startswith(f"card: {CARD}"):
+        fail(f"microbench exited {proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    for line in lines:
+        print(f"    {line}")
+    print(f"  microbench subprocess: the card line and 6 ops, exit 0, {wall:.1f} s wall  [{CARD}]")
+
+
+def cli_tools(fixtures, root: str) -> None:
+    """Phase 14. Its launches are read into a dict of their own: the kernel
+    table's totals stay those of phases 3, 5, 7 and 9."""
+    from go_pocket_tts_tpu_torch import kernels
+    from go_pocket_tts_tpu_torch.config import AUTOTUNE_BURST_STEPS
+    from go_pocket_tts_tpu_torch.text.sentencepiece import load_tokenizer
+
+    model_path, tok_path = fixtures
+    (ids, frames), = chunk_frames(load_tokenizer(tok_path), TOOLS_TEXT)
+    t0 = time.perf_counter()
+    doctor = _doctor_start(root, model_path, tok_path)
+    counts: dict = {}
+    paths = exports(root, model_path, tok_path)
+    bundle(root, paths["int4"], tok_path)
+    _doctor_check(doctor, t0)
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    bench_cli(model_path, tok_path, frames, "over the single runtime (bf16)", {})
+    read_launches("phase 14's bench over the single runtime", ("decode_attention_step", "fused_up2_res",
+                  "fused_seanet_up_tail"), counts, shapes=None)
+    serving = dict(POCKETTTS_RUNTIME_BATCH_SLOTS="8", POCKETTTS_RUNTIME_QUANTIZE="true",
+                   POCKETTTS_RUNTIME_KV_QUANTIZE="true", POCKETTTS_RUNTIME_STEPS_PER_SYNC_BURST=str(AUTOTUNE_BURST_STEPS))
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    bench_cli(model_path, tok_path, frames, "over the 8-slot int8 batcher (int8 weights and KV, 64-step bursts)", serving)
+    read_launches("phase 14's bench over the batcher", ("batched_decode_attention_int8", "quantized_matmul",
+                  "fused_up2_res", "fused_seanet_up_tail"), counts, shapes=None)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    stageprof_cli(root, model_path, tok_path, frames)
+    read_launches("phase 14's stageprof", ("decode_attention_step", "fused_up2_res", "fused_seanet_up_tail"),
+                  counts, shapes=None)
+    staged_f32(ids, frames)
+    torch.cuda.empty_cache()
+    microbench_subprocess(root)
+    print(f"  phase 14 launches: {counts}")
+
+
 def main() -> int:
     global CARD
     if not torch.cuda.is_available():
@@ -2662,6 +3014,13 @@ def main() -> int:
     t = time.perf_counter()
     voice_cloning(model, arch, fixtures, root)
     print(f"  phase 13 took {time.perf_counter() - t:.1f} s  [{CARD}]")
+
+    print("phase 14: the CLI's tools: doctor, model export/verify/dump-header/download-bundle, bench, stageprof, microbench")
+    t = time.perf_counter()
+    del model
+    torch.cuda.empty_cache()
+    cli_tools(fixtures, root)
+    print(f"  phase 14 took {time.perf_counter() - t:.1f} s  [{CARD}]")
 
     for name, row in rows.items():
         row["launches"] = counts.get(name, 0)

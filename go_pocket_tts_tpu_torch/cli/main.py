@@ -2,17 +2,17 @@
 ``cli/main.py``).
 
 Subcommands: ``synth``, ``serve`` (with ``--voice-upload-dir``, ``POST
-/voices``), ``export-voice`` and ``health``. Run via
+/voices``), ``export-voice``, ``bench``, ``stageprof``, ``doctor``,
+``health``, ``model download|download-bundle|verify|dump-header|export`` and
+``voice download``, with the reference's option names and defaults. Run via
 ``python -m go_pocket_tts_tpu_torch <cmd> ...`` or ``pockettts-gpu <cmd>``.
-The reference's other subcommands (``bench``, ``stageprof``, ``doctor``,
-``model …``, ``voice download``) are not ported yet: calling one exits 2
-with a message (``ROADMAP.md`` §1).
 
 Every subcommand loads flags > env (``POCKETTTS_*``) > config file >
 defaults before running (`cmd/pockettts/root.go:24-38`).
 ``POCKETTTS_PLATFORM`` sets the device: ``cpu`` runs the plain PyTorch
 versions of the kernels on the CPU; unset, ``gpu`` or ``cuda`` runs on the
-card, and fails on a host without CUDA.
+card, and fails on a host without CUDA. ``model export``, ``dump-header``,
+the downloads and ``doctor``'s file checks run on the host alone.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from go_pocket_tts_tpu_torch.config import Config, apply_serving_autotune, load_config, register_flags
+from go_pocket_tts_tpu_torch.config import Config, _parse_bool, apply_serving_autotune, load_config, register_flags
 from go_pocket_tts_tpu_torch.utils import dsp, wav
 
 log = logging.getLogger("pockettts")
@@ -38,9 +38,6 @@ _LOG_LEVELS = {
     "warn": logging.WARNING,
     "error": logging.ERROR,
 }
-
-# The reference's subcommands that this package does not have yet.
-NOT_PORTED = ("bench", "stageprof", "doctor", "model", "voice")
 
 
 def _setup_logging(level: str) -> None:
@@ -247,7 +244,65 @@ def cmd_export_voice(args) -> int:
     return 0
 
 
-# -- health ------------------------------------------------------------------
+# -- bench / stageprof --------------------------------------------------------
+
+
+def cmd_bench(args) -> int:
+    cfg = _load_config(args)
+    _setup_logging(cfg.log_level)
+    from go_pocket_tts_tpu_torch.bench import check_rtf_threshold, format_json, format_table, run_bench
+
+    svc = _build_service(cfg)
+    try:
+        stats = run_bench(
+            svc,
+            args.text,
+            runs=args.runs,
+            voice_path=_resolve_voice(cfg, args.voice or cfg.tts.voice),
+            include_cold=not args.no_cold,
+        )
+    finally:
+        svc.close()
+    print(format_json(stats) if args.json else format_table(stats))
+    try:
+        check_rtf_threshold(stats, args.rtf_threshold)
+    except RuntimeError as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def cmd_stageprof(args) -> int:
+    cfg = _load_config(args)
+    _setup_logging(cfg.log_level)
+    from go_pocket_tts_tpu_torch.bench.stageprof import profile_synthesis
+
+    svc = _build_service(cfg)
+    try:
+        prof = profile_synthesis(
+            svc,
+            args.text,
+            voice_path=_resolve_voice(cfg, args.voice or cfg.tts.voice),
+            trace_dir=args.trace_dir or None,
+        )
+    finally:
+        svc.close()
+    print(prof.format_table())
+    if prof.trace_path:
+        log.info("wrote the Chrome trace %s", prof.trace_path)
+    return 0
+
+
+# -- doctor / health ---------------------------------------------------------
+
+
+def cmd_doctor(args) -> int:
+    cfg = _load_config(args)
+    _setup_logging(cfg.log_level)
+    from go_pocket_tts_tpu_torch.cli.doctor import run_doctor
+
+    res = run_doctor(cfg, out=sys.stdout)
+    return 0 if res.ok else 1
 
 
 def cmd_health(args) -> int:
@@ -261,6 +316,167 @@ def cmd_health(args) -> int:
         print(f"error: {exc}", file=sys.stderr)
         return 1
     print(json.dumps(out))
+    return 0
+
+
+# -- model / voice assets -----------------------------------------------------
+
+
+def cmd_model_download(args) -> int:
+    cfg = load_config(args)
+    _setup_logging(cfg.log_level)
+    from go_pocket_tts_tpu_torch.model_assets import download as dl
+    from go_pocket_tts_tpu_torch.model_assets import manifest as mf
+
+    def progress(name, written, total):
+        pct = f"{written * 100 // total}%" if total else f"{written >> 20} MiB"
+        print(f"  {name}: {pct}", file=sys.stderr)
+
+    repo = args.repo or mf.GATED_REPO
+    token = args.hf_token or os.environ.get("HF_TOKEN", "")
+    fallback_repo = args.fallback_repo or mf.UNGATED_REPO
+    try:
+        resolved = dl.download_manifest(mf.pinned_manifest(repo), args.dest, progress, token=token)
+    except dl.AccessDeniedError:
+        # Gated-repo fallback (`cmd/pockettts/model_download.go:38-62`): the
+        # token is dropped for the ungated repo; `--fallback-ungated false`
+        # disables the retry.
+        if not args.fallback_ungated:
+            raise
+        log.warning("access denied for %s; falling back to %s", repo, fallback_repo)
+        resolved = dl.download_manifest(mf.pinned_manifest(fallback_repo), args.dest, progress)
+    print(json.dumps(resolved, indent=2))
+    return 0
+
+
+# Tensor-name prefixes of the voice-cloning weights (the Mimi encoder and
+# the speaker projection): the `without-voice-cloning` variant drops them.
+VOICE_CLONING_PREFIXES = (
+    "mimi.encoder",
+    "mimi.encoder_transformer",
+    "mimi.downsample",
+    "mimi.quantizer.input_proj",
+    "condition_provider",
+)
+
+
+def cmd_model_export(args) -> int:
+    """Re-encode the checkpoint on the host, never the card: optionally
+    without the voice-cloning weights (``--strip-voice-cloning``), with
+    float tensors in bf16 (``--dtype bf16``) or with linear weights
+    pre-quantized (``--quantize int8|int4``, through
+    ``model_assets.quantize_export``). The bytes equal the reference
+    CLI's for the same checkpoint and options."""
+    cfg = load_config(args)
+    _setup_logging(cfg.log_level)
+    from go_pocket_tts_tpu_torch.utils.safetensors import open_store, write_file
+
+    store = open_store(cfg.paths.model_path)
+    strip_prefixes = VOICE_CLONING_PREFIXES if args.strip_voice_cloning else ()
+    keep = [name for name in store.names() if not strip_prefixes or not name.startswith(strip_prefixes)]
+    float_dtype = args.dtype or "f32"
+    result = {"output": args.output}
+    if args.quantize:
+        from go_pocket_tts_tpu_torch.model_assets.quantize_export import (
+            QUANT_METADATA_KEY,
+            build_quantized_checkpoint,
+        )
+
+        bits = {"int8": 8, "int4": 4}[args.quantize]
+        tensors, metadata, quantized = build_quantized_checkpoint(
+            store, bits, keep_names=keep, float_dtype=float_dtype, metadata=store.metadata
+        )
+        write_file(args.output, tensors, metadata=metadata)
+        result.update(
+            tensors=len(tensors), quantized=len(quantized), format=metadata.get(QUANT_METADATA_KEY, "unquantized")
+        )
+    else:
+        from go_pocket_tts_tpu_torch.model_assets.quantize_export import reencode_tensor
+
+        tensors = {name: reencode_tensor(store, name, float_dtype) for name in keep}
+        write_file(args.output, tensors, metadata=dict(store.metadata) or None)
+        result["tensors"] = len(tensors)
+    print(json.dumps(result))
+    return 0
+
+
+def cmd_model_dump_header(args) -> int:
+    """The checkpoint's tensor inventory as JSON (names, shapes, dtypes,
+    metadata and the required keys it lacks), from the header alone."""
+    cfg = load_config(args)
+    _setup_logging(cfg.log_level)
+    from go_pocket_tts_tpu_torch.utils.safetensors import REQUIRED_MODEL_KEYS, SafetensorsError, read_header
+
+    path = args.path or cfg.paths.model_path
+    if not os.path.exists(path):
+        print(json.dumps({"error": f"no such file: {path}"}))
+        return 1
+    try:
+        header = read_header(path)
+    except SafetensorsError as exc:
+        print(json.dumps({"error": str(exc)}))
+        return 1
+    metadata = header.pop("__metadata__", {})
+    tensors = {
+        name: {"dtype": info.get("dtype"), "shape": info.get("shape")} for name, info in sorted(header.items())
+    }
+    missing = [k for k in REQUIRED_MODEL_KEYS if k not in tensors]
+    print(
+        json.dumps(
+            {
+                "path": path,
+                "tensor_count": len(tensors),
+                "metadata": metadata,
+                "required_keys_missing": missing,
+                "tensors": tensors,
+            },
+            indent=2 if args.pretty else None,
+        )
+    )
+    return 0
+
+
+def cmd_model_verify(args) -> int:
+    cfg = _load_config(args)
+    _setup_logging(cfg.log_level)
+    from go_pocket_tts_tpu_torch.model_assets.verify import verify_native_model
+
+    res = verify_native_model(cfg.paths.model_path, cfg.paths.tokenizer_model, device=cfg.runtime.device)
+    for line in res.checks:
+        print(line)
+    return 0 if res.ok else 1
+
+
+def cmd_model_download_bundle(args) -> int:
+    """Archive-bundle download (`internal/model/onnx_bundle.go:19-120`):
+    lock-pinned or explicit-URL tar.gz/zip, sha256-gated, extraction that
+    refuses path traversal, then verification of the extracted files."""
+    cfg = load_config(args)
+    _setup_logging(cfg.log_level)
+    from go_pocket_tts_tpu_torch.model_assets.bundle import download_bundle
+
+    verified = download_bundle(
+        out_dir=args.out_dir,
+        bundle_url=args.bundle_url or "",
+        sha256=args.sha256 or "",
+        bundle_id=args.bundle_id or "",
+        variant=args.variant,
+        lock_file=args.lock_file,
+        log=lambda msg: print(msg, file=sys.stderr),
+    )
+    print(json.dumps({"out_dir": args.out_dir, "files": len(verified)}))
+    return 0
+
+
+def cmd_voice_download(args) -> int:
+    cfg = load_config(args)
+    _setup_logging(cfg.log_level)
+    from go_pocket_tts_tpu_torch.model_assets import download as dl
+    from go_pocket_tts_tpu_torch.model_assets import manifest as mf
+
+    token = args.hf_token or os.environ.get("HF_TOKEN", "")
+    resolved = dl.download_manifest(mf.voice_manifest(), args.dest, token=token)
+    print(json.dumps(resolved, indent=2))
     return 0
 
 
@@ -334,20 +550,98 @@ def build_parser() -> argparse.ArgumentParser:
         help="Voice file format: legacy audio_prompt embedding or upstream KV model-state",
     )
 
+    p = add("bench", cmd_bench, "Benchmark synthesis (RTF, TTFA)")
+    p.add_argument("--text", default="The quick brown fox jumps over the lazy dog.")
+    p.add_argument("--voice", default="")
+    p.add_argument("--runs", type=int, default=3)
+    p.add_argument("--no-cold", action="store_true", help="Skip the cold run")
+    p.add_argument("--json", action="store_true")
+    p.add_argument("--rtf-threshold", type=float, default=0.0, help="CI gate (0=off)")
+
+    p = add("stageprof", cmd_stageprof, "Per-stage wall-time profile")
+    p.add_argument("--text", default="The quick brown fox jumps over the lazy dog.")
+    p.add_argument("--voice", default="")
+    p.add_argument(
+        "--trace-dir", default="", help="torch.profiler Chrome trace output dir (writes stageprof.trace.json)"
+    )
+
+    add("doctor", cmd_doctor, "Preflight diagnostics")
+
     p = add("health", cmd_health, "Probe a running server's /health")
     p.add_argument("--url", default="", help="Base URL (default from config)")
+
+    model = sub.add_parser("model", help="Model asset management")
+    msub = model.add_subparsers(dest="model_command", required=True)
+    p = msub.add_parser("download")
+    register_flags(p)
+    p.add_argument(
+        "--repo",
+        "--hf-repo",
+        dest="repo",
+        default="",
+        help="HF repo (default gated, auto-fallback; --hf-repo: reference alias)",
+    )
+    p.add_argument(
+        "--dest", "--out-dir", dest="dest", default="models", help="Destination directory (--out-dir: reference alias)"
+    )
+    p.add_argument("--hf-token", default="", help="Hugging Face token (falls back to HF_TOKEN env var)")
+    p.add_argument(
+        "--fallback-ungated",
+        default=True,
+        type=_parse_bool,
+        help="On gated access failure, retry with the ungated repo",
+    )
+    p.add_argument("--fallback-repo", default="", help="Ungated repo used when --fallback-ungated is enabled")
+    p.set_defaults(fn=cmd_model_download)
+    p = msub.add_parser("download-bundle", help="Download + verify a tar.gz/zip asset bundle")
+    p.add_argument("--bundle-url", default="", help="Explicit bundle URL (http(s):// or file://)")
+    p.add_argument("--bundle-id", default="", help="Bundle id from the lock file")
+    p.add_argument("--variant", default="b6369a24")
+    p.add_argument("--sha256", default="", help="Expected archive sha256 (overrides lock)")
+    p.add_argument("--lock-file", default="bundles/bundles.lock.json")
+    p.add_argument("--out-dir", required=True)
+    p.set_defaults(fn=cmd_model_download_bundle)
+    p = msub.add_parser("verify")
+    register_flags(p)
+    p.set_defaults(fn=cmd_model_verify)
+    p = msub.add_parser("dump-header", help="Tensor names/shapes/dtypes + metadata as JSON (header-only read)")
+    register_flags(p)
+    p.add_argument("--path", default="", help="Checkpoint (default: configured model path)")
+    p.add_argument("--pretty", action="store_true", help="Indented JSON")
+    p.set_defaults(fn=cmd_model_dump_header)
+    p = msub.add_parser("export")
+    register_flags(p)
+    p.add_argument("--output", required=True, help="Output .safetensors path")
+    p.add_argument(
+        "--strip-voice-cloning", action="store_true", help="Drop Mimi encoder / speaker projection weights"
+    )
+    p.add_argument(
+        "--quantize",
+        default="",
+        choices=("", "int8", "int4"),
+        help="Write linear weights pre-quantized (smaller artifact; loads directly into the serving quantized form)",
+    )
+    p.add_argument(
+        "--dtype",
+        default="",
+        choices=("", "f32", "bf16"),
+        help="Storage dtype for float tensors (bf16 halves them; combines with --quantize, where scales stay f32)",
+    )
+    p.set_defaults(fn=cmd_model_export)
+
+    voice = sub.add_parser("voice", help="Voice asset management")
+    vsub = voice.add_subparsers(dest="voice_command", required=True)
+    p = vsub.add_parser("download")
+    register_flags(p)
+    p.add_argument(
+        "--dest", "--out-dir", dest="dest", default="voices", help="Destination directory (--out-dir: reference alias)"
+    )
+    p.add_argument("--hf-token", default="", help="Hugging Face token (falls back to HF_TOKEN env var)")
+    p.set_defaults(fn=cmd_voice_download)
     return parser
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in NOT_PORTED:
-        print(
-            f"error: {argv[0]!r} is not yet ported to go_pocket_tts_tpu_torch "
-            "(ROADMAP.md §1); the reference package has it: python -m go_pocket_tts_tpu",
-            file=sys.stderr,
-        )
-        return 2
     args = build_parser().parse_args(argv)
     try:
         return args.fn(args)

@@ -12,11 +12,12 @@ process.
 from __future__ import annotations
 
 import contextlib
+import subprocess
 import threading
 
 import torch
 
-__all__ = ["DEFAULT_DEVICE", "exact_float32", "resolve_device"]
+__all__ = ["DEFAULT_DEVICE", "card_line", "exact_float32", "resolve_device"]
 
 DEFAULT_DEVICE = "cuda"
 
@@ -55,3 +56,17 @@ def exact_float32():
             yield
         finally:
             torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = conv, mm
+
+
+def card_line() -> str:
+    """The first card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them;
+    raises where ``nvidia-smi`` is missing or fails."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True,
+        text=True,
+        timeout=60,
+        check=True,
+    )
+    return out.stdout.strip().splitlines()[0]

@@ -1,5 +1,5 @@
-"""PocketTTS model facade: FlowLM + Mimi from one name → array mapping
-(counterpart of ``go_pocket_tts_tpu/models/model.py``).
+"""PocketTTS model facade: FlowLM + Mimi from one safetensors store, or any
+name → array mapping (counterpart of ``go_pocket_tts_tpu/models/model.py``).
 
 The per-frame latent denormalization ``latent·emb_std + emb_mean`` is folded
 into the 1×1 quantizer projection at load (``w' = w·std``,
@@ -18,9 +18,17 @@ from go_pocket_tts_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from go_pocket_tts_tpu_torch.models import flow_lm as flm
 from go_pocket_tts_tpu_torch.models import mimi as mimi_mod
 from go_pocket_tts_tpu_torch.models.params import VarBuilder, tree_map
-from go_pocket_tts_tpu_torch.utils.safetensors import load_file
+from go_pocket_tts_tpu_torch.utils.safetensors import Store, open_store
 
-__all__ = ["ModelConfig", "PocketTTSModel", "load_model", "load_model_from_tensors", "cast_params", "KEEP_F32"]
+__all__ = [
+    "ModelConfig",
+    "PocketTTSModel",
+    "load_model",
+    "load_model_from_store",
+    "load_model_from_tensors",
+    "cast_params",
+    "KEEP_F32",
+]
 
 Params = Dict
 
@@ -129,14 +137,25 @@ def load_model_from_tensors(
     return PocketTTSModel(cast_params(params, dev, dtype), ModelConfig(flow_lm=flow_cfg, mimi=mimi_cfg))
 
 
+def load_model_from_store(
+    store: Store,
+    num_heads: int = 16,
+    device: Union[str, torch.device] = DEFAULT_DEVICE,
+    dtype: torch.dtype = torch.float32,
+) -> PocketTTSModel:
+    """Build the model from a parsed safetensors :class:`Store`, float or
+    pre-quantized (int8 / packed int4 linears, written by
+    ``model_assets.quantize_export``), on ``device`` in ``dtype``; only the
+    tensors the loader reads are decoded."""
+    return load_model_from_tensors(store, num_heads=num_heads, device=device, dtype=dtype)
+
+
 def load_model(
     path: str,
     num_heads: int = 16,
     device: Union[str, torch.device] = DEFAULT_DEVICE,
     dtype: torch.dtype = torch.float32,
 ) -> PocketTTSModel:
-    """Load a safetensors checkpoint, float or pre-quantized (int8 / packed
-    int4 linears, written by ``model_assets.quantize_export``), on
-    ``device`` in ``dtype``."""
+    """Load a safetensors checkpoint file through :func:`load_model_from_store`."""
     dev = resolve_device(device)
-    return load_model_from_tensors(load_file(path), num_heads=num_heads, device=dev, dtype=dtype)
+    return load_model_from_store(open_store(path), num_heads=num_heads, device=dev, dtype=dtype)

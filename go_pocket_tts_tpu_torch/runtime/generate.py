@@ -60,6 +60,7 @@ __all__ = [
     "GenerateConfig",
     "GPURuntime",
     "HostCopy",
+    "decode_float",
     "decode_pcm16",
     "estimate_max_frames",
     "quantized_model",
@@ -133,17 +134,24 @@ def _full_f32(enabled: bool) -> Iterator[None]:
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
-def decode_pcm16(
+def decode_float(
     model: PocketTTSModel, frames: torch.Tensor, n_frames: torch.Tensor, decode_frames: int
 ) -> torch.Tensor:
-    """Mask → fused latent→mimi → Mimi decode → int16
-    ``[B, 1, decode_frames·1920]`` of ``frames [B, W, L]``; frames at or past
-    a lane's ``n_frames`` are zeroed, and the host trims each lane to
-    ``n_frames·1920`` samples."""
+    """Mask → fused latent→mimi → Mimi decode: the PCM
+    ``[B, 1, decode_frames·1920]`` of ``frames [B, W, L]`` in the model's
+    dtype; frames at or past a lane's ``n_frames`` are zeroed."""
     frames = frames[:, :decode_frames]
     mask = (torch.arange(decode_frames, device=frames.device) < n_frames[:, None])[:, :, None]
     latent = torch.where(mask, frames, torch.zeros((), dtype=frames.dtype, device=frames.device))
-    pcm = model.mimi_decode(model.latent_to_mimi(latent))
+    return model.mimi_decode(model.latent_to_mimi(latent))
+
+
+def decode_pcm16(
+    model: PocketTTSModel, frames: torch.Tensor, n_frames: torch.Tensor, decode_frames: int
+) -> torch.Tensor:
+    """:func:`decode_float`, then int16; the host trims each lane to
+    ``n_frames·1920`` samples."""
+    pcm = decode_float(model, frames, n_frames, decode_frames)
     # Truncation toward zero, as the reference's host WAV encoder does.
     return (pcm.float().clamp(-1.0, 1.0) * 32767.0).to(torch.int16)
 
@@ -439,6 +447,42 @@ class GPURuntime:
             return audio
 
         return resolve
+
+    def generate_audio_staged(self, tokens, cfg: GenerateConfig) -> Tuple[np.ndarray, Dict[str, float]]:
+        """Profiling variant of :meth:`generate_audio` (the counterpart of
+        ``TPURuntime.generate_audio_staged``): prefill, AR loop and decode
+        with the device synchronized at each boundary, returning (float32
+        PCM, ``{"prefill", "ar", "decode"}`` seconds).
+
+        The prefill goes through ``_setup``, so both voice forms count. The
+        decode runs at ``pick_bucket(frames, DECODE_BUCKETS)`` and the PCM
+        stays float, without the int16 step, as the reference's does; it is
+        so within one PCM16 step of :meth:`generate_audio`'s. Slower than
+        the one-shot path (a sync per stage), for the stage profiler.
+        """
+        stages: Dict[str, float] = {}
+
+        def sync() -> None:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+
+        with self._compute():
+            t0 = time.perf_counter()
+            cache, max_steps, decode_steps, frame_bucket, _ = self._setup(tokens, cfg)
+            sync()
+            stages["prefill"] = time.perf_counter() - t0
+
+            t0 = time.perf_counter()
+            frames, n_frames, _ = self._ar_loop(cache, cfg, max_steps, decode_steps, frame_bucket)
+            n = int(n_frames[0])  # waits for the loop
+            stages["ar"] = time.perf_counter() - t0
+
+            t0 = time.perf_counter()
+            pcm = decode_float(self.model, frames, n_frames, bk.pick_bucket(n, bk.DECODE_BUCKETS))
+            samples_per = self.model.config.mimi.samples_per_latent
+            audio = pcm[0, 0, : n * samples_per].float().cpu().numpy()
+            stages["decode"] = time.perf_counter() - t0
+        return audio, stages
 
     # Cache size ceiling of a continuity session: a session that fills it
     # resets rather than run past the context the model was trained at.

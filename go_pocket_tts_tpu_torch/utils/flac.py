@@ -67,9 +67,14 @@ def _crc8(data: bytes) -> int:
 
 def _crc16(data: bytes) -> int:
     # The frame CRC runs over every compressed byte, about half of the
-    # whole encode as a Python loop. The reference package runs the same
-    # table algorithm in C (``native/audioio.cpp``) with the same output;
-    # that helper is not ported yet (ROADMAP.md).
+    # whole encode as a Python loop. The native helper runs the same table
+    # algorithm in C (``native/audioio.cpp: crc16_8005``) with the same
+    # output; the loop is the fallback.
+    from go_pocket_tts_tpu_torch.native import audioio
+
+    native = audioio.load()
+    if native is not None:
+        return native.crc16_8005(data)
     crc = 0
     for b in data:
         crc = int(_CRC16_TABLE[((crc >> 8) ^ b) & 0xFF]) ^ ((crc << 8) & 0xFFFF)

@@ -1,9 +1,13 @@
-"""safetensors reader and writer (NumPy; counterpart of the tensor and
-voice-file parts of ``go_pocket_tts_tpu/utils/safetensors.py``).
+"""safetensors reader and writer (NumPy; counterpart of
+``go_pocket_tts_tpu/utils/safetensors.py``).
 
 Format: ``[8-byte LE header length][JSON header][raw tensor data]``, with an
-optional ``__metadata__`` entry of string pairs. The reader widens F16 and
-BF16 to float32 and keeps I64, I8 and U8 in their integer dtype (the
+optional ``__metadata__`` entry of string pairs. :class:`Store` parses and
+validates a payload (offsets and shapes against the data, a 100 MiB header
+limit, an optional ``key_mapper`` renaming, lenient or strict) with the
+reference's checks and messages; :func:`read_header` and
+:func:`validate_model_keys` read the header alone. The reader widens F16
+and BF16 to float32 and keeps I64, I8 and U8 in their integer dtype (the
 pre-quantized checkpoints store int8 weights as I8 and packed int4 weights
 as U8). The writer stores F32, BF16, I64, I8 and U8 and produces the same
 bytes as the reference writer for the same tensors.
@@ -18,17 +22,24 @@ from __future__ import annotations
 import json
 import os
 import struct
+from collections.abc import Mapping as _MappingABC
 from dataclasses import dataclass, field
-from typing import Dict, Iterable, List, Mapping, Optional, Union
+from typing import Callable, Dict, Iterable, Iterator, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 __all__ = [
     "SafetensorsError",
+    "Store",
+    "open_store",
+    "open_store_from_bytes",
     "load_bytes",
     "load_file",
+    "read_header",
     "read_header_metadata",
+    "validate_model_keys",
+    "REQUIRED_MODEL_KEYS",
     "encode_tensors",
     "write_file",
     "pack_nibbles",
@@ -43,75 +54,196 @@ __all__ = [
     "load_voice_model_state_from_bytes",
 ]
 
-_DTYPES = {
-    "F32": ("<f4", 4),
-    "F16": ("<f2", 2),
-    "BF16": ("<u2", 2),
-    "I64": ("<i8", 8),
-    "I8": ("i1", 1),
-    "U8": ("u1", 1),
-}
+_DTYPE_SIZES = {"F32": 4, "F16": 2, "BF16": 2, "I64": 8, "I8": 1, "U8": 1}
 _MAX_HEADER_BYTES = 100 * 1024 * 1024
 
 Tensor = Union[np.ndarray, torch.Tensor]
+# KeyMapper: name -> (mapped_name, keep)
+KeyMapper = Callable[[str], Tuple[str, bool]]
 
 
 class SafetensorsError(ValueError):
     """Raised for malformed safetensors payloads."""
 
 
-def _parse_header(data: bytes) -> tuple:
-    if len(data) < 8:
-        raise SafetensorsError("safetensors: payload too small for header length")
-    (header_len,) = struct.unpack_from("<Q", data, 0)
-    if header_len > _MAX_HEADER_BYTES:
-        raise SafetensorsError(f"safetensors: header length {header_len} exceeds {_MAX_HEADER_BYTES} limit")
-    if 8 + header_len > len(data):
-        raise SafetensorsError("safetensors: header length exceeds payload size")
-    try:
-        header = json.loads(data[8 : 8 + header_len].decode("utf-8"))
-    except (UnicodeDecodeError, json.JSONDecodeError) as exc:
-        raise SafetensorsError(f"safetensors: invalid JSON header: {exc}") from exc
-    if not isinstance(header, dict):
-        raise SafetensorsError("safetensors: header must be a JSON object")
-    return header, 8 + header_len
+@dataclass(frozen=True)
+class _Entry:
+    dtype: str
+    shape: Tuple[int, ...]
+    start: int
+    end: int
+
+
+def _bf16_to_f32(raw: bytes, n: int) -> np.ndarray:
+    u16 = np.frombuffer(raw, dtype="<u2", count=n)
+    return (u16.astype(np.uint32) << 16).view(np.float32).copy()
+
+
+class Store(_MappingABC):
+    """Parsed safetensors payload with validated entries, held in memory.
+
+    A read-only mapping of (mapped) tensor name → decoded NumPy array, in
+    header order, so it serves as the ``tensors`` argument of the loaders
+    and the exporter; each tensor is decoded when it is read.
+    ``key_mapper(name) → (mapped, keep)`` renames or drops tensors; with
+    ``strict_remap`` a duplicate mapped name, or a mapper that drops every
+    tensor, raises.
+    """
+
+    def __init__(self, data: bytes, key_mapper: Optional[KeyMapper] = None, strict_remap: bool = False) -> None:
+        if len(data) < 8:
+            raise SafetensorsError("safetensors: payload too small for header length")
+        (header_len,) = struct.unpack_from("<Q", data, 0)
+        if header_len > _MAX_HEADER_BYTES:
+            raise SafetensorsError(f"safetensors: header length {header_len} exceeds {_MAX_HEADER_BYTES} limit")
+        if 8 + header_len > len(data):
+            raise SafetensorsError("safetensors: header length exceeds payload size")
+        try:
+            header = json.loads(data[8 : 8 + header_len].decode("utf-8"))
+        except (UnicodeDecodeError, json.JSONDecodeError) as exc:
+            raise SafetensorsError(f"safetensors: invalid JSON header: {exc}") from exc
+        if not isinstance(header, dict):
+            raise SafetensorsError("safetensors: header must be a JSON object")
+
+        payload = data[8 + header_len :]
+        self._payload = payload
+        self._entries: Dict[str, _Entry] = {}
+        self._metadata: Dict[str, str] = {}
+        for name, raw_entry in header.items():
+            if name == "__metadata__":
+                if isinstance(raw_entry, dict):
+                    self._metadata = {str(k): str(v) for k, v in raw_entry.items()}
+                continue
+            entry = self._parse_entry(name, raw_entry, len(payload))
+            mapped = name
+            if key_mapper is not None:
+                mapped, keep = key_mapper(name)
+                if not keep:
+                    continue
+                if mapped in self._entries and strict_remap:
+                    raise SafetensorsError(f"safetensors: key mapper produced duplicate name {mapped!r}")
+            self._entries[mapped] = entry
+        if key_mapper is not None and strict_remap and not self._entries:
+            raise SafetensorsError("safetensors: key mapper removed every tensor")
+
+    @staticmethod
+    def _parse_entry(name: str, raw_entry: object, payload_len: int) -> _Entry:
+        if not isinstance(raw_entry, dict):
+            raise SafetensorsError(f"safetensors: tensor {name!r} entry must be an object")
+        dtype = str(raw_entry.get("dtype", "")).upper()
+        if dtype not in _DTYPE_SIZES:
+            raise SafetensorsError(f"safetensors: tensor {name!r} has unsupported dtype {dtype!r}")
+        shape_raw = raw_entry.get("shape")
+        if not isinstance(shape_raw, list) or any(not isinstance(d, int) or d < 0 for d in shape_raw):
+            raise SafetensorsError(f"safetensors: tensor {name!r} has invalid shape")
+        offsets = raw_entry.get("data_offsets")
+        if (
+            not isinstance(offsets, list)
+            or len(offsets) != 2
+            or any(not isinstance(o, int) or o < 0 for o in offsets)
+        ):
+            raise SafetensorsError(f"safetensors: tensor {name!r} has invalid data_offsets")
+        start, end = offsets
+        n_elems = int(np.prod(shape_raw, dtype=np.int64)) if shape_raw else 1
+        want = n_elems * _DTYPE_SIZES[dtype]
+        if end < start or end - start != want:
+            raise SafetensorsError(
+                f"safetensors: tensor {name!r} data range [{start},{end}) does not match "
+                f"shape {shape_raw} dtype {dtype} ({want} bytes)"
+            )
+        if end > payload_len:
+            raise SafetensorsError(
+                f"safetensors: tensor {name!r} data range [{start},{end}) exceeds payload "
+                f"size {payload_len}"
+            )
+        return _Entry(dtype=dtype, shape=tuple(shape_raw), start=start, end=end)
+
+    # -- accessors ---------------------------------------------------------
+
+    @property
+    def metadata(self) -> Mapping[str, str]:
+        return self._metadata
+
+    def names(self) -> List[str]:
+        return sorted(self._entries)
+
+    def has(self, name: str) -> bool:
+        return name in self._entries
+
+    def shape(self, name: str) -> Tuple[int, ...]:
+        return self._require(name).shape
+
+    def dtype(self, name: str) -> str:
+        return self._require(name).dtype
+
+    def _require(self, name: str) -> _Entry:
+        entry = self._entries.get(name)
+        if entry is None:
+            sample = ", ".join(self.names()[:8]) or "none"
+            raise KeyError(f"safetensors: tensor {name!r} not found (have: {sample}, ...)")
+        return entry
+
+    def tensor(self, name: str) -> np.ndarray:
+        """Decode a tensor to NumPy, widening F16/BF16 to float32; I64, I8
+        and U8 keep their integer dtype."""
+        entry = self._require(name)
+        raw = self._payload[entry.start : entry.end]
+        n = int(np.prod(entry.shape, dtype=np.int64)) if entry.shape else 1
+        if entry.dtype == "F32":
+            arr = np.frombuffer(raw, dtype="<f4", count=n).copy()
+        elif entry.dtype == "F16":
+            arr = np.frombuffer(raw, dtype="<f2", count=n).astype(np.float32)
+        elif entry.dtype == "BF16":
+            arr = _bf16_to_f32(raw, n)
+        elif entry.dtype == "I64":
+            arr = np.frombuffer(raw, dtype="<i8", count=n).copy()
+        elif entry.dtype == "I8":
+            arr = np.frombuffer(raw, dtype=np.int8, count=n).copy()
+        else:  # "U8"; the dtype was checked in _parse_entry
+            arr = np.frombuffer(raw, dtype=np.uint8, count=n).copy()
+        return arr.reshape(entry.shape)
+
+    def tensor_f32(self, name: str) -> np.ndarray:
+        """Decode to float32 unconditionally (I64 is value-cast)."""
+        return self.tensor(name).astype(np.float32, copy=False)
+
+    # -- the mapping of name → decoded tensor --------------------------------
+
+    def __getitem__(self, name: str) -> np.ndarray:
+        return self.tensor(name)
+
+    def __contains__(self, name: object) -> bool:
+        return name in self._entries
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(self._entries)
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+
+def open_store(path: str | os.PathLike, **kwargs) -> Store:
+    with open(path, "rb") as f:
+        return Store(f.read(), **kwargs)
+
+
+def open_store_from_bytes(data: bytes, **kwargs) -> Store:
+    return Store(data, **kwargs)
 
 
 def load_bytes(data: bytes) -> Dict[str, np.ndarray]:
-    """Decode every tensor of a safetensors payload."""
-    header, start_of_data = _parse_header(data)
-    payload = memoryview(data)[start_of_data:]
-    out: Dict[str, np.ndarray] = {}
-    for name, entry in header.items():
-        if name == "__metadata__":
-            continue
-        dtype = str(entry.get("dtype", "")).upper()
-        if dtype not in _DTYPES:
-            raise SafetensorsError(f"safetensors: tensor {name!r} has unsupported dtype {dtype!r}")
-        np_dtype, size = _DTYPES[dtype]
-        shape = tuple(entry["shape"])
-        start, end = entry["data_offsets"]
-        n = int(np.prod(shape, dtype=np.int64)) if shape else 1
-        if end - start != n * size or end > len(payload):
-            raise SafetensorsError(f"safetensors: tensor {name!r} has a bad data range")
-        raw = np.frombuffer(payload[start:end], dtype=np_dtype, count=n)
-        if dtype == "BF16":
-            arr = (raw.astype(np.uint32) << 16).view(np.float32)
-        elif dtype == "F16":
-            arr = raw.astype(np.float32)
-        else:
-            arr = raw.copy()
-        out[name] = arr.reshape(shape)
-    return out
+    """Decode every tensor of a safetensors payload, in header order."""
+    return dict(Store(data).items())
 
 
 def load_file(path: str | os.PathLike) -> Dict[str, np.ndarray]:
-    with open(path, "rb") as f:
-        return load_bytes(f.read())
+    return dict(open_store(path).items())
 
 
-def read_header_metadata(path: str | os.PathLike) -> Dict[str, str]:
-    """The ``__metadata__`` entry of a file, reading only its header."""
+def read_header(path: str | os.PathLike) -> dict:
+    """The raw header dict (tensor name → {dtype, shape, data_offsets}, plus
+    ``__metadata__``), reading the header alone: instant on multi-GB
+    files. Used by ``model dump-header``."""
     with open(path, "rb") as f:
         head = f.read(8)
         if len(head) < 8:
@@ -119,11 +251,39 @@ def read_header_metadata(path: str | os.PathLike) -> Dict[str, str]:
         (header_len,) = struct.unpack("<Q", head)
         if header_len > _MAX_HEADER_BYTES:
             raise SafetensorsError(f"safetensors: header length {header_len} exceeds {_MAX_HEADER_BYTES} limit")
-        header, _ = _parse_header(head + f.read(header_len))
-    meta = header.get("__metadata__")
+        header_raw = f.read(header_len)
+    if len(header_raw) != header_len:
+        raise SafetensorsError("safetensors: truncated header")
+    return json.loads(header_raw.decode("utf-8"))
+
+
+def read_header_metadata(path: str | os.PathLike) -> Dict[str, str]:
+    """The ``__metadata__`` entry of a file, reading only its header."""
+    meta = read_header(path).get("__metadata__")
     if not isinstance(meta, dict):
         return {}
     return {str(k): str(v) for k, v in meta.items()}
+
+
+# The keys the loader requires, by the loader's own names (the reference's
+# ValidateModelKeys list uses another naming scheme than its VarBuilder
+# paths; the VarBuilder paths are the ground truth).
+REQUIRED_MODEL_KEYS = (
+    "flow_lm.conditioner.embed.weight",
+    "flow_lm.transformer.layers.0.self_attn.in_proj.weight",
+    "flow_lm.flow_net.input_proj.weight",
+    "flow_lm.bos_emb",
+    "mimi.quantizer.output_proj.weight",
+    "mimi.decoder.model.0.conv.weight",
+)
+
+
+def validate_model_keys(path: str | os.PathLike, required: Sequence[str] = REQUIRED_MODEL_KEYS) -> None:
+    """Header-only presence check of the required model tensors."""
+    header = read_header(path)
+    missing = [k for k in required if k not in header]
+    if missing:
+        raise SafetensorsError(f"safetensors: missing required tensors: {missing}")
 
 
 def _encode_one(arr: Tensor) -> tuple:

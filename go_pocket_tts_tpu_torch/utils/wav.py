@@ -15,9 +15,10 @@ Behaviour parity with the reference (`internal/audio/encode.go`, `decode.go`,
 - :func:`pcm16_bytes` — clamp/convert float32 → little-endian int16 frames
   (`wav_stream.go:37-54`)
 
-The reference package also has a C++ fast path for the float32→int16
-conversion (``native/audioio.cpp``); this copy runs the NumPy path alone,
-which gives the same bytes.
+A C++ fast path for the float32→int16 conversion lives in
+``native/audioio.cpp``; :mod:`go_pocket_tts_tpu_torch.native` loads it
+lazily and this module falls back to NumPy, which gives the same bytes,
+when it is unavailable.
 """
 
 from __future__ import annotations
@@ -41,6 +42,11 @@ DEFAULT_SAMPLE_RATE = 24_000
 
 def pcm16_bytes(samples: np.ndarray) -> bytes:
     """Clamp float32 samples to [-1, 1] and convert to LE int16 bytes."""
+    from go_pocket_tts_tpu_torch.native import audioio
+
+    native = audioio.load()
+    if native is not None:
+        return native.pcm16_from_f32(samples)
     x = np.clip(np.asarray(samples, dtype=np.float32), -1.0, 1.0)
     return (x * 32767.0).astype("<i2").tobytes()
 

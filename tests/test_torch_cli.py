@@ -1,8 +1,9 @@
 """The port's config and CLI against the JAX package's: defaults, the env,
 file and flag layers and their precedence, ``apply_serving_autotune``,
 backend names, ``synth`` on the CPU against the JAX CLI's, ``serve`` and
-``health``, and the refusals: no CUDA and no ``POCKETTTS_PLATFORM=cpu``
-means no synthesis, and the subcommands not ported yet exit 2."""
+``health``, the refusal of synthesis with no CUDA and no
+``POCKETTTS_PLATFORM=cpu``, and the parser of every other subcommand
+against the JAX CLI's."""
 
 import dataclasses
 import json
@@ -22,7 +23,7 @@ from go_pocket_tts_tpu.cli.main import build_parser as j_parser
 from go_pocket_tts_tpu.cli.main import main as j_main
 from go_pocket_tts_tpu.tts.parity import rms_delta
 from go_pocket_tts_tpu_torch import config as t_cfg
-from go_pocket_tts_tpu_torch.cli.main import NOT_PORTED, build_parser, main
+from go_pocket_tts_tpu_torch.cli.main import build_parser, main
 from go_pocket_tts_tpu_torch.models import synthetic
 from go_pocket_tts_tpu_torch.utils import wav
 from go_pocket_tts_tpu_torch.utils.safetensors import write_file
@@ -258,10 +259,44 @@ def test_platform_maps_onto_the_device(monkeypatch, platform, device):
     assert platform_device() == device
 
 
-@pytest.mark.parametrize("command", NOT_PORTED)
-def test_unported_subcommands_exit_2(command, capsys):
-    assert main([command, "--help"]) == 2
-    assert "not yet ported" in capsys.readouterr().err
+def _subparsers(parser):
+    return next(a for a in parser._actions if a.__class__.__name__ == "_SubParsersAction").choices
+
+
+def _options(parser, register_flags) -> dict:
+    """The parser's own options (less the shared config flags, which each
+    package registers from its own config: the port parses fewer), each
+    with its default, whether it is required and its choices."""
+    import argparse
+
+    shared = argparse.ArgumentParser(add_help=False)
+    register_flags(shared)
+    common = {s for a in shared._actions for s in a.option_strings}
+    return {
+        tuple(a.option_strings): (a.dest, a.default, a.required, a.choices)
+        for a in parser._actions
+        if a.option_strings and not set(a.option_strings) & common
+    }
+
+
+# The tool subcommands (benchmarks, diagnostics, assets): each parses as the
+# JAX one does.
+TOOL_COMMANDS = ("bench", "stageprof", "doctor", "model", "voice")
+
+
+@pytest.mark.parametrize("command", TOOL_COMMANDS)
+def test_tool_subcommands_parse_as_the_jax_cli(command, capsys):
+    with pytest.raises(SystemExit) as exit_:
+        main([command, "--help"])
+    assert exit_.value.code == 0
+    assert "usage:" in capsys.readouterr().out
+    pairs = [(_subparsers(build_parser())[command], _subparsers(j_parser())[command])]
+    if command in ("model", "voice"):
+        t_children, j_children = _subparsers(pairs[0][0]), _subparsers(pairs[0][1])
+        assert list(t_children) == list(j_children)
+        pairs += [(child, j_children[name]) for name, child in t_children.items()]
+    for t_sub, j_sub in pairs:
+        assert _options(t_sub, t_cfg.register_flags) == _options(j_sub, j_cfg.register_flags), t_sub.prog
 
 
 def test_serve_answers_and_drains_on_sigterm(synth_env):

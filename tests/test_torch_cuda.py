@@ -1082,3 +1082,49 @@ def test_voice_encoder_on_card_matches_cpu_with_tf32_at_default():
     assert got.shape == want.shape == (1, 18, arch.d_model)
     rel = np.sqrt(np.mean((got - want) ** 2)) / np.sqrt(np.mean(want**2))
     assert rel <= 1e-4, rel
+
+
+def test_staged_generation_on_card_matches_generate_audio(card):
+    """``GPURuntime.generate_audio_staged`` on the card, float32 at
+    temperature 0, on ``tiny_arch()`` with the published head width and a
+    SEANet at the kernels' widths: within one PCM16 step of
+    ``generate_audio`` (the one-shot path truncates to int16), every stage
+    timed, and kernels 1, 7 and 2 launched by the staged run."""
+    arch = dataclasses.replace(synthetic.tiny_arch(), d_model=1024, num_heads=16, seanet_channels=(32, 256, 128, 64))
+    model = load_model_from_tensors(synthetic.build_checkpoint(arch, seed=8), num_heads=16, device=card)
+    rt = GPURuntime(model, seed=1, device=card)
+    cfg = GenerateConfig(temperature=0.0, eos_threshold=1e9, max_steps=24)
+    tokens = [3, 17, 41, 9, 22]
+    kernels.reset_launches()
+    staged, stages = rt.generate_audio_staged(tokens, cfg)
+    assert da.decode_attention_step.launches > 0 and st.fused_up2_res.launches > 0 and st.fused_seanet_up_tail.launches > 0
+    whole = rt.generate_audio(tokens, cfg)
+    assert list(stages) == ["prefill", "ar", "decode"] and all(v > 0 for v in stages.values())
+    assert staged.shape == whole.shape == (24 * 1920,) and np.isfinite(staged).all()
+    assert np.abs(staged - whole).max() <= 1.0 / 32767 + 1e-6
+
+
+def test_doctor_card_probes(card):
+    """doctor's two card probes on the card: the device with its name and
+    power limit, and every kernel library built for sm_90a and loaded."""
+    from go_pocket_tts_tpu_torch.cli.doctor import _probe_cuda, _probe_kernels
+    from go_pocket_tts_tpu_torch.device import card_line
+    from go_pocket_tts_tpu_torch.kernels import build
+
+    backend = _probe_cuda()
+    assert torch.cuda.get_device_name(0) in backend and card_line() in backend and "GiB free" in backend
+    libs = _probe_kernels("")
+    assert "sm_90a" in libs and "release" in libs
+    assert all(build._target(name).name in libs for name in build.SOURCES)
+
+
+def test_microbench_on_card(card, capsys):
+    """One microbench run on the card: the card line, then six ops timed
+    with CUDA events."""
+    from go_pocket_tts_tpu_torch.bench import microbench
+    from go_pocket_tts_tpu_torch.device import card_line
+
+    assert microbench.main(["--reps", "3"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith(f"card: {card_line()}") and len(lines) == 7
+    assert all(float(line.split(" p50 ")[1].split()[0]) > 0 for line in lines[1:])

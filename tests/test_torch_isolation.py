@@ -13,7 +13,9 @@ import torch
 from go_pocket_tts_tpu_torch import DEFAULT_DEVICE, resolve_device
 from go_pocket_tts_tpu_torch.convert import params_from_jax
 from go_pocket_tts_tpu_torch.models import synthetic
-from go_pocket_tts_tpu_torch.models.model import load_model_from_tensors
+from go_pocket_tts_tpu_torch.bench import microbench
+from go_pocket_tts_tpu_torch.model_assets.verify import verify_native_model
+from go_pocket_tts_tpu_torch.models.model import load_model, load_model_from_store, load_model_from_tensors
 from go_pocket_tts_tpu_torch.parallel import BatcherRuntime, ContinuousBatcher
 from go_pocket_tts_tpu_torch.parallel.batching import make_batched_state
 from go_pocket_tts_tpu_torch.runtime import GPURuntime
@@ -260,6 +262,35 @@ print("NO-JAX-CLONE-OK")
 """
 
 
+_TOOLS_SCRIPT = _SCRIPT[: _SCRIPT.index("import numpy as np")] + r"""
+import io, json, os, tempfile
+from contextlib import redirect_stdout
+from go_pocket_tts_tpu_torch.cli.main import main
+from go_pocket_tts_tpu_torch.models import synthetic
+from go_pocket_tts_tpu_torch.text.sentencepiece import SentencePieceModel
+from go_pocket_tts_tpu_torch.utils.safetensors import write_file
+
+with tempfile.TemporaryDirectory() as tmp:
+    model_path, tok_path = os.path.join(tmp, "model.safetensors"), os.path.join(tmp, "tokenizer.model")
+    write_file(model_path, synthetic.build_checkpoint(synthetic.tiny_arch(), seed=4))
+    sp = SentencePieceModel()
+    for piece in ["<unk>"] + list("abcdefghijklmnopqrstuvwxyz▁"):
+        sp.pieces.append(piece); sp.scores.append(-1.0); sp.types.append(2 if piece == "<unk>" else 1)
+    open(tok_path, "wb").write(sp.serialize())
+    os.environ.update(POCKETTTS_PLATFORM="cpu", POCKETTTS_PATHS_MODEL_PATH=model_path,
+                      POCKETTTS_PATHS_TOKENIZER_MODEL=tok_path, POCKETTTS_MAX_STEPS="2",
+                      POCKETTTS_EOS_THRESHOLD="1e9", POCKETTTS_RUNTIME_SEED="3")
+    with redirect_stdout(io.StringIO()) as out:
+        assert main(["bench", "--text", "hello", "--runs", "1", "--json"]) == 0
+    runs = json.loads(out.getvalue())["runs"]
+    assert [r["audio_seconds"] for r in runs] == [0.16, 0.16], runs
+    with redirect_stdout(io.StringIO()) as out:
+        assert main(["model", "verify"]) == 0
+    assert "✓ model smoke load: d_model=64" in out.getvalue().splitlines(), out.getvalue()
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "go_pocket_tts_tpu") for m in sys.modules)
+print("NO-JAX-TOOLS-OK")
+"""
+
 def _run_blocked(script: str) -> str:
     proc = subprocess.run(
         [sys.executable, "-c", script],
@@ -267,7 +298,9 @@ def _run_blocked(script: str) -> str:
         capture_output=True,
         text=True,
         timeout=300,
-        env={**os.environ, "PYTHONPATH": str(ROOT)},
+        # One CPU thread: the tiny tensors gain nothing from more, and the
+        # suite's other worker processes share the cores.
+        env={**os.environ, "PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "1"},
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
     return proc.stdout
@@ -296,6 +329,12 @@ def test_port_serves_text_with_jax_blocked():
     and the CLI's ``synth`` run on the CPU, with jax and the JAX package
     unimportable."""
     assert "NO-JAX-ENTRY-OK" in _run_blocked(_ENTRY_SCRIPT)
+
+
+def test_port_benches_and_verifies_with_jax_blocked():
+    """``bench`` and ``model verify`` (its smoke load on the CPU) through the
+    CLI, with jax and the JAX package unimportable."""
+    assert "NO-JAX-TOOLS-OK" in _run_blocked(_TOOLS_SCRIPT)
 
 
 def test_port_clones_a_voice_with_jax_blocked():
@@ -331,8 +370,8 @@ def test_no_jax_imports(path):
 
 def test_scan_covers_every_port_package():
     packages = {Path(p).parts[1] for p in PORT_FILES if len(Path(p).parts) > 2}
-    assert {"cli", "kernels", "model_assets", "models", "ops", "parallel", "runtime", "server", "text", "tts",
-            "utils"} <= packages
+    assert {"bench", "cli", "kernels", "model_assets", "models", "native", "ops", "parallel", "runtime", "server",
+            "text", "tts", "utils"} <= packages
     assert "go_pocket_tts_tpu_torch/parallel/batching.py" in PORT_FILES
 
 
@@ -349,14 +388,18 @@ def test_default_device_is_cuda():
         VoiceUploader.__init__,
         export_voice_embedding,
         export_voice_model_state,
+        load_model,
+        load_model_from_store,
+        verify_native_model,
     ):
         assert fn.__defaults__ is not None and "cuda" in fn.__defaults__, fn
     from go_pocket_tts_tpu_torch.config import RuntimeConfig
 
     assert RuntimeConfig().device == "cuda"
+    assert microbench.DEFAULT_DEVICE == "cuda"
 
 
-def test_entry_points_raise_without_cuda(monkeypatch):
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     arch = synthetic.tiny_arch()
     tensors = synthetic.build_checkpoint(arch, seed=4)
@@ -369,6 +412,17 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         ContinuousBatcher(model, slots=2)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         params_from_jax({"w": model.params["mimi"]["up3"]["w"].numpy()})
+    from go_pocket_tts_tpu_torch.utils.safetensors import open_store_from_bytes, encode_tensors
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_model_from_store(open_store_from_bytes(encode_tensors(tensors)), num_heads=arch.num_heads)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        microbench.main(["--reps", "1"])
+    # model verify's smoke load on the default device fails as a check, with
+    # no load on the CPU.
+    (tmp_path / "m.safetensors").write_bytes(encode_tensors(tensors))
+    res = verify_native_model(str(tmp_path / "m.safetensors"))
+    assert not res.ok and res.failures[0].startswith("✗ model smoke load") and "CUDA is not available" in res.failures[0]
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")
