@@ -132,6 +132,26 @@ failure exits non-zero:
    ``generate_audio`` in float32 at temperature 0 within one PCM16 step;
    last, ``python -m go_pocket_tts_tpu_torch.bench.microbench`` as a
    subprocess (the card line and six ops).
+15. the last entry points (after phase 14; its launches in a dict of their
+   own), on phase 11's fixtures: (a) ``PocketTTSKernel`` from the files'
+   bytes, float32 at temperature 0, its one-shot WAV within one PCM16 step
+   RMS of ``Service.synthesize`` (``GPURuntime``) on the same text and its
+   ``progress`` route within ``PATH_RMS_TOL``; in bfloat16 the x real time
+   of both routes and the progress calls; (b) ``continuity=True`` over three
+   chunks with and without ``progress``, and voice bytes of both kinds
+   (kernels 1, 7, 2 and 8 must launch on these routes); (c) ``--backend
+   torch`` (the independent torch oracle) on the card against ``--backend
+   gpu`` within ``PATH_RMS_TOL`` and against itself on the CPU within 1e-5;
+   (d) ``run_parity_case`` over both, and a ``save``/``load`` round trip;
+   (e) a fixture from ``scripts/torch_dump_parity.py`` on the CPU replayed
+   by ``verify_fixture`` on the card's float32 model, every report ok; (f)
+   the ``cli`` backend through a stub ``pocket-tts`` binary under the
+   git-ignored ``build/phase15/``: ``serve --backend cli`` as a subprocess
+   answers ``POST /tts`` with the stub's WAV, ``doctor --backend cli``
+   prints ✓ for the binary probe, ``synth --tts-arg k=v`` passes ``--k=v``
+   and is refused without ``--backend cli``; (g) ``flow_main`` on the card
+   against the cached path (prefill, then kernel 1 per frame) within 1e-4,
+   and ``sample_noise``'s standard deviation.
 
 Phase 2 also holds the SEANet kernels (bf16 on tensor cores) against
 their plain versions at 160 frames, bit-equal over two calls: kernels 2
@@ -2922,6 +2942,373 @@ def cli_tools(fixtures, root: str) -> None:
     print(f"  phase 14 launches: {counts}")
 
 
+# -- phase 15: the kernel API, the torch and cli backends, parity, stateless --------
+
+KERNEL_API_LAUNCHES = ("decode_attention_step", "fused_up2_res", "fused_seanet_up_tail", "fused_up2_up3_tail")
+
+
+def _kernel_synth(kernel, text: str, **kw):
+    """``PocketTTSKernel.synthesize`` at temperature 0, EOS off: (PCM,
+    progress calls, wall seconds)."""
+    from go_pocket_tts_tpu_torch.utils.wav import decode_wav
+
+    calls = []
+    if kw.pop("progress", False):
+        kw["progress"] = lambda done, total: calls.append((done, total))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    data = kernel.synthesize(text, temperature=0.0, eos_threshold=1e9, **kw)
+    wall = time.perf_counter() - t
+    pcm, rate = decode_wav(data)
+    if rate != 24000 or not len(pcm) or len(pcm) % 1920:
+        fail(f"PocketTTSKernel: {rate} Hz, {len(pcm)} samples")
+    return pcm, calls, wall
+
+
+def _check_progress(calls, frames: int, what: str) -> None:
+    dones = [d for d, _ in calls]
+    if len(calls) < 2 or calls[-1] != (frames, frames) or dones != sorted(dones) or any(d > t for d, t in calls):
+        fail(f"{what}: progress calls {calls}, want rising to ({frames}, {frames})")
+
+
+def f32_service(model_path: str, tok_path: str, backend: str = "gpu", device: str = "cuda"):
+    """``Service.from_config`` in float32 at temperature 0, EOS off."""
+    from go_pocket_tts_tpu_torch.tts.service import Service
+
+    cfg = entry_config(model_path, tok_path, batch_slots=1, temperature=0.0)
+    cfg.runtime.dtype, cfg.runtime.device, cfg.tts.backend = "float32", device, backend
+    return Service.from_config(cfg)
+
+
+def kernel_api(fixtures, arch, counts: dict) -> None:
+    """(a) and (b): ``PocketTTSKernel`` from bytes."""
+    from go_pocket_tts_tpu_torch import kernels
+    from go_pocket_tts_tpu_torch.kernel import PocketTTSKernel
+    from go_pocket_tts_tpu_torch.text.sentencepiece import load_tokenizer
+    from go_pocket_tts_tpu_torch.utils.safetensors import encode_tensors
+
+    model_path, tok_path = fixtures
+    with open(model_path, "rb") as f:
+        model_bytes = f.read()
+    with open(tok_path, "rb") as f:
+        tok_bytes = f.read()
+    text = STREAM_TEXTS[1]
+
+    k32 = PocketTTSKernel(seed=SEED)
+    t = time.perf_counter()
+    k32.load_model(model_bytes, tok_bytes)
+    print(f"  PocketTTSKernel float32 load_model from {len(model_bytes) / 1e6:.1f} MB of bytes in "
+          f"{time.perf_counter() - t:.1f} s  [{CARD}]")
+    one_shot, _, _ = _kernel_synth(k32, text)
+    streamed, calls, _ = _kernel_synth(k32, text, progress=True)
+    svc = f32_service(model_path, tok_path)
+    try:
+        want = svc.synthesize(k32.normalize(text))
+    finally:
+        svc.close()
+    frames = len(want) // 1920
+    if one_shot.shape != want.shape or streamed.shape != want.shape:
+        fail(f"PocketTTSKernel float32: {one_shot.shape} / {streamed.shape} samples, want {want.shape}")
+    _check_progress(calls, frames, "PocketTTSKernel float32 progress")
+    rms_check(one_shot, want, "f32 real_arch, PocketTTSKernel one-shot WAV - Service.synthesize", tol=PCM16_STEP)
+    rms_check(streamed, want, "f32 real_arch, PocketTTSKernel progress route WAV - Service.synthesize")
+    del k32
+    torch.cuda.empty_cache()
+
+    kb = PocketTTSKernel(dtype="bfloat16", seed=SEED)
+    kb.load_model(model_bytes, tok_bytes)
+    _kernel_synth(kb, STREAM_TEXTS[0])  # warm-up
+    _kernel_synth(kb, STREAM_TEXTS[0], progress=True)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    for route, kw in (("one-shot", {}), ("progress", {"progress": True})):
+        pcm, calls, wall = _kernel_synth(kb, text, **kw)
+        secs = len(pcm) / 24000
+        if route == "progress":
+            _check_progress(calls, len(pcm) // 1920, "PocketTTSKernel bfloat16 progress")
+        print(f"  PocketTTSKernel bfloat16 {route}: {len(pcm) // 1920} frames in {wall * 1e3:.1f} ms  "
+              f"x{secs / wall:.2f} real time" + (f"; progress calls {calls}" if calls else "") + f"  [{CARD}]")
+
+    # (b) continuity over three chunks, with and without progress; voice
+    # bytes of both kinds.
+    chunks = chunk_frames(load_tokenizer(tok_path), SERVICE_TEXT)
+    frames = sum(f for _, f in chunks)
+    for kw in ({"continuity": True}, {"continuity": True, "progress": True}):
+        pcm, calls, wall = _kernel_synth(kb, SERVICE_TEXT, **kw)
+        check_audio(pcm, frames, f"PocketTTSKernel continuity {kw}")
+        if calls:
+            _check_progress(calls, frames, "PocketTTSKernel continuity progress")
+        print(f"  PocketTTSKernel bfloat16 continuity over {len(chunks)} chunks"
+              f"{' with progress (' + str(len(calls)) + ' calls)' if calls else ''}: {frames} frames in "
+              f"{wall * 1e3:.1f} ms  x{frames * 1920 / 24000 / wall:.2f} real time  [{CARD}]")
+    plain, _, _ = _kernel_synth(kb, text)
+    state = synthetic_voice_state(arch, 48, 40)
+    voices = {
+        "embedding": encode_tensors(
+            {"audio_prompt": (np.random.RandomState(SEED + 9).randn(32, arch.d_model) * 0.02).astype(np.float32)}
+        ),
+        "model_state": encode_tensors(
+            {f"{name}/{key}": value for name, module in state.modules.items() for key, value in module.items()}
+        ),
+    }
+    for kind, voice in voices.items():
+        pcm, _, wall = _kernel_synth(kb, text, voice=voice)
+        check_audio(pcm, len(plain) // 1920, f"PocketTTSKernel voice {kind}")
+        if not np.abs(pcm - plain).max() > 0:
+            fail(f"PocketTTSKernel voice {kind}: the voice did not change the audio")
+        print(f"  PocketTTSKernel bfloat16 voice bytes ({kind}, {len(voice)} bytes): {len(pcm)} samples in "
+              f"{wall * 1e3:.1f} ms  [{CARD}]")
+    read_launches("the PocketTTSKernel routes", KERNEL_API_LAUNCHES, counts, shapes=None)
+
+
+def torch_backend(fixtures, text: str) -> None:
+    """(c) and (d): ``--backend torch`` on the card against the gpu backend
+    and against itself on the CPU; ``run_parity_case`` over both."""
+    from go_pocket_tts_tpu_torch.runtime import GenerateConfig
+    from go_pocket_tts_tpu_torch.tts import parity
+    from go_pocket_tts_tpu_torch.tts.runtime_torch import TorchRuntime
+
+    model_path, tok_path = fixtures
+    pcm, first = {}, {}
+    for backend, device in (("torch", "cuda"), ("torch", "cpu"), ("gpu", "cuda")):
+        svc = f32_service(model_path, tok_path, backend, device)
+        try:
+            if backend == "torch" and not (isinstance(svc.runtime, TorchRuntime) and svc.runtime.device.type == device):
+                fail(f"--backend torch on {device}: runtime {type(svc.runtime).__name__}")
+            t = time.perf_counter()
+            pcm[(backend, device)] = svc.synthesize(text)
+            wall = time.perf_counter() - t
+            if backend == "torch":
+                # One frame: the oracle's arithmetic before the AR loop feeds
+                # a frame back.
+                (ids, _frames), = chunk_frames(svc.tokenizer, text)
+                first[device] = svc.runtime.generate_audio(ids, GenerateConfig(temperature=0.0, eos_threshold=1e9,
+                                                                               max_steps=1))
+        finally:
+            svc.close()
+        print(f"  --backend {backend} on {device}: {len(pcm[(backend, device)])} samples in {wall:.2f} s  [{CARD}]")
+    check_audio(pcm[("torch", "cuda")], len(pcm[("gpu", "cuda")]) // 1920, "--backend torch on the card")
+    rms_check(pcm[("torch", "cuda")], pcm[("gpu", "cuda")], "f32 real_arch, --backend torch (card) - --backend gpu")
+    rms_check(first["cuda"], first["cpu"], "f32 real_arch, --backend torch, one frame, card - CPU", tol=1e-5)
+    diff = (pcm[("torch", "cuda")].astype(np.float64) - pcm[("torch", "cpu")]).reshape(-1, 1920)
+    per_frame = np.sqrt(np.mean(diff**2, axis=1))
+    print(f"  --backend torch, card - CPU, RMS per frame: frame 0 {per_frame[0]:.3e}, frame 9 {per_frame[9]:.3e}, "
+          f"last {per_frame[-1]:.3e} (the AR loop feeds each frame's float32 sum-order difference back)  [{CARD}]")
+    rms_check(pcm[("torch", "cuda")], pcm[("torch", "cpu")], "f32 real_arch, --backend torch, whole request, card - CPU")
+
+    snaps = parity.run_parity_case(
+        {name: functools.partial(f32_service, model_path, tok_path, name) for name in ("gpu", "torch")}, text
+    )
+    out = os.path.join(os.path.dirname(model_path), "..", "phase15")
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, "parity_snapshots.json")
+    parity.save_snapshots(path, snaps)
+    if parity.load_snapshots(path) != snaps:
+        fail("parity snapshots: the save/load round trip changed them")
+    g, o = snaps["gpu"], snaps["torch"]
+    if (g.num_chunks, g.num_samples) != (o.num_chunks, o.num_samples) or abs(g.rms - o.rms) > 1e-3:
+        fail(f"run_parity_case: gpu {g} against torch {o}")
+    for s in (g, o):
+        print(f"  run_parity_case {s.backend}: chunks {s.num_chunks} samples {s.num_samples} peak {s.peak_abs:.6f} "
+              f"rms {s.rms:.6f} pcm16 sha256 {s.pcm_sha256[:16]}…  [{CARD}]")
+
+
+def fixture_replay(fixtures, arch, counts: dict) -> None:
+    """(e): a fixture from ``scripts/torch_dump_parity.py`` on the CPU,
+    replayed by ``verify_fixture`` on the card's float32 model."""
+    import importlib.util
+
+    from go_pocket_tts_tpu_torch.models.model import load_model
+    from go_pocket_tts_tpu_torch.tts.parity_fixture import load_fixture, verify_fixture
+
+    model_path, _ = fixtures
+    root = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location("torch_dump_parity", os.path.join(root, "scripts", "torch_dump_parity.py"))
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    out = os.path.join(root, "build", "phase15", "oracle_fixture.json")
+    t = time.perf_counter()
+    if script.main(["--model", model_path, "--num-heads", str(arch.num_heads), "--device", "cpu", "--output", out]) != 0:
+        fail("scripts/torch_dump_parity.py failed")
+    dump = time.perf_counter() - t
+    from go_pocket_tts_tpu_torch import kernels
+
+    model = load_model(model_path, num_heads=arch.num_heads, device="cuda")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t = time.perf_counter()
+    reports = verify_fixture(model, load_fixture(out))
+    replay = time.perf_counter() - t
+    read_launches("verify_fixture", ("decode_attention_step",), counts, shapes=None)
+    for r in reports:
+        print(f"    {'ok' if r.passed else 'FAIL'} {r.name}: max abs {r.max_abs_err:.3e} max rel {r.max_rel_err:.3e}")
+    if len(reports) != 10 or not all(r.passed for r in reports):
+        fail(f"verify_fixture on the card: {[r.name for r in reports if not r.passed]} failed of {len(reports)}")
+    print(f"  fixture dumped on the CPU in {dump:.1f} s, replayed on the card in {replay:.2f} s: "
+          f"{len(reports)} reports, all ok  [{CARD}]")
+    del model
+    torch.cuda.empty_cache()
+
+
+STUB_BINARY = """#!{python}
+import json, os, sys
+here = os.path.dirname(os.path.abspath(__file__))
+with open(os.path.join(here, "argv.jsonl"), "a") as f:
+    f.write(json.dumps(sys.argv[1:]) + "\\n")
+if sys.argv[1:] == ["--version"]:
+    print("pocket-tts stub 1.0")
+    sys.exit(0)
+sys.stdout.buffer.write(open(os.path.join(here, "stub.wav"), "rb").read())
+"""
+
+
+def _stub_argv(stub: str) -> list:
+    path = os.path.join(os.path.dirname(stub), "argv.jsonl")
+    with open(path) as f:
+        lines = [json.loads(line) for line in f]
+    os.remove(path)
+    return lines
+
+
+def cli_backend(root: str) -> None:
+    """(f): the ``cli`` backend through a stub ``pocket-tts`` binary: ``serve
+    --backend cli`` answers ``POST /tts`` with the stub's WAV, ``doctor
+    --backend cli`` probes the binary, ``synth --tts-arg k=v`` passes
+    ``--k=v``."""
+    import signal
+    import socket
+    import urllib.request
+
+    from go_pocket_tts_tpu_torch.utils.wav import decode_wav, encode_wav
+
+    out = os.path.join(root, "build", "phase15", "cli")
+    os.makedirs(out, exist_ok=True)
+    stub = os.path.join(out, "pocket-tts")
+    if os.path.exists(os.path.join(out, "argv.jsonl")):
+        os.remove(os.path.join(out, "argv.jsonl"))
+    stub_wav = encode_wav((np.sin(np.arange(9600) / 9.0) * 0.3).astype(np.float32))
+    with open(os.path.join(out, "stub.wav"), "wb") as f:
+        f.write(stub_wav)
+    with open(stub, "w") as f:
+        f.write(STUB_BINARY.format(python=sys.executable))
+    os.chmod(stub, 0o755)
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ, "PYTHONPATH": root}
+    cmd = [sys.executable, "-m", "go_pocket_tts_tpu_torch", "serve", "--backend", "cli", "--tts-cli-path", stub,
+           "--server-listen-addr", f"127.0.0.1:{port}"]
+    t = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        url = f"http://127.0.0.1:{port}"
+        while True:
+            try:
+                if _get_json(f"{url}/health").get("status") == "ok":
+                    break
+            except OSError:
+                pass
+            if proc.poll() is not None or time.perf_counter() - t > 120:
+                fail(f"serve --backend cli did not come up: {proc.communicate()[1][-2000:]}")
+            time.sleep(0.2)
+        ready = time.perf_counter() - t
+        body = _post(f"{url}/tts", "Hello world.")
+        got, want = decode_wav(body)[0], decode_wav(stub_wav)[0]
+        # The server encodes the stub's decoded PCM again: within one PCM16 step.
+        if got.shape != want.shape or not np.abs(got - want).max() <= PCM16_STEP:
+            fail("serve --backend cli: POST /tts did not answer with the stub's PCM")
+        argv = _stub_argv(stub)
+        if argv != [["generate", "--text", "Hello world.", "--output-path", "-", "--quiet"]]:
+            fail(f"serve --backend cli: the stub saw {argv}")
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    print(f"  serve --backend cli: up in {ready:.1f} s, POST /tts answered with the stub's WAV "
+          f"({len(body)} bytes), stub argv {argv[0]}; SIGTERM exit {proc.returncode}  [{CARD}]")
+
+    rc, stdout, stderr = run_cli(["doctor", "--backend", "cli", "--tts-cli-path", stub])
+    probe = [line for line in stdout.splitlines() if "pocket-tts binary" in line]
+    if probe != ["✓ pocket-tts binary — pocket-tts stub 1.0"]:
+        fail(f"doctor --backend cli: probe lines {probe} (exit {rc}): {stdout[-2000:]} {stderr[-2000:]}")
+    _stub_argv(stub)
+    print(f"  doctor --backend cli (exit {rc}): {probe[0]}  [{CARD}]")
+
+    wav_out = os.path.join(out, "synth.wav")
+    rc, _, stderr = run_cli(["synth", "--backend", "cli", "--tts-cli-path", stub, "--text", "Hello world.",
+                             "--tts-arg", "k=v", "--out", wav_out])
+    argv = _stub_argv(stub)
+    with open(wav_out, "rb") as f:
+        written = decode_wav(f.read())[0]
+    same = written.shape == want.shape and np.abs(written - want).max() <= PCM16_STEP
+    if rc != 0 or len(argv) != 1 or argv[0][-1] != "--k=v" or not same:
+        fail(f"synth --backend cli --tts-arg k=v: exit {rc}, stub argv {argv}, stub's PCM {same}: {stderr[-2000:]}")
+    rc, _, stderr = run_cli(["synth", "--text", "Hello world.", "--tts-arg", "k=v", "--out", wav_out])
+    if rc != 2 or "only supported with --backend cli" not in stderr:
+        fail(f"synth --tts-arg without --backend cli: exit {rc}: {stderr[-2000:]}")
+    print(f"  synth --backend cli --tts-arg k=v: stub argv {argv[0]}, the stub's PCM written; without "
+          f"--backend cli refused with exit 2  [{CARD}]")
+
+
+def stateless_on_card(arch, counts: dict) -> None:
+    """(g): ``flow_main`` on the card against the cached path (a prefill,
+    then one decode-attention step per frame), float32."""
+    from go_pocket_tts_tpu_torch.models import flow_lm as flm
+    from go_pocket_tts_tpu_torch.models import flow_transformer as ftr
+    from go_pocket_tts_tpu_torch.models.params import apply_linear
+
+    _arch, model = build_model(torch.float32)
+    flow, cfg = model.params["flow_lm"], model.config.flow_lm
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    ids = torch.randint(0, arch.n_bins, (1, 24), generator=gen, device="cuda")
+    seq = torch.randn((1, 16, arch.latent_dim), generator=gen, device="cuda")
+    seq[:, 0] = float("nan")
+    from go_pocket_tts_tpu_torch import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with torch.inference_mode():
+        emb = flm.text_embeddings(flow, ids)
+        t = time.perf_counter()
+        last, eos = flm.flow_main(flow, cfg, seq, emb)
+        torch.cuda.synchronize()
+        stateless = time.perf_counter() - t
+        cache = flm.prompt(flow, cfg, ftr.init_kv_cache(cfg.transformer, 1, 64, device="cuda"), emb)
+        for i in range(seq.shape[1]):
+            x = apply_linear(flow["input_linear"], flm._replace_nan_with_bos(seq[:, i : i + 1], flow["bos_emb"]))
+            y, cache = ftr.transformer_forward_cached(flow["transformer"], cfg.transformer, cache, x)
+        want_last, want_eos = flm._hidden_and_eos(flow, y)
+        noise = flm.sample_noise(gen, 4096, arch.latent_dim, 0.7)
+    read_launches("flow_main's cached reference", ("decode_attention_step",), counts, shapes=None)
+    err = max((last - want_last).abs().max().item(), (eos - want_eos).abs().max().item())
+    std = noise.std().item()
+    print(f"  flow_main (24 text + 16 frames) on the card in {stateless * 1e3:.1f} ms; against the cached path: "
+          f"max abs {err:.3e} (tolerance 1e-4); sample_noise std {std:.4f} at T=0.7 (sqrt 0.83666)  [{CARD}]")
+    if not err <= 1e-4:
+        fail(f"flow_main against the cached path: max abs {err}")
+    if abs(std - 0.7 ** 0.5) > 0.03 * 0.7 ** 0.5:
+        fail(f"sample_noise: std {std} at T=0.7")
+    del model
+    torch.cuda.empty_cache()
+
+
+def last_entry_points(fixtures, root: str) -> None:
+    """Phase 15. Its launches are read into a dict of their own: the kernel
+    table's totals stay those of phases 3, 5, 7 and 9."""
+    arch, _ = checkpoint()
+    counts: dict = {}
+    kernel_api(fixtures, arch, counts)
+    torch_backend(fixtures, STREAM_TEXTS[0])
+    fixture_replay(fixtures, arch, counts)
+    cli_backend(root)
+    stateless_on_card(arch, counts)
+    print(f"  phase 15 launches: {counts}")
+
+
 def main() -> int:
     global CARD
     if not torch.cuda.is_available():
@@ -3021,6 +3408,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     cli_tools(fixtures, root)
     print(f"  phase 14 took {time.perf_counter() - t:.1f} s  [{CARD}]")
+
+    print("phase 15: the last entry points: PocketTTSKernel, --backend torch and cli, parity harness and fixture, "
+          "flow_main")
+    t = time.perf_counter()
+    last_entry_points(fixtures, root)
+    print(f"  phase 15 took {time.perf_counter() - t:.1f} s  [{CARD}]")
 
     for name, row in rows.items():
         row["launches"] = counts.get(name, 0)

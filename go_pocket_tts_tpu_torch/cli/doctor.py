@@ -14,8 +14,8 @@ reference probes its JAX backend, the port records two probes of the card:
 
 The ``compile cache`` check probes ``runtime.compile_cache_dir``, which in
 the port names that library directory (empty: the package's ``_build/``).
-The reference's probe of the ``cli`` backend's binary waits for that
-backend: the port's config refuses it by name.
+With ``--backend cli``, ``pocket-tts binary`` runs ``<exe> --version``, as
+the reference does.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Callable, List, Optional, TextIO
 
-from go_pocket_tts_tpu_torch.config import Config, apply_serving_autotune
+from go_pocket_tts_tpu_torch.config import BACKEND_CLI, Config, apply_serving_autotune, normalize_backend
 
 __all__ = ["DoctorResult", "run_doctor"]
 
@@ -186,6 +186,17 @@ def run_doctor(
             except Exception as exc:  # noqa: BLE001 - reported as a failed check
                 ok, detail = False, str(exc)
         res.record("voice upload", ok, detail)
+
+    # External-binary probe for the cli backend (`cmd/pockettts/doctor.go:110-118`
+    # runs `pocket-tts --version`).
+    if normalize_backend(cfg.tts.backend) == BACKEND_CLI:
+        exe = cfg.tts.cli_path or "pocket-tts"
+        try:
+            proc = subprocess.run([exe, "--version"], capture_output=True, timeout=10, text=True)
+            version = (proc.stdout or proc.stderr).strip().splitlines()
+            res.record("pocket-tts binary", proc.returncode == 0, version[0] if version else f"rc={proc.returncode}")
+        except Exception as exc:  # noqa: BLE001 - reported as a failed check
+            res.record("pocket-tts binary", False, f"{exe}: {exc}")
 
     model_ok = os.path.exists(cfg.paths.model_path)
     res.record("model file", model_ok, cfg.paths.model_path)

@@ -1,9 +1,10 @@
 """CLI entry point of the port (counterpart of the reference package's
 ``cli/main.py``).
 
-Subcommands: ``synth``, ``serve`` (with ``--voice-upload-dir``, ``POST
-/voices``), ``export-voice``, ``bench``, ``stageprof``, ``doctor``,
-``health``, ``model download|download-bundle|verify|dump-header|export`` and
+Subcommands: ``synth`` (``--tts-arg k=v`` with ``--backend cli``),
+``serve`` (with ``--voice-upload-dir``, ``POST /voices``),
+``export-voice``, ``bench``, ``stageprof``, ``doctor``, ``health``,
+``model download|download-bundle|verify|dump-header|export`` and
 ``voice download``, with the reference's option names and defaults. Run via
 ``python -m go_pocket_tts_tpu_torch <cmd> ...`` or ``pockettts-gpu <cmd>``.
 
@@ -27,7 +28,15 @@ from typing import List, Optional
 
 import numpy as np
 
-from go_pocket_tts_tpu_torch.config import Config, _parse_bool, apply_serving_autotune, load_config, register_flags
+from go_pocket_tts_tpu_torch.config import (
+    BACKEND_CLI,
+    Config,
+    _parse_bool,
+    apply_serving_autotune,
+    load_config,
+    normalize_backend,
+    register_flags,
+)
 from go_pocket_tts_tpu_torch.utils import dsp, wav
 
 log = logging.getLogger("pockettts")
@@ -97,6 +106,24 @@ def _resolve_voice(cfg: Config, voice: str) -> str:
 def cmd_synth(args) -> int:
     cfg = _load_config(args)
     _setup_logging(cfg.log_level)
+
+    tts_args = getattr(args, "tts_arg", None) or []
+    if tts_args:
+        # Pass-through flags reach the wrapped binary only
+        # (`cmd/pockettts/synth.go:173-174` errors identically); a malformed
+        # item is a clean rc=2 error here, not a traceback out of Service
+        # construction.
+        if normalize_backend(cfg.tts.backend) != BACKEND_CLI:
+            print("error: --tts-arg is only supported with --backend cli", file=sys.stderr)
+            return 2
+        from go_pocket_tts_tpu_torch.tts.runtime_cli import build_passthrough_args
+
+        try:
+            build_passthrough_args(tts_args)
+        except ValueError as exc:
+            print(f"error: {exc}", file=sys.stderr)
+            return 2
+        cfg.tts.cli_args = list(tts_args)
 
     text = args.text
     if not text or text == "-":
@@ -498,6 +525,13 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = add("synth", cmd_synth, "Synthesize text to a WAV file")
     p.add_argument("--text", default="", help="Text to synthesize ('-' or empty = stdin)")
+    p.add_argument(
+        "--tts-arg",
+        action="append",
+        dest="tts_arg",
+        metavar="KEY=VALUE",
+        help="Pass-through pocket-tts flag in key=value form (repeatable; --backend cli only)",
+    )
     p.add_argument("--out", default="out.wav", help="Output WAV path ('-' = stdout)")
     p.add_argument(
         "--format",

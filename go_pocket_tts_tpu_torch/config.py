@@ -5,17 +5,19 @@ layers and precedence (kebab-case flags alias dotted keys, ``POCKETTTS_*``
 env, ``--config`` file, ``pockettts.{yaml,toml,json}`` in the cwd) and the
 same ``apply_serving_autotune``. The differences are the port's:
 
-- one backend, ``gpu`` (the CUDA runtimes of ``runtime/`` and
-  ``parallel/``), with the aliases ``""``, ``gpu``, ``cuda``, ``native`` and
-  ``native-safetensors``; the reference's ``torch`` and ``cli`` backends are
-  not ported yet and are refused by name (``ROADMAP.md`` §1);
+- the backends are ``gpu`` (the CUDA runtimes of ``runtime/`` and
+  ``parallel/``; aliases ``""``, ``gpu``, ``cuda``, ``native`` and
+  ``native-safetensors``, where the reference names its JAX engine ``tpu``
+  or ``jax``), ``torch`` (the independent torch oracle,
+  ``tts/runtime_torch.py``; aliases ``torch``, ``torch-cpu`` and
+  ``native-onnx``) and ``cli`` (an external ``pocket-tts`` binary,
+  ``tts/runtime_cli.py``), each selected by name only;
 - ``runtime.device`` is where the runtimes run: ``cuda`` unless the CLI maps
   ``POCKETTTS_PLATFORM=cpu`` onto ``cpu``; it has no flag or env name of its
   own;
 - ``runtime.compile_cache_dir`` names the directory of the built CUDA
   kernel libraries (empty: the package's ``_build/``);
-- the options of the unported parts (the ``cli`` backend's pass-through
-  settings, XLA's matmul precision) are not parsed.
+- XLA's matmul precision has no counterpart and is not parsed.
 """
 
 from __future__ import annotations
@@ -25,9 +27,9 @@ import os
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Mapping, Optional
 
-__all__ = ["Config", "PathsConfig", "RuntimeConfig", "ServerConfig", "TTSConfig",
-           "apply_serving_autotune", "load_config", "normalize_backend",
-           "register_flags", "ENV_PREFIX"]
+__all__ = ["BACKEND_CLI", "BACKEND_GPU", "BACKEND_TORCH", "Config", "PathsConfig",
+           "RuntimeConfig", "ServerConfig", "TTSConfig", "apply_serving_autotune",
+           "load_config", "normalize_backend", "register_flags", "ENV_PREFIX"]
 
 ENV_PREFIX = "POCKETTTS_"
 
@@ -38,6 +40,8 @@ def _parse_bool(v) -> bool:
     return str(v).strip().lower() in ("1", "true", "yes", "on")
 
 BACKEND_GPU = "gpu"
+BACKEND_TORCH = "torch"
+BACKEND_CLI = "cli"
 
 _BACKEND_ALIASES = {
     "": BACKEND_GPU,
@@ -45,20 +49,17 @@ _BACKEND_ALIASES = {
     "cuda": BACKEND_GPU,
     "native": BACKEND_GPU,
     "native-safetensors": BACKEND_GPU,
+    "torch": BACKEND_TORCH,
+    "torch-cpu": BACKEND_TORCH,
+    "native-onnx": BACKEND_TORCH,  # the reference's alternate engine slot
+    "cli": BACKEND_CLI,
 }
-# The reference's other backends (and their aliases): not ported yet.
-_UNPORTED_BACKENDS = ("torch", "torch-cpu", "native-onnx", "cli")
 
 
 def normalize_backend(name: str) -> str:
     key = (name or "").strip().lower()
-    if key in _UNPORTED_BACKENDS:
-        raise ValueError(
-            f"backend {name!r} is not yet ported to go_pocket_tts_tpu_torch "
-            "(ROADMAP.md §1); use gpu"
-        )
     if key not in _BACKEND_ALIASES:
-        raise ValueError(f"unsupported backend {name!r} (want gpu|cuda|native)")
+        raise ValueError(f"unsupported backend {name!r} (want gpu|native|torch|cli)")
     return _BACKEND_ALIASES[key]
 
 
@@ -118,6 +119,16 @@ class ServerConfig:
 class TTSConfig:
     backend: str = BACKEND_GPU
     voice: str = ""
+    cli_path: str = ""
+    # Pass-through flags for the external binary (cli backend only;
+    # `synth --tts-arg k=v`, repeatable — `cmd/pockettts/synth.go:74,521-551`).
+    cli_args: List[str] = field(default_factory=list)
+    # Pass --quiet to the wrapped binary (cli backend; default true like the
+    # reference, `internal/config/config.go:98,139`).
+    quiet: bool = True
+    # Config file forwarded to the wrapped binary as --config
+    # (`internal/config/config.go:137`, `cmd/pockettts/synth.go:224-226`).
+    cli_config_path: str = ""
     temperature: float = 0.7
     eos_threshold: float = -4.0
     max_steps: int = 256
@@ -196,8 +207,13 @@ _FLAG_MAP = [
     ("max-voice-audio-bytes", "server", "max_voice_audio_bytes", int,
      "Maximum decoded WAV size accepted by POST /voices"),
     ("request-timeout", "server", "request_timeout_secs", int, "Per-request synthesis timeout (s)"),
-    ("backend", "tts", "backend", str, "Synthesis backend (gpu|cuda|native)"),
+    ("backend", "tts", "backend", str, "Synthesis backend (gpu|native|torch|cli)"),
     ("tts-voice", "tts", "voice", str, "Voice name or .safetensors file path"),
+    ("tts-cli-path", "tts", "cli_path", str, "Path to external pocket-tts executable"),
+    ("tts-quiet", "tts", "quiet", _parse_bool,
+     "Pass --quiet to the wrapped pocket-tts binary (cli backend)"),
+    ("tts-cli-config-path", "tts", "cli_config_path", str,
+     "Config file passed to the wrapped pocket-tts binary as --config"),
     ("temperature", "tts", "temperature", float, "Noise temperature for flow sampling"),
     ("eos-threshold", "tts", "eos_threshold", float, "Raw logit threshold for EOS detection"),
     ("max-steps", "tts", "max_steps", int, "Maximum autoregressive generation steps"),

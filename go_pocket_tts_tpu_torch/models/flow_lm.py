@@ -8,8 +8,10 @@ Weight prefix ``flow_lm.*``:
 - ``input_linear`` (latent→D), ``out_norm`` LN, ``out_eos`` (D→1)
 - ``transformer.*`` (:mod:`flow_transformer`), ``flow_net.*`` (:mod:`flow_net`)
 
-The AR contract: a NaN-sentinel frame is replaced by ``bos_emb``, projected
-to d_model, pushed through the cached transformer and normalized; the last
+The AR contract (:func:`ar_core`; :func:`flow_main` is its stateless
+full-sequence counterpart): a NaN-sentinel frame is replaced by
+``bos_emb``, projected to d_model, pushed through the cached transformer
+and normalized; the last
 hidden state gives the EOS logit (thresholded by the caller on the raw
 logit) and conditions the LSD Euler decode from noise already scaled by
 ``sqrt(temperature)``.
@@ -17,6 +19,7 @@ logit) and conditions the LSD Euler decode from noise already scaled by
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple, Union
 
@@ -27,6 +30,7 @@ from go_pocket_tts_tpu_torch.models.flow_transformer import (
     TransformerConfig,
     load_flow_transformer,
     transformer_forward_cached,
+    transformer_forward_stateless,
 )
 from go_pocket_tts_tpu_torch.models.params import (
     VarBuilder,
@@ -36,7 +40,15 @@ from go_pocket_tts_tpu_torch.models.params import (
 )
 from go_pocket_tts_tpu_torch.ops import layer_norm
 
-__all__ = ["FlowLMConfig", "load_flow_lm", "text_embeddings", "prompt", "ar_core"]
+__all__ = [
+    "FlowLMConfig",
+    "load_flow_lm",
+    "text_embeddings",
+    "prompt",
+    "ar_core",
+    "flow_main",
+    "sample_noise",
+]
 
 Params = Dict
 
@@ -123,3 +135,24 @@ def prompt(
         params["transformer"], cfg.transformer, cache, text_emb, valid_len
     )
     return cache
+
+
+def flow_main(
+    params: Params, cfg: FlowLMConfig, sequence: torch.Tensor, text_emb: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stateless full-resequence forward: the latent frames ``sequence``
+    [B, T, L] (NaN = BOS) projected to d_model after the text conditioning
+    ``text_emb`` [B, Tt, D], through the causal transformer from position
+    0; returns ``(last_hidden [B, D], eos_logit [B])``."""
+    seq = _replace_nan_with_bos(sequence, params["bos_emb"])
+    x = torch.cat([text_emb, apply_linear(params["input_linear"], seq)], dim=1)
+    y = transformer_forward_stateless(params["transformer"], cfg.transformer, x)
+    return _hidden_and_eos(params, y)
+
+
+def sample_noise(generator: torch.Generator, batch: int, latent_dim: int, temperature: float) -> torch.Tensor:
+    """``N(0, sqrt(temperature))`` float32 ``[batch, latent_dim]`` on the
+    generator's device (zeros when ``temperature <= 0``)."""
+    sigma = math.sqrt(max(float(temperature), 0.0))
+    noise = torch.randn((batch, latent_dim), generator=generator, device=generator.device, dtype=torch.float32)
+    return noise * sigma

@@ -13,6 +13,8 @@
 The runtime hoists :func:`precompute_time_cond` and
 :func:`precompute_fused_adaln` out of the AR loop, as the reference does;
 the adaLN projections of all blocks always run as one matmul.
+:func:`flow_direction` is the flow field at one ``(s, t)`` pair for
+callers outside that loop; it runs the same chain.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from go_pocket_tts_tpu_torch.models.quantize import dequantize_weight, is_quanti
 from go_pocket_tts_tpu_torch.ops import layer_norm, modulate, rms_norm_bessel, silu
 
 __all__ = [
+    "flow_direction",
     "load_flow_net",
     "precompute_time_cond",
     "precompute_fused_adaln",
@@ -108,6 +111,18 @@ def _flow_core(params: Params, fused_ada: Params, y: torch.Tensor, x: torch.Tens
     shift, scale = _adaln_chunks(ada_all, fd, n_blocks * 3 * fd, 2)
     out = modulate(layer_norm(cur, eps=1e-6), shift, scale)
     return apply_linear(params["final_linear"], out)
+
+
+def flow_direction(
+    params: Params, c: torch.Tensor, s: torch.Tensor, t: torch.Tensor, x: torch.Tensor
+) -> torch.Tensor:
+    """Flow field for latent ``x`` [B, L] under condition ``c`` [B, D] at
+    integration times ``s``/``t`` [B, 1] (float32). It builds the fused
+    adaLN weight on each call; :func:`lsd_decode` builds it once."""
+    t0 = _timestep_embed(params["time_embed_0"], s)
+    t1 = _timestep_embed(params["time_embed_1"], t)
+    y = 0.5 * (t0 + t1) + apply_linear(params["cond_embed"], c)
+    return _flow_core(params, precompute_fused_adaln(params), y, x)
 
 
 def precompute_fused_adaln(params: Params) -> Params:

@@ -12,6 +12,9 @@ prefill nor an AR step needs a host sync. Unlike the reference, whose
 functions are pure, the cache buffers are updated IN PLACE and returned
 (the reference donates them to the same effect).
 
+:func:`transformer_forward_stateless` is the full-sequence causal forward
+without a cache (positions from 0), in plain PyTorch.
+
 An AR step (T = 1) of a causal config goes through the decode-attention
 kernel wrapper (``kernels/decode_attention.py``: RoPE, append and masked
 attention in one launch per layer); prefill (T > 1) and windowed configs
@@ -41,6 +44,7 @@ from go_pocket_tts_tpu_torch.models.params import (
     linear_params,
 )
 from go_pocket_tts_tpu_torch.ops import (
+    apply_rope,
     apply_rope_rows,
     attention_with_positions,
     attention_with_positions_int8kv,
@@ -57,6 +61,7 @@ __all__ = [
     "init_kv_cache",
     "kv_cache_from_voice_state",
     "transformer_forward_cached",
+    "transformer_forward_stateless",
     "transformer_step_batched",
 ]
 
@@ -310,3 +315,22 @@ def transformer_step_batched(
     if ks_all is not None:
         new_cache["k_scale"], new_cache["v_scale"] = ks_all, vs_all
     return x, new_cache
+
+
+def transformer_forward_stateless(params: Params, cfg: TransformerConfig, x: torch.Tensor) -> torch.Tensor:
+    """Full-sequence causal forward without a cache (the reference's
+    ``FlowMain`` resequencing path): ``x`` [B, T, D] at positions
+    ``0..T-1``, RoPE from 0, masked to ``cfg.context`` when it is set."""
+    pos = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    rope = (params["rope_cos"], params["rope_sin"])
+    for layer in params["layers"]:
+        n1 = layer_norm(x, layer["norm1"]["weight"], layer["norm1"]["bias"])
+        q, k, v = (
+            _split_heads(part, cfg.num_heads, cfg.head_dim)
+            for part in apply_linear(layer["in_proj"], n1).chunk(3, dim=-1)
+        )
+        attn = attention_with_positions(apply_rope(q, *rope), apply_rope(k, *rope), v, pos, pos, cfg.context)
+        x = x + apply_linear(layer["out_proj"], _merge_heads(attn))
+        n2 = layer_norm(x, layer["norm2"]["weight"], layer["norm2"]["bias"])
+        x = x + apply_linear(layer["linear2"], gelu_erf(apply_linear(layer["linear1"], n2)))
+    return x

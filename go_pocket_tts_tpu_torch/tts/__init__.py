@@ -1,4 +1,5 @@
-"""TTS orchestration of the port: the service and the voice manifest."""
+"""TTS orchestration of the port: the service, the voice manifest, voice
+cloning, the parity harness and the torch and cli backends."""
 
 from go_pocket_tts_tpu_torch.tts.service import PCMChunk, Service
 from go_pocket_tts_tpu_torch.tts.voices import Voice, VoiceManager

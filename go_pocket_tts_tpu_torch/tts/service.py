@@ -8,13 +8,22 @@ generation → concatenated float32 PCM at 24 kHz. Streaming yields one
 (:class:`GPURuntime`, :class:`BatcherRuntime`), one per PCM block of a few
 latent frames.
 
-The runtime is :class:`GPURuntime` (one request at a time) or, with
-``runtime.batch_slots > 1``, :class:`BatcherRuntime` (the continuous
-batcher). Both run the port's CUDA kernels on the card, or their plain
-PyTorch versions when the config's device is the CPU. The routes of
-:meth:`Service.synthesize_stream` are chosen by what the runtime offers
-(``generate_audio_session``, ``batcher``, ``generate_audio_async``,
-``stream_generate_session``, ``stream_generate``), as in the reference.
+Backends (``tts.backend``, `service.go:39-98`):
+
+- ``gpu``: :class:`GPURuntime` (one request at a time) or, with
+  ``runtime.batch_slots > 1``, :class:`BatcherRuntime` (the continuous
+  batcher). Both run the port's CUDA kernels on the card, or their plain
+  PyTorch versions when the config's device is the CPU;
+- ``torch``: the independent torch oracle (:mod:`tts.runtime_torch`) on the
+  config's device, with no hand-written kernel;
+- ``cli``: a subprocess to an external ``pocket-tts`` binary
+  (:mod:`tts.runtime_cli`), which takes the whole text and needs no
+  tokenizer.
+
+The routes of :meth:`Service.synthesize_stream` are chosen by what the
+runtime offers (``synthesize_text``, ``generate_audio_session``,
+``batcher``, ``generate_audio_async``, ``stream_generate_session``,
+``stream_generate``), as in the reference.
 """
 
 from __future__ import annotations
@@ -31,7 +40,7 @@ from typing import Callable, Iterator, Optional
 import numpy as np
 import torch
 
-from go_pocket_tts_tpu_torch.config import Config, normalize_backend
+from go_pocket_tts_tpu_torch.config import BACKEND_CLI, BACKEND_TORCH, Config, normalize_backend
 from go_pocket_tts_tpu_torch.device import resolve_device
 from go_pocket_tts_tpu_torch.runtime import GenerateConfig, GPURuntime
 from go_pocket_tts_tpu_torch.runtime.streaming import stream_generate
@@ -155,11 +164,32 @@ class Service:
     @classmethod
     def from_config(cls, cfg: Config) -> "Service":
         """The runtime the config names, on ``cfg.runtime.device`` (``cuda``
-        unless the caller set ``cpu``): :class:`GPURuntime` at
-        ``batch_slots <= 1``, else :class:`BatcherRuntime`. Raises on a host
-        without CUDA when the device is ``cuda``; never falls back."""
-        normalize_backend(cfg.tts.backend)
+        unless the caller set ``cpu``): for ``gpu``, :class:`GPURuntime` at
+        ``batch_slots <= 1``, else :class:`BatcherRuntime`; for ``torch``,
+        :class:`TorchRuntime`; for ``cli``, :class:`CLIRuntime` (no device,
+        no tokenizer). Raises on a host without CUDA when the device is
+        ``cuda``; never falls back."""
+        backend = normalize_backend(cfg.tts.backend)
+        if backend == BACKEND_CLI:
+            from go_pocket_tts_tpu_torch.tts.runtime_cli import CLIRuntime
+
+            runtime = CLIRuntime(
+                cfg.tts.cli_path or "pocket-tts",
+                quiet=cfg.tts.quiet,
+                extra_args=cfg.tts.cli_args,
+                config_path=cfg.tts.cli_config_path,
+            )
+            return cls(runtime, None, cfg.tts)
         device = resolve_device(cfg.runtime.device)
+        if backend == BACKEND_TORCH:
+            from go_pocket_tts_tpu_torch.tts.runtime_torch import TorchRuntime
+
+            tokenizer = load_tokenizer(cfg.paths.tokenizer_model)
+            runtime = TorchRuntime.from_checkpoint(
+                cfg.paths.model_path, seed=None if cfg.runtime.seed < 0 else cfg.runtime.seed, device=device
+            )
+            log.info("loaded torch runtime model=%s device=%s", cfg.paths.model_path, device)
+            return cls(runtime, tokenizer, cfg.tts)
         _check_kernel_switch(cfg.runtime.pallas)
         batched = cfg.runtime.batch_slots > 1
         if not batched and cfg.runtime.kv_quantize:
@@ -338,6 +368,12 @@ class Service:
         """
         if self.runtime is None:
             raise RuntimeError("tts runtime unavailable")
+        # The cli backend synthesizes the whole text in the subprocess (no
+        # local tokenizer round-trip, like the reference's cliSynthesizer).
+        if hasattr(self.runtime, "synthesize_text"):
+            pcm = self.runtime.synthesize_text(input_text, voice_path)
+            yield PCMChunk(samples=pcm, chunk_index=0, final=True)
+            return
         chunks = prepare_chunks(input_text, self.tokenizer, MAX_TOKENS_PER_CHUNK)
         conditioning = load_voice_conditioning(voice_path)
         use_frames = frame_streaming and self.supports_frame_streaming

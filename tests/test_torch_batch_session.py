@@ -13,7 +13,7 @@ import pytest
 
 from go_pocket_tts_tpu.parallel import ContinuousBatcher as JBatcher
 from go_pocket_tts_tpu.runtime import GenerateConfig as JConfig
-from go_pocket_tts_tpu.tts.parity import rms_delta
+from go_pocket_tts_tpu_torch.tts.parity import rms_delta
 from go_pocket_tts_tpu.utils import safetensors as j_st
 from go_pocket_tts_tpu_torch.models import synthetic
 from go_pocket_tts_tpu_torch.parallel import ContinuousBatcher

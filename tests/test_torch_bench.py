@@ -16,7 +16,7 @@ from go_pocket_tts_tpu.bench.stageprof import profile_synthesis as j_profile
 from go_pocket_tts_tpu.config import TTSConfig as JTTSConfig
 from go_pocket_tts_tpu.runtime import GenerateConfig as JConfig
 from go_pocket_tts_tpu.runtime import TPURuntime
-from go_pocket_tts_tpu.tts.parity import rms_delta
+from go_pocket_tts_tpu_torch.tts.parity import rms_delta
 from go_pocket_tts_tpu.tts.service import PCMChunk as JChunk
 from go_pocket_tts_tpu.tts.service import Service as JService
 from go_pocket_tts_tpu_torch import bench as t_bench

@@ -21,7 +21,7 @@ import pytest
 from go_pocket_tts_tpu import config as j_cfg
 from go_pocket_tts_tpu.cli.main import build_parser as j_parser
 from go_pocket_tts_tpu.cli.main import main as j_main
-from go_pocket_tts_tpu.tts.parity import rms_delta
+from go_pocket_tts_tpu_torch.tts.parity import rms_delta
 from go_pocket_tts_tpu_torch import config as t_cfg
 from go_pocket_tts_tpu_torch.cli.main import build_parser, main
 from go_pocket_tts_tpu_torch.models import synthetic
@@ -30,12 +30,11 @@ from go_pocket_tts_tpu_torch.utils.safetensors import write_file
 
 ROOT = Path(__file__).resolve().parent.parent
 SECTIONS = ("paths", "runtime", "server", "tts")
-# The JAX package's fields the port does not parse (the unported cli
-# backend's settings, XLA's matmul precision), and the one it adds (where
-# the runtimes run; set by the CLI from POCKETTTS_PLATFORM).
+# The JAX package's field the port does not parse (XLA's matmul
+# precision), and the one it adds (where the runtimes run; set by the CLI
+# from POCKETTTS_PLATFORM).
 NOT_PARSED = {
     "runtime": {"matmul_precision"},
-    "tts": {"cli_path", "cli_args", "quiet", "cli_config_path"},
 }
 ADDED = {"runtime": {"device"}}
 DIFFERENT_DEFAULTS = {("runtime", "compile_cache_dir"), ("tts", "backend")}
@@ -150,9 +149,9 @@ def test_backend_aliases(name):
 
 @pytest.mark.parametrize("name", ["torch", "torch-cpu", "native-onnx", "cli"])
 def test_unported_backends_are_refused_by_name(name):
-    j_cfg.normalize_backend(name)  # the reference has them
-    with pytest.raises(ValueError, match="not yet ported"):
-        t_cfg.normalize_backend(name)
+    """The reference's other backends, ported since: each name maps as the
+    JAX package maps it; the JAX engine's own name is still refused."""
+    assert t_cfg.normalize_backend(name) == j_cfg.normalize_backend(name)
     with pytest.raises(ValueError, match="unsupported backend"):
         t_cfg.normalize_backend("tpu")
 

@@ -10,6 +10,7 @@ need not have.)
 """
 
 import dataclasses
+import tempfile
 
 import numpy as np
 import pytest
@@ -1128,3 +1129,73 @@ def test_microbench_on_card(card, capsys):
     lines = capsys.readouterr().out.splitlines()
     assert lines[0].startswith(f"card: {card_line()}") and len(lines) == 7
     assert all(float(line.split(" p50 ")[1].split()[0]) > 0 for line in lines[1:])
+
+
+def test_kernel_api_on_card_matches_the_runtime(card):
+    """``PocketTTSKernel`` (float32, temperature 0, EOS off) from bytes on
+    the card, on ``tiny_arch()`` with 16 heads of the published width and a
+    SEANet at the kernels' widths: its one-shot WAV within one PCM16 step
+    RMS of ``GPURuntime.generate_audio`` on the same chunk, its progress
+    route within chip_smoke.PATH_RMS_TOL of it; kernels 1, 7, 2 and 8
+    launch."""
+    import chip_smoke
+    from go_pocket_tts_tpu_torch.kernel import PocketTTSKernel
+    from go_pocket_tts_tpu_torch.models.model import load_model_from_store
+    from go_pocket_tts_tpu_torch.text import estimate_max_frames, prepare_chunks
+    from go_pocket_tts_tpu_torch.text.sentencepiece import load_tokenizer
+    from go_pocket_tts_tpu_torch.utils import wav
+    from go_pocket_tts_tpu_torch.utils.safetensors import encode_tensors, open_store_from_bytes
+
+    arch = dataclasses.replace(synthetic.tiny_arch(), d_model=1024, num_heads=16, seanet_channels=(32, 256, 128, 64))
+    model_bytes = encode_tensors(synthetic.build_checkpoint(arch, seed=9))
+    with tempfile.TemporaryDirectory() as tmp:
+        chip_smoke.write_fixture_tokenizer(f"{tmp}/tok.model")
+        tok_bytes = open(f"{tmp}/tok.model", "rb").read()
+        tok = load_tokenizer(f"{tmp}/tok.model")
+    k = PocketTTSKernel(seed=1)
+    k.load_model(model_bytes, tok_bytes)
+    text = chip_smoke.STREAM_TEXTS[0]
+    kernels.reset_launches()
+    one_shot = wav.decode_wav(k.synthesize(text, temperature=0.0, eos_threshold=1e9))[0]
+    calls = []
+    streamed = wav.decode_wav(
+        k.synthesize(text, temperature=0.0, eos_threshold=1e9, progress=lambda d, t: calls.append((d, t)))
+    )[0]
+    launched = (da.decode_attention_step, st.fused_up2_res, st.fused_seanet_up_tail, st.fused_up2_up3_tail)
+    assert all(fn.launches > 0 for fn in launched), [fn.launches for fn in launched]
+    (chunk,) = prepare_chunks(k.normalize(text), tok)
+    frames = estimate_max_frames(chunk.num_tokens)
+    rt = GPURuntime(load_model_from_store(open_store_from_bytes(model_bytes), device=card), seed=1, device=card)
+    want = rt.generate_audio(chunk.token_ids, GenerateConfig(temperature=0.0, eos_threshold=1e9, max_steps=frames))
+    assert one_shot.shape == streamed.shape == want.shape == (frames * 1920,)
+    assert calls[-1] == (frames, frames)
+    assert np.sqrt(np.mean((one_shot.astype(np.float64) - want) ** 2)) <= 1.0 / 32767
+    assert np.sqrt(np.mean((streamed.astype(np.float64) - want) ** 2)) < chip_smoke.PATH_RMS_TOL
+
+
+def test_torch_oracle_on_card_matches_the_cpu(card):
+    """The torch oracle on the card (true float32 whatever the TF32 flags,
+    here switched on) against itself on the CPU, at temperature 0.7 (the
+    noise is drawn on the CPU, so one seed gives the same noise) and in a
+    carried session; within 1e-5 RMS."""
+    from go_pocket_tts_tpu_torch.tts.runtime_torch import TorchRuntime
+    from go_pocket_tts_tpu_torch.utils.safetensors import encode_tensors, open_store_from_bytes
+
+    arch = synthetic.tiny_arch()
+    data = encode_tensors(synthetic.build_checkpoint(arch, seed=10))
+    cfg = GenerateConfig(temperature=0.7, eos_threshold=1e9, max_steps=6)
+    outs = {}
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for dev in ("cpu", "cuda"):
+            rt = TorchRuntime(open_store_from_bytes(data), num_heads=arch.num_heads, seed=2, device=dev)
+            one = rt.generate_audio([3, 17, 41], cfg)
+            a, cont = rt.generate_audio_session([3, 17], cfg, None)
+            b, _ = rt.generate_audio_session([9, 5], cfg, cont)
+            outs[dev] = np.concatenate([one, a, b])
+        assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == (True, True)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    assert outs["cuda"].shape == outs["cpu"].shape == (18 * 1920,)
+    assert np.sqrt(np.mean((outs["cuda"].astype(np.float64) - outs["cpu"]) ** 2)) < 1e-5

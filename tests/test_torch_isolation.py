@@ -291,6 +291,48 @@ assert not any(m.split(".")[0] in ("jax", "jaxlib", "go_pocket_tts_tpu") for m i
 print("NO-JAX-TOOLS-OK")
 """
 
+_KERNEL_SCRIPT = _SCRIPT[: _SCRIPT.index("import numpy as np")] + r"""
+import os, subprocess, tempfile
+import numpy as np
+from go_pocket_tts_tpu_torch.kernel import PocketTTSKernel
+from go_pocket_tts_tpu_torch.models import synthetic
+from go_pocket_tts_tpu_torch.models.model import load_model
+from go_pocket_tts_tpu_torch.runtime import GenerateConfig
+from go_pocket_tts_tpu_torch.text.sentencepiece import SentencePieceModel
+from go_pocket_tts_tpu_torch.tts.parity import rms_delta, snapshot_pcm
+from go_pocket_tts_tpu_torch.tts.parity_fixture import load_fixture, verify_fixture
+from go_pocket_tts_tpu_torch.tts.runtime_cli import CLIRuntime, build_passthrough_args
+from go_pocket_tts_tpu_torch.tts.runtime_torch import TorchRuntime
+from go_pocket_tts_tpu_torch.utils.safetensors import encode_tensors, write_file
+from go_pocket_tts_tpu_torch.utils.wav import decode_wav
+
+arch = synthetic.tiny_arch()
+tensors = synthetic.build_checkpoint(arch, seed=4)
+sp = SentencePieceModel()
+for piece in ["<unk>"] + list("abcdefghijklmnopqrstuvwxyz▁"):
+    sp.pieces.append(piece); sp.scores.append(-1.0); sp.types.append(2 if piece == "<unk>" else 1)
+kernel = PocketTTSKernel(seed=1, device="cpu")
+kernel.load_model(encode_tensors(tensors), sp.serialize())
+calls = []
+pcm, rate = decode_wav(kernel.synthesize("hi", temperature=0.0, eos_threshold=-1e9, progress=lambda d, t: calls.append((d, t))))
+assert rate == 24000 and len(pcm) > 0 and calls[-1] == (len(pcm) // 1920,) * 2, calls
+with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, "model.safetensors")
+    write_file(path, tensors)
+    oracle = TorchRuntime.from_checkpoint(path, num_heads=arch.num_heads, seed=1, device="cpu")
+    audio = oracle.generate_audio([3, 17, 41], GenerateConfig(temperature=0.0, eos_threshold=1e9, max_steps=3))
+    assert audio.shape == (3 * 1920,) and snapshot_pcm("torch", audio).num_samples == 3 * 1920
+    out = os.path.join(tmp, "fx.json")
+    subprocess.run([sys.executable, "scripts/torch_dump_parity.py", "--model", path, "--num-heads", str(arch.num_heads),
+                    "--device", "cpu", "--mimi-frames", "1", "--output", out], check=True, capture_output=True)
+    reports = verify_fixture(load_model(path, num_heads=arch.num_heads, device="cpu"), load_fixture(out))
+    assert reports and all(r.passed for r in reports), reports
+assert build_passthrough_args(["k=v"]) == ["--k=v"] and CLIRuntime().cli_path == "pocket-tts"
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "go_pocket_tts_tpu") for m in sys.modules)
+print("NO-JAX-KERNEL-OK")
+"""
+
+
 def _run_blocked(script: str) -> str:
     proc = subprocess.run(
         [sys.executable, "-c", script],
@@ -344,6 +386,14 @@ def test_port_clones_a_voice_with_jax_blocked():
     assert "NO-JAX-CLONE-OK" in _run_blocked(_CLONE_SCRIPT)
 
 
+def test_port_kernel_api_oracle_and_parity_with_jax_blocked():
+    """``PocketTTSKernel.synthesize`` with progress, the torch oracle, the
+    cli runtime's helpers, the parity harness and a fixture written by
+    ``scripts/torch_dump_parity.py`` and replayed by ``verify_fixture``,
+    with jax and the JAX package unimportable."""
+    assert "NO-JAX-KERNEL-OK" in _run_blocked(_KERNEL_SCRIPT)
+
+
 PORT_FILES = sorted(str(p.relative_to(ROOT)) for p in (ROOT / "go_pocket_tts_tpu_torch").rglob("*.py"))
 
 
@@ -361,7 +411,8 @@ def _imported_roots(path: Path):
     "path",
     PORT_FILES
     + ["chip_smoke.py", "scripts/torch_profile.py", "scripts/torch_profile_batched.py"]
-    + ["scripts/time_up2_kernels.py", "scripts/time_decode_attention.py", "scripts/time_quantized_matmul.py"],
+    + ["scripts/time_up2_kernels.py", "scripts/time_decode_attention.py", "scripts/time_quantized_matmul.py"]
+    + ["scripts/torch_dump_parity.py"],
 )
 def test_no_jax_imports(path):
     bad = [root for root in _imported_roots(ROOT / path) if root in FORBIDDEN]
@@ -373,6 +424,8 @@ def test_scan_covers_every_port_package():
     assert {"bench", "cli", "kernels", "model_assets", "models", "native", "ops", "parallel", "runtime", "server",
             "text", "tts", "utils"} <= packages
     assert "go_pocket_tts_tpu_torch/parallel/batching.py" in PORT_FILES
+    for module in ("kernel.py", "tts/runtime_torch.py", "tts/runtime_cli.py", "tts/parity.py", "tts/parity_fixture.py"):
+        assert f"go_pocket_tts_tpu_torch/{module}" in PORT_FILES
 
 
 def test_default_device_is_cuda():
@@ -393,9 +446,26 @@ def test_default_device_is_cuda():
         verify_native_model,
     ):
         assert fn.__defaults__ is not None and "cuda" in fn.__defaults__, fn
-    from go_pocket_tts_tpu_torch.config import RuntimeConfig
+    from go_pocket_tts_tpu_torch.cli.doctor import run_doctor
+    from go_pocket_tts_tpu_torch.config import Config, RuntimeConfig, normalize_backend
+    from go_pocket_tts_tpu_torch.kernel import PocketTTSKernel
+    from go_pocket_tts_tpu_torch.tts.runtime_torch import TorchRuntime
 
+    for fn in (PocketTTSKernel.__init__, TorchRuntime.__init__):
+        assert fn.__defaults__ is not None and "cuda" in fn.__defaults__, fn
     assert RuntimeConfig().device == "cuda"
+    # Every backend reads the one device setting: doctor's config and the
+    # backends' configs all default to the card.
+    for backend in ("gpu", "torch", "cli"):
+        cfg = Config()
+        cfg.tts.backend = backend
+        assert normalize_backend(cfg.tts.backend) == backend and cfg.runtime.device == "cuda"
+    assert Config().tts.backend == "gpu"
+    if not torch.cuda.is_available():
+        # doctor probes the card with its default probe and reports its
+        # absence; it does not check the CPU in its place.
+        res = run_doctor(Config(), kernels_probe=lambda d: "x", native_probe=lambda: "x")
+        assert res.lines[0].startswith("✗ cuda backend — no CUDA device"), res.lines[0]
     assert microbench.DEFAULT_DEVICE == "cuda"
 
 

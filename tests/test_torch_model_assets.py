@@ -4,6 +4,7 @@ fetched), archive bundles, and ``verify_native_model``. Each case runs
 through both packages, each in a directory of its own, and must end the
 same way: the same result, or the same exception and message."""
 
+import gzip
 import hashlib
 import io
 import json
@@ -155,7 +156,10 @@ def test_download_skips_a_file_whose_checksum_matches(tmp_path):
 
 
 def _tar_gz(path, files, links=()):
-    with tarfile.open(path, "w:gz") as tf:
+    """Write a .tar.gz whose bytes depend only on ``files`` and ``links``:
+    the gzip header's mtime is 0 and names no file, so the JAX and the
+    port's runs of one case see the same archive and the same sha256."""
+    with open(path, "wb") as raw, gzip.GzipFile(filename="", mode="wb", fileobj=raw, mtime=0) as gz, tarfile.open(fileobj=gz, mode="w") as tf:
         for name, data in files.items():
             info = tarfile.TarInfo(name)
             info.size = len(data)
@@ -170,7 +174,23 @@ def _tar_gz(path, files, links=()):
 def _zip(path, files):
     with zipfile.ZipFile(path, "w") as zf:
         for name, data in files.items():
-            zf.writestr(name, data)
+            info = zipfile.ZipInfo(name, date_time=(1980, 1, 1, 0, 0, 0))
+            info.external_attr = 0o600 << 16  # what writestr gives a bare name
+            zf.writestr(info, data)
+
+
+@pytest.mark.parametrize("write", [_tar_gz, _zip], ids=["tar_gz", "zip"])
+def test_archives_are_byte_stable_across_seconds(tmp_path, monkeypatch, write):
+    """Two builds of one archive a second apart give equal bytes."""
+    import time
+
+    files = {"model.safetensors": b"m" * 64, "tokenizer.model": b"tok"}
+    write(str(tmp_path / "a"), files)
+    now = time.time()
+    monkeypatch.setattr(time, "time", lambda: now + 1.0)
+    monkeypatch.setattr(time, "localtime", lambda *a: time.gmtime(now + 1.0))
+    write(str(tmp_path / "b"), files)
+    assert (tmp_path / "a").read_bytes() == (tmp_path / "b").read_bytes()
 
 
 def _with_manifest(files):

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 
 from go_pocket_tts_tpu.server import Server as JServer
-from go_pocket_tts_tpu.tts.parity import rms_delta
+from go_pocket_tts_tpu_torch.tts.parity import rms_delta
 from go_pocket_tts_tpu.tts.voices import Voice
 from go_pocket_tts_tpu_torch.server import Server, probe_http
 from go_pocket_tts_tpu_torch.server.http import make_handler

@@ -17,7 +17,7 @@ from go_pocket_tts_tpu.models.model import load_model_from_store
 from go_pocket_tts_tpu.runtime import TPURuntime
 from go_pocket_tts_tpu.text import ChunkMetadata as JChunk
 from go_pocket_tts_tpu.text.sentencepiece import load_tokenizer_from_bytes as j_tokenizer
-from go_pocket_tts_tpu.tts.parity import rms_delta
+from go_pocket_tts_tpu_torch.tts.parity import rms_delta
 from go_pocket_tts_tpu.tts.service import Service as JService
 from go_pocket_tts_tpu.utils.safetensors import encode_tensors, open_store_from_bytes, write_file
 from go_pocket_tts_tpu_torch import config as t_config
@@ -244,10 +244,27 @@ def test_from_config_refusals(fixture_files, runtime, match):
 
 @pytest.mark.parametrize("backend", ["torch", "cli", "tpu"])
 def test_from_config_refuses_unported_backends(fixture_files, backend):
+    """``tpu`` (the JAX engine's name) is refused; ``torch`` and ``cli``,
+    ported since, build their runtimes: the torch oracle on the config's
+    device with a tokenizer, the cli subprocess runtime without one."""
+    from go_pocket_tts_tpu_torch.tts.runtime_cli import CLIRuntime
+    from go_pocket_tts_tpu_torch.tts.runtime_torch import TorchRuntime
+
     cfg = _config(fixture_files)
     cfg.tts.backend = backend
-    with pytest.raises(ValueError, match="not yet ported" if backend != "tpu" else "unsupported backend"):
-        Service.from_config(cfg)
+    if backend == "tpu":
+        with pytest.raises(ValueError, match="unsupported backend"):
+            Service.from_config(cfg)
+        return
+    svc = Service.from_config(cfg)
+    try:
+        if backend == "torch":
+            assert isinstance(svc.runtime, TorchRuntime) and svc.runtime.device == torch.device("cpu")
+            assert svc.tokenizer is not None
+        else:
+            assert isinstance(svc.runtime, CLIRuntime) and svc.tokenizer is None
+    finally:
+        svc.close()
 
 
 def test_from_config_raises_without_cuda(fixture_files, monkeypatch):

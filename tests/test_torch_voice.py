@@ -13,7 +13,7 @@ from go_pocket_tts_tpu.models import synthetic as j_syn
 from go_pocket_tts_tpu.models.model import load_model_from_store
 from go_pocket_tts_tpu.runtime import GenerateConfig as JConfig
 from go_pocket_tts_tpu.runtime import TPURuntime
-from go_pocket_tts_tpu.tts.parity import rms_delta
+from go_pocket_tts_tpu_torch.tts.parity import rms_delta
 from go_pocket_tts_tpu.utils import safetensors as j_io
 from go_pocket_tts_tpu.utils.safetensors import encode_tensors, open_store_from_bytes
 from go_pocket_tts_tpu_torch.models import flow_transformer as t_ftr

@@ -35,7 +35,7 @@ from go_pocket_tts_tpu.runtime import TPURuntime
 from go_pocket_tts_tpu.server import Server as JServer
 from go_pocket_tts_tpu.tts import voice_export as j_export
 from go_pocket_tts_tpu.tts import voice_upload as j_upload
-from go_pocket_tts_tpu.tts.parity import rms_delta
+from go_pocket_tts_tpu_torch.tts.parity import rms_delta
 from go_pocket_tts_tpu.tts.service import Service as JService
 from go_pocket_tts_tpu.tts.voices import VoiceManager as JVoiceManager
 from go_pocket_tts_tpu.utils.safetensors import open_store_from_bytes
