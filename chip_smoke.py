@@ -152,6 +152,26 @@ failure exits non-zero:
    and is refused without ``--backend cli``; (g) ``flow_main`` on the card
    against the cached path (prefill, then kernel 1 per frame) within 1e-4,
    and ``sample_noise``'s standard deviation.
+16. meshes and switches (after phase 15; its launches in a dict of their
+   own): (a) kernel 4's fused step at one tp=2 rank's 8 heads (float and
+   int8 KV, 8 lanes, capacity 384) and kernels 5 and 6 at the rank's four
+   linears (8 rows, float32 and bfloat16 out), against their plain versions
+   and timed beside their bounds, library calls and the whole model's
+   shapes (``tp2`` in the kernel table); (b) the batcher at ``apply_serving_autotune``'s settings (8
+   slots, int8 weights, prompt capacity 128, 8/64-step blocks) over
+   ``dp_tp_mesh(2, 2)`` with its four ranks on this one card, float32 at
+   temperature 0, kernels 4 and 5 (or 6) called only at the shard shapes:
+   with a float KV cache, 8 requests, 2 streamed lanes and a two-chunk
+   session each within ``PATH_RMS_TOL`` of the unsharded batcher, then 8
+   requests of an int4 artifact; with the settings' int8 KV cache, 8
+   requests and 2 streamed lanes, each first frame within 1e-5 of the
+   unsharded batcher's and the whole requests' RMS printed beside dp=2
+   alone's; (c) ``dp_tp_mesh(1, 1)``, bit-equal to the unsharded batcher; (d) ``Service.from_config`` with ``runtime.dp_devices=2`` and
+   no devices named refused with the device count; (e) ``pallas=False``
+   through ``GPURuntime`` (one-shot and streamed) and the batcher: every
+   launch counter 0, the PCM within ``PATH_RMS_TOL`` of the kernels', both
+   walls printed; (f) ``matmul_precision="highest"`` bit-equal to the
+   float32 default, ``"high"`` runs.
 
 Phase 2 also holds the SEANet kernels (bf16 on tensor cores) against
 their plain versions at 160 frames, bit-equal over two calls: kernels 2
@@ -3309,6 +3329,378 @@ def last_entry_points(fixtures, root: str) -> None:
     print(f"  phase 15 launches: {counts}")
 
 
+# -- phase 16: dp/tp meshes and the kernel and precision switches -------------
+
+
+# The FlowLM transformer linears of real_arch(), (K, N) whole and on one
+# tp=2 rank: in_proj and linear1 split their columns, out_proj and linear2
+# their rows.
+TP2_LINEARS = (
+    ("in_proj", (1024, 3072), (1024, 1536)),
+    ("out_proj", (1024, 1024), (512, 1024)),
+    ("linear1", (1024, 4096), (1024, 2048)),
+    ("linear2", (4096, 1024), (2048, 1024)),
+)
+
+
+def tp_shard_kernels(rows: dict) -> None:
+    """(a): kernel 4's fused step at one tp=2 rank's 8 heads (float and
+    int8 KV, 8 lanes, capacity 384) and kernels 5 and 6 at the rank's four
+    linears (8 rows; the float32 partial and the activation-dtype product),
+    each against its plain version with phase 2's tolerances and timed
+    beside its bound, its library call and the same kernel at the whole
+    model's shape (``tp2`` in the kernel table)."""
+    from go_pocket_tts_tpu_torch.kernels import batched_decode_attention as bda
+    from go_pocket_tts_tpu_torch.kernels import int4_matmul as i4mm
+    from go_pocket_tts_tpu_torch.kernels import quantized_matmul as qmm
+    from go_pocket_tts_tpu_torch.models.quantize import quantize_kv_rows
+    from go_pocket_tts_tpu_torch.ops import build_rope_tables
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    dtype, n_layers, b, c, d, layer = torch.bfloat16, 6, 8, 384, 64, 3
+    es = torch.finfo(dtype).bits // 8
+    cos, sin = (t.cuda() for t in build_rope_tables(8192, d))
+    offsets = torch.randint(0, c, (b,), generator=gen, device="cuda", dtype=torch.int32)
+    offsets[0] = c - 1
+    visible = int((offsets.long() + 1).sum())
+    lane_mask = (torch.arange(c, device="cuda")[None, :] <= offsets.long()[:, None])[:, None, None, :]
+    for int8 in (False, True):
+        name = "batched_decode_attention_int8" if int8 else "batched_decode_attention"
+        times = {}
+        for h in (8, 16):
+            k, v = ((torch.randn((n_layers, b, h, c, d), generator=gen, device="cuda") * 0.3).to(dtype) for _ in range(2))
+            bufs = [*quantize_kv_rows(k), *quantize_kv_rows(v)] if int8 else [k, v]
+            q, k_new, v_new = torch.randn((b, 1, 3 * h * d), generator=gen, device="cuda").to(dtype).reshape(
+                b, 1, 3, h, d
+            ).permute(2, 0, 3, 1, 4)
+
+            def step(fn, bb):
+                scales = (bb[1], bb[3]) if int8 else (None, None)
+                kc, vc = (bb[0], bb[2]) if int8 else (bb[0], bb[1])
+                return fn(q, k_new, v_new, kc, vc, offsets, cos, sin, layer, *scales)
+
+            mine, ref = [x.clone() for x in bufs], [x.clone() for x in bufs]
+            what = f"{name} fused step {dname(dtype)} B={b} H={h} C={c}"
+            err = max_err(step(bda.batched_decode_attention_step, mine), step(bda.batched_decode_attention_step_plain, ref),
+                          dtype, what)
+            if not all(torch.equal(x, y) for x, y in zip(mine, ref)):
+                fail(f"{what}: written rows not bit-equal to the plain version's")
+            lib_ms = None
+            if not int8:  # yardstick: SDPA over the rank's heads with a per-lane mask
+                qc = q.contiguous()
+                lib_ms = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qc, k[layer], v[layer], attn_mask=lane_mask))
+            row_bytes = d * (1 if int8 else es) + (4 if int8 else 0)
+            bound_ms, bound_by = bound(2 * es * b * h * d + 4 * b + 2 * h * visible * row_bytes, 4.0 * h * visible * d, dtype)
+            times[h] = dict(ms=device_ms(lambda: step(bda.batched_decode_attention_step, mine)),
+                            plain_ms=device_ms(lambda: step(bda.batched_decode_attention_step_plain, ref)),
+                            bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms, max_abs_err=err)
+        t8 = times[8]
+        rows[name]["tp2"] = {"B8_H8_C384": t8}
+        lib = "none" if t8["library_ms"] is None else f"{t8['library_ms']:.5f} ms"
+        print(f"  {name} fused step at one tp=2 rank (B={b} H=8 C={c}, {dname(dtype)}): max_abs_err "
+              f"{t8['max_abs_err']:.3e}  kernel {t8['ms']:.5f} ms  plain {t8['plain_ms']:.5f} ms  sdpa {lib}  bound "
+              f"{t8['bound_ms']:.5f} ms ({t8['bound_by']})  unsharded (H=16) {times[16]['ms']:.5f} ms  [{CARD}]")
+
+    for bits, kernel, plain, library in ((8, qmm.quantized_matmul, qmm.quantized_matmul_plain, int8pack_call),
+                                         (4, i4mm.int4_matmul, i4mm.int4_matmul_plain, int4pack_call)):
+        rows[kernel.__name__]["tp2"] = {}
+        for label, whole, shard in TP2_LINEARS:
+            times = {}
+            for k, n in (shard, whole):
+                x = torch.randn((8, k), generator=gen, device="cuda").to(dtype)
+                if bits == 8:
+                    w = torch.randint(-127, 128, (k, n), generator=gen, device="cuda", dtype=torch.int8)
+                    scale = torch.rand((n,), generator=gen, device="cuda") * 1e-3 + 1e-4
+                    w_bytes = k * n + 4 * n
+                else:
+                    w = torch.randint(0, 256, (k // 2, n), generator=gen, device="cuda", dtype=torch.uint8)
+                    scale = torch.rand((k // 128, n), generator=gen, device="cuda") * 1e-3 + 1e-4
+                    w_bytes = k * n // 2 + 4 * (k // 128) * n
+                what = f"{kernel.__name__} {label} at one tp=2 rank, M=8 K={k} N={n}"
+                err = max(max_err(kernel(x, w, scale, out_dtype=out), plain(x, w, scale, out_dtype=out), out,
+                                  f"{what} {dname(out)} out") for out in (torch.float32, dtype))
+                lib_call, _note = library(x, w, scale)
+                bound_ms, bound_by = bound(w_bytes + es * 8 * k + 4 * 8 * n, 2.0 * 8 * k * n, dtype)
+                times[(k, n)] = dict(ms=device_ms(lambda: kernel(x, w, scale)),
+                                     act_out_ms=device_ms(lambda: kernel(x, w, scale, out_dtype=dtype)),
+                                     plain_ms=device_ms(lambda: plain(x, w, scale)), bound_ms=bound_ms,
+                                     bound_by=bound_by, library_ms=device_ms(lib_call) if lib_call else None,
+                                     max_abs_err=err)
+            t = times[shard]
+            rows[kernel.__name__]["tp2"][f"{label}_K{shard[0]}_N{shard[1]}"] = t
+            lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.5f} ms"
+            print(f"  {kernel.__name__} {label} tp=2 rank M=8 K={shard[0]} N={shard[1]} {dname(dtype)} x: kernel "
+                  f"{t['ms']:.5f} ms float32 out ({t['act_out_ms']:.5f} ms {dname(dtype)} out)  plain "
+                  f"{t['plain_ms']:.5f} ms  library {lib}  bound {t['bound_ms']:.5f} ms ({t['bound_by']})  unsharded "
+                  f"K={whole[0]} N={whole[1]} {times[whole]['ms']:.5f} ms  [{CARD}]")
+
+
+class ShapeLog:
+    """The shapes at which kernels 4, 5 and 6 launch while open: kernel 4 by
+    its cache's ``(B, H, C)`` (its wrappers' operand check), 5 and 6 by
+    ``(M, K, N)`` (their shared launch); both are looked up per call, and
+    the wrappers, which count the launches, stay as they are."""
+
+    def __init__(self) -> None:
+        from go_pocket_tts_tpu_torch.kernels import batched_decode_attention as bda
+        from go_pocket_tts_tpu_torch.kernels import split_k
+
+        self.seen: dict = {"kernel 4": set(), "kernel 5": set(), "kernel 6": set()}
+        self._saved = [(bda, "_check", bda._check), (split_k, "launch", split_k.launch)]
+
+        def check(q, k_cache, *args, **kw):
+            self.seen["kernel 4"].add(tuple(k_cache.shape[1:4]))
+            return bda._check.__wrapped__(q, k_cache, *args, **kw)
+
+        def launch(fn, x, w, *args, **kw):
+            key = "kernel 5" if fn.__name__ == "quantized_matmul" else "kernel 6"
+            self.seen[key].add((x.shape[0], x.shape[1], w.shape[1]))
+            return launch.__wrapped__(fn, x, w, *args, **kw)
+
+        check.__wrapped__, launch.__wrapped__ = bda._check, split_k.launch
+        bda._check, split_k.launch = check, launch
+
+    def __enter__(self) -> "ShapeLog":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for mod, attr, orig in self._saved:
+            setattr(mod, attr, orig)
+
+    def check_tp2(self, matmul: str) -> None:
+        """Kernel 4 at 8 heads only; the matmul at every rank linear and at
+        no whole transformer linear."""
+        kn = {(k, n) for _m, k, n in self.seen[matmul]}
+        heads = {h for _b, h, _c in self.seen["kernel 4"]}
+        missing = [shard for _, _, shard in TP2_LINEARS if shard not in kn]
+        whole = [w for label, w, _ in TP2_LINEARS if w in kn and label in ("in_proj", "linear1")]
+        if heads != {8} or missing or whole:
+            fail(f"mesh path: kernel 4 at heads {heads}; {matmul} missing rank shapes {missing}, whole shapes {whole}")
+        print(f"  shapes on the mesh path: kernel 4 (B, H, C) {sorted(self.seen['kernel 4'])}; {matmul} (K, N) "
+              f"{sorted(kn)}")
+
+
+def _mesh_traffic(batcher, reqs, cfg, streams: bool, session: bool):
+    """The requests queued before the engines start (so every run admits
+    them as one burst), then 2 streamed lanes and a two-chunk session."""
+    futs = [batcher.submit(tokens, cfg) for tokens in reqs]
+    batcher.start()
+    try:
+        outs = [f.result(timeout=600) for f in futs]
+        if streams:
+            gens = [batcher.submit_stream(tokens, cfg, timeout=600) for tokens in reqs[:2]]
+            outs += [np.concatenate(list(g)) for g in gens]
+        if session:
+            first, cont = batcher.generate_session(reqs[2], cfg, None, timeout=600)
+            second, _ = batcher.generate_session(reqs[3], cfg, cont, timeout=600)
+            outs += [first, second]
+    finally:
+        batcher.stop()
+    for i, audio in enumerate(outs):
+        streamed = streams and len(reqs) <= i < len(reqs) + 2
+        check_audio(audio, cfg.max_steps, f"mesh traffic output {i}", bounded=not streamed)
+    return outs
+
+
+def _rms(a: np.ndarray, b: np.ndarray) -> float:
+    return float(np.sqrt(np.mean((a.astype(np.float64) - b) ** 2)))
+
+
+def mesh_serving(model32, arch, counts: dict) -> None:
+    """(b) and (c): the serving batcher over dp=2 × tp=2 with its four ranks
+    on this one card against the unsharded batcher, float32 at temperature
+    0: with a float KV cache (int8 weights, then an int4 artifact), every
+    output within ``PATH_RMS_TOL``; with the int8 KV cache of the serving
+    settings, every output's first frame within 1e-5, the whole requests'
+    RMS beside dp=2 alone's; and dp=tp=1, bit-equal."""
+    from go_pocket_tts_tpu_torch import kernels
+    from go_pocket_tts_tpu_torch.config import Config, apply_serving_autotune
+    from go_pocket_tts_tpu_torch.model_assets.quantize_export import build_quantized_checkpoint
+    from go_pocket_tts_tpu_torch.models.model import load_model_from_tensors
+    from go_pocket_tts_tpu_torch.parallel import ContinuousBatcher, dp_mesh, dp_tp_mesh
+    from go_pocket_tts_tpu_torch.runtime import GenerateConfig
+    from go_pocket_tts_tpu_torch.runtime.generate import quantized_model
+
+    cfg = Config()
+    cfg.runtime.batch_slots = 8
+    apply_serving_autotune(cfg)
+    knobs = dict(slots=8, prompt_capacity=cfg.runtime.batch_prompt_capacity, steps_per_sync=cfg.runtime.steps_per_sync,
+                 steps_per_sync_burst=cfg.runtime.steps_per_sync_burst, kv_quantize=cfg.runtime.kv_quantize)
+    print(f"  serving settings (apply_serving_autotune): {knobs}, int8 weights {cfg.runtime.quantize}")
+    reqs = serving_requests(arch)[0][:8]
+    gen_cfg = GenerateConfig(temperature=0.0, eos_threshold=1e9, max_steps=40)
+    card = torch.device("cuda", torch.cuda.current_device())
+    tp_mesh = dp_tp_mesh(2, 2, devices=[card] * 4)
+    model8 = quantized_model(model32, True)
+    _, tensors = checkpoint()
+    model4 = load_model_from_tensors(build_quantized_checkpoint(tensors, 4, num_heads=arch.num_heads)[0],
+                                     num_heads=arch.num_heads, device="cuda")
+
+    def serve(model, kv_quantize, streams, session=False, **kw):
+        batcher = ContinuousBatcher(model, max_frames=256, dtype=torch.float32, seed=SEED, device="cuda",
+                                    **{**knobs, "kv_quantize": kv_quantize}, **kw)
+        t = time.perf_counter()
+        outs = _mesh_traffic(batcher, reqs, gen_cfg, streams, session)
+        return outs, time.perf_counter() - t, batcher
+
+    def on_the_mesh(model, kv_quantize, streams, session, matmul, label):
+        """The unsharded run, then the mesh run with the launch counts set
+        to 0 and the kernels' shapes logged."""
+        want, wall, _ = serve(model, kv_quantize, streams, session)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with ShapeLog() as shapes:
+            got, mesh_wall, batcher = serve(model, kv_quantize, streams, session, mesh=tp_mesh)
+        what = f"the dp=2 x tp=2 {label} batcher"
+        attention = "batched_decode_attention_int8" if kv_quantize else "batched_decode_attention"
+        must = (attention, matmul, "fused_up2_res", "fused_seanet_up_tail") + (("fused_up2_up3_tail",) if streams else ())
+        read_launches(what, must, counts, shapes=None)
+        shapes.check_tp2("kernel 5" if matmul == "quantized_matmul" else "kernel 6")
+        if dict(batcher.mesh.shape) != {"dp": 2, "tp": 2} or len(batcher._replicas) != 2:
+            fail(f"{what}: mesh {batcher.mesh.shape}")
+        traffic = "8 requests" + (", 2 streamed lanes" if streams else "") + (", a 2-chunk session" if session else "")
+        print(f"  {what} (float32, {traffic}, 40 frames each): {mesh_wall:.2f} s wall; unsharded {wall:.2f} s  [{CARD}]")
+        return got, want
+
+    for label, model, matmul, streams in (("int8, float KV", model8, "quantized_matmul", True),
+                                          ("int4 artifact, float KV", model4, "int4_matmul", False)):
+        got, want = on_the_mesh(model, False, streams, streams, matmul, label)
+        rms = [rms_check(g, w, f"f32 real_arch, {label}, output {i}, dp=2 x tp=2 - unsharded") for i, (g, w) in
+               enumerate(zip(got, want))]
+        print(f"  {label}: the largest RMS of {len(rms)} outputs {max(rms):.3e}  [{CARD}]")
+
+    # The serving settings' int8 KV cache: a row that rounds to the other
+    # level where two float32 sums differ in the last bit is a perturbation
+    # the AR loop feeds back, so whole requests drift apart as much between
+    # the unsharded batcher and dp=2 alone (the same arithmetic over 4 lanes
+    # a replica) as with tp; the first frame has had no feedback.
+    got, want = on_the_mesh(model8, True, True, False, "quantized_matmul", "int8, int8 KV")
+    control, _, _ = serve(model8, True, False, mesh=dp_mesh(2, devices=[card] * 2))
+    first = [_rms(g[:1920], w[:1920]) for g, w in zip(got, want)]
+    whole = [_rms(g, w) for g, w in zip(got, want)]
+    dp_only = [_rms(g, w) for g, w in zip(control, want)]
+    print(f"  int8 KV, dp=2 x tp=2 - unsharded: first frame RMS max {max(first):.3e} (tolerance 1e-5); whole requests "
+          f"{[f'{r:.2e}' for r in whole]}; dp=2 alone - unsharded {[f'{r:.2e}' for r in dp_only]}  [{CARD}]")
+    if not max(first) < 1e-5:
+        fail(f"int8 KV mesh batcher: first-frame RMS {max(first)} against the unsharded batcher")
+
+    kernels.reset_launches()
+    one, _, _ = serve(model8, True, False, mesh=dp_tp_mesh(1, 1, devices=[card]))
+    read_launches("the dp=1 x tp=1 int8 batcher", ("batched_decode_attention_int8", "quantized_matmul"), counts,
+                  shapes=None)
+    for i, (g, w) in enumerate(zip(one, want)):
+        if not np.array_equal(g, w):
+            fail(f"dp=tp=1: request {i} not bit-equal to the unsharded batcher's (max abs {np.abs(g - w).max():.3e})")
+    print(f"  dp=1 x tp=1 int8 batcher (int8 KV): all {len(one)} requests bit-equal to the unsharded batcher's  [{CARD}]")
+    del model4, model8
+    torch.cuda.empty_cache()
+
+
+def device_count_refusal(fixtures) -> None:
+    """(d): ``--runtime-dp 2`` with no devices named, on a one-card host."""
+    from go_pocket_tts_tpu_torch.tts.service import Service
+
+    have = torch.cuda.device_count()
+    if have >= 2:
+        print(f"  the device-count refusal needs a one-card host; this one has {have}: not checked")
+        return
+    cfg = entry_config(*fixtures, batch_slots=2, temperature=0.0)
+    cfg.runtime.dp_devices = 2
+    try:
+        Service.from_config(cfg)
+    except ValueError as e:
+        if f"requested 2 devices but only {have} available" not in str(e):
+            fail(f"Service.from_config with dp_devices=2 on {have} card: {e}")
+        print(f"  Service.from_config(runtime.dp_devices=2) on {have} card: ValueError: {e}")
+        return
+    fail(f"Service.from_config with dp_devices=2 on {have} card: no ValueError")
+
+
+def pallas_off(model32, arch, counts: dict) -> None:
+    """(e): ``pallas=False`` through ``GPURuntime`` (one-shot and streamed)
+    and the int8-weight batcher: every launch counter stays 0, and the
+    float32 PCM is the kernels' within the path budget; both walls printed.
+    The batcher keeps a float KV cache: with an int8 one a row rounding to
+    the other level feeds back through the AR loop (``mesh_serving``)."""
+    from go_pocket_tts_tpu_torch import kernels
+    from go_pocket_tts_tpu_torch.parallel import ContinuousBatcher
+    from go_pocket_tts_tpu_torch.runtime import GenerateConfig, GPURuntime
+    from go_pocket_tts_tpu_torch.runtime.generate import quantized_model
+    from go_pocket_tts_tpu_torch.runtime.streaming import stream_generate
+
+    tokens, _, cfg = parity_requests(arch)
+    reqs = serving_requests(arch)[0][:8]
+    model8 = quantized_model(model32, True)
+    out, walls = {}, {}
+    for pallas in (None, False):
+        rt = GPURuntime(model32, dtype=torch.float32, seed=SEED, device="cuda", pallas=pallas)
+        rt.generate_audio(tokens, cfg)  # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t = time.perf_counter()
+        one = rt.generate_audio(tokens, cfg)
+        single = time.perf_counter() - t
+        streamed = np.concatenate(list(stream_generate(rt, tokens, cfg)))
+        batcher = ContinuousBatcher(model8, slots=8, prompt_capacity=128, max_frames=256, dtype=torch.float32, seed=SEED,
+                                    steps_per_sync=8, steps_per_sync_burst=64, device="cuda", pallas=pallas)
+        futs = [batcher.submit(r, cfg) for r in reqs]
+        t = time.perf_counter()
+        batcher.start()
+        try:
+            wave = [f.result(timeout=600) for f in futs]
+        finally:
+            batcher.stop()
+        batched = time.perf_counter() - t
+        arm = "kernels" if pallas is None else "pallas=off"
+        if pallas is None:
+            read_launches("the kernels arm of the pallas A/B", ("decode_attention_step", "batched_decode_attention",
+                          "quantized_matmul", "fused_up2_res", "fused_up2_up3_tail"), counts, shapes=None)
+        else:
+            launched = {fn.__name__: fn.launches for fn in kernels.WRAPPERS if fn.launches}
+            if launched:
+                fail(f"pallas=off launched kernels: {launched}")
+            print(f"  pallas=off: all {len(kernels.WRAPPERS)} launch counters 0 over GPURuntime (one-shot, streamed) "
+                  f"and the batcher")
+        out[arm] = [one, streamed] + wave
+        walls[arm] = (single, batched)
+        print(f"  {arm}: GPURuntime one request (40 frames, float32) {single * 1e3:.1f} ms wall; int8-weight batcher "
+              f"wave of 8 x 40 frames {batched * 1e3:.1f} ms wall  [{CARD}]")
+    for i, (a, b) in enumerate(zip(out["pallas=off"], out["kernels"])):
+        rms_check(a, b, f"f32 real_arch, output {i}, pallas=off - kernels")
+
+
+def precision_switch(model32, arch) -> None:
+    """(f): ``matmul_precision="highest"`` bit-equal to the float32 default;
+    ``high`` (TF32) runs."""
+    from go_pocket_tts_tpu_torch.runtime import GPURuntime
+
+    tokens, _, cfg = parity_requests(arch)
+    base = GPURuntime(model32, dtype=torch.float32, seed=SEED, device="cuda").generate_audio(tokens, cfg)
+    runs = {p: GPURuntime(model32, dtype=torch.float32, seed=SEED, device="cuda", matmul_precision=p).generate_audio(tokens, cfg)
+            for p in ("highest", "high")}
+    if not np.array_equal(runs["highest"], base):
+        fail("matmul_precision=highest is not bit-equal to the float32 default")
+    check_audio(runs["high"], 40, "matmul_precision=high")
+    rms = float(np.sqrt(np.mean((runs["high"].astype(np.float64) - base) ** 2)))
+    print(f"  matmul_precision: highest bit-equal to the float32 default; high (TF32) runs, RMS {rms:.3e} from it  [{CARD}]")
+
+
+def meshes_and_switches(fixtures, rows: dict) -> None:
+    """Phase 16. Its launches are read into a dict of their own: the kernel
+    table's totals stay those of phases 3, 5, 7 and 9."""
+    counts: dict = {}
+    tp_shard_kernels(rows)
+    arch, model32 = build_model(torch.float32)
+    mesh_serving(model32, arch, counts)
+    device_count_refusal(fixtures)
+    pallas_off(model32, arch, counts)
+    precision_switch(model32, arch)
+    del model32
+    torch.cuda.empty_cache()
+    print(f"  phase 16 launches: {counts}")
+
+
 def main() -> int:
     global CARD
     if not torch.cuda.is_available():
@@ -3414,6 +3806,11 @@ def main() -> int:
     t = time.perf_counter()
     last_entry_points(fixtures, root)
     print(f"  phase 15 took {time.perf_counter() - t:.1f} s  [{CARD}]")
+
+    print("phase 16: dp/tp meshes on one card, kernels at the tp shards, pallas=off and matmul_precision")
+    t = time.perf_counter()
+    meshes_and_switches(fixtures, rows)
+    print(f"  phase 16 took {time.perf_counter() - t:.1f} s  [{CARD}]")
 
     for name, row in rows.items():
         row["launches"] = counts.get(name, 0)

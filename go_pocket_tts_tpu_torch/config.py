@@ -17,7 +17,10 @@ same ``apply_serving_autotune``. The differences are the port's:
   own;
 - ``runtime.compile_cache_dir`` names the directory of the built CUDA
   kernel libraries (empty: the package's ``_build/``);
-- XLA's matmul precision has no counterpart and is not parsed.
+- ``runtime.matmul_precision`` sets TF32 for float32 products
+  (``runtime/generate.py``), ``runtime.pallas=off`` runs the kernels'
+  plain versions on the card, and ``runtime.dp_devices`` /
+  ``tp_devices`` build a mesh of cards (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -74,6 +77,7 @@ class PathsConfig:
 @dataclass
 class RuntimeConfig:
     dtype: str = "float32"  # float32 | bfloat16
+    matmul_precision: str = ""  # "" = auto (highest for f32, default for bf16)
     # Where the runtimes run: "cuda" or "cpu". No flag or env name: the CLI
     # sets it from POCKETTTS_PLATFORM, and nothing else drops to the CPU.
     device: str = "cuda"
@@ -82,8 +86,8 @@ class RuntimeConfig:
     quantize: bool = False  # weight-only quantization
     quantize_bits: int = 8  # 8 | 4: width for --runtime-quantize weights
     kv_quantize: bool = False  # INT8 KV cache (batched runtime only)
-    # The reference's kernel switch. The port always runs its CUDA kernels
-    # on the card: auto and on are accepted, off is refused.
+    # The reference's kernel switch: auto and on run the CUDA kernels on
+    # the card, off their plain PyTorch versions.
     pallas: str = "auto"
     batch_slots: int = 0  # >1: continuous batching across concurrent requests
     batch_prompt_capacity: int = 128  # KV room per lane beyond max frames
@@ -166,6 +170,9 @@ _FLAG_MAP = [
     ("paths-tokenizer-model", "paths", "tokenizer_model", str, "Path to SentencePiece tokenizer model"),
     ("paths-voices-manifest", "paths", "voices_manifest", str, "Path to voices manifest.json"),
     ("runtime-dtype", "runtime", "dtype", str, "Compute dtype (float32|bfloat16)"),
+    ("runtime-matmul-precision", "runtime", "matmul_precision", str,
+     "TF32 for float32 products: highest (off), high (on) or default (the "
+     "process's flags); empty = highest for float32, default for bfloat16"),
     ("runtime-frame-bucket", "runtime", "frame_bucket", int, "AR frame buffer bucket size"),
     ("runtime-seed", "runtime", "seed", int, "RNG seed (-1 = time-seeded)"),
     ("runtime-quantize", "runtime", "quantize", _parse_bool, "weight-only quantization"),
@@ -174,8 +181,8 @@ _FLAG_MAP = [
     ("runtime-kv-quantize", "runtime", "kv_quantize", _parse_bool,
      "INT8 KV cache with per-row scales (batched runtime; halves KV read traffic)"),
     ("runtime-pallas", "runtime", "pallas", str,
-     "the reference's kernel switch: auto or on (the port always runs its "
-     "CUDA kernels on the card; off is refused)"),
+     "CUDA kernels: auto (default) or on runs them on the card, off runs "
+     "their plain PyTorch versions"),
     ("runtime-batch-slots", "runtime", "batch_slots", int,
      "Continuous-batching slots (>1 batches concurrent requests)"),
     ("runtime-batch-prompt-capacity", "runtime", "batch_prompt_capacity", int,
@@ -188,9 +195,11 @@ _FLAG_MAP = [
      "Adaptive block size: use this many steps per sync while no streaming "
      "request is live (0 = off; rounded to a steps-per-sync multiple)"),
     ("runtime-dp", "runtime", "dp_devices", int,
-     "Data-parallel devices for batch serving (not yet ported: >1 is refused)"),
+     "Data-parallel devices for batch serving (one engine replica per "
+     "card, slots split over them)"),
     ("runtime-tp", "runtime", "tp_devices", int,
-     "Tensor-parallel devices per replica (not yet ported: >1 is refused)"),
+     "Tensor-parallel devices per replica (Megatron-split transformer + "
+     "head-split KV)"),
     ("runtime-autotune", "runtime", "autotune", _parse_bool,
      "Apply measured-best batch-serving defaults at serve time for knobs "
      "not set explicitly (int8 weights+KV, adaptive burst blocks)"),

@@ -27,6 +27,14 @@ and ``split_k.matmul_plan``; the four SEANet kernels (2, 3, 7, 8) in
 bfloat16 share ``csrc/seanet_mma.cuh`` (implicit-GEMM convolutions on
 ``mma.sync``; kernels 2, 3 and 8 its up3-tail stages), and every
 tensor-core kernel the helpers of ``csrc/mma_sync.cuh``.
+
+No wrapper falls back on its own. A runtime built with ``pallas=False``
+(``--runtime-pallas off``) keeps every call off the wrappers instead: the
+transformer and Mimi configs' ``use_kernels`` flags send kernels 1, 2, 3,
+4, 7 and 8's call sites to the plain versions, and the quantized linears'
+backends (``models/params.py``) kernels 5 and 6's; so no launch count moves.
+Under a tensor-parallel mesh kernels 4, 5 and 6 run on each rank's shard
+(``H/tp`` heads, ``N/tp`` columns or ``K/tp`` rows).
 """
 
 from go_pocket_tts_tpu_torch.kernels import (

@@ -25,12 +25,26 @@ offset per lane (``offset`` int32 ``[B]``) and, optionally, an int8 cache
 with per-row float32 scales (``k_scale``/``v_scale`` ``[L,B,H,C]``); its
 RoPE, row quantization, row writes and attention go through the fused
 batched decode-attention step (``kernels/batched_decode_attention.py``).
+``TransformerConfig.use_kernels=False`` (the reference's ``use_pallas``)
+sends both kernels' calls to their plain versions, on any device.
+
+**Tensor parallel.** A transformer tree whose ``ranks`` holds one tree per
+tp rank (``parallel.mesh.shard_params_tp``) runs the Megatron split: rank
+``r`` holds its own heads' columns of ``in_proj`` (from each of q, k and
+v), its columns of ``linear1`` and the matching rows of ``out_proj`` and
+``linear2``, on its own device; its KV cache holds its heads,
+``{"ranks": [{k, v[, k_scale, v_scale]}: [L,B,H/tp,C,Dh]], "offset"}``.
+Each rank's column products feed its heads' attention (the same kernels, at
+``H/tp`` heads); its row product is a float32 partial, and the partials are
+summed onto the rank-0 device and rounded once, one reduction per residual
+add. Norms run once, on rank 0. :func:`transformer_step_batched` and
+:func:`transformer_forward_cached` take either form.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -59,7 +73,9 @@ __all__ = [
     "detect_num_heads",
     "load_flow_transformer",
     "init_kv_cache",
+    "init_kv_cache_tp",
     "kv_cache_from_voice_state",
+    "shard_cache_heads",
     "transformer_forward_cached",
     "transformer_forward_stateless",
     "transformer_step_batched",
@@ -77,6 +93,7 @@ class TransformerConfig:
     max_period: float = 10000.0
     max_seq: int = 8192
     context: Optional[int] = None  # sliding attention window (Mimi: 250)
+    use_kernels: bool = True  # False: the kernels' plain versions, on any device
 
 
 def detect_num_heads(d_model: int, fallback: int = 16) -> int:
@@ -141,6 +158,35 @@ def init_kv_cache(
         "v": torch.zeros(shape, dtype=dtype, device=device),
         "offset": torch.zeros((), dtype=torch.int32, device=device),
     }
+
+
+def init_kv_cache_tp(
+    cfg: TransformerConfig,
+    batch: int,
+    capacity: int,
+    dtype: torch.dtype,
+    devices: Sequence[torch.device],
+) -> Params:
+    """Zero tensor-parallel cache: rank ``r`` holds ``[L,B,H/tp,C,Dh]`` on
+    ``devices[r]``; the offset (int32, 0-d) lives on ``devices[0]``."""
+    heads = cfg.num_heads // len(devices)
+    shape = (cfg.num_layers, batch, heads, capacity, cfg.head_dim)
+    ranks = [
+        {"k": torch.zeros(shape, dtype=dtype, device=d), "v": torch.zeros(shape, dtype=dtype, device=d)}
+        for d in devices
+    ]
+    return {"ranks": ranks, "offset": torch.zeros((), dtype=torch.int32, device=devices[0])}
+
+
+def shard_cache_heads(cache: Params, devices: Sequence[torch.device]) -> Params:
+    """A whole float cache ``{k, v: [L,B,H,C,Dh], offset}`` split by heads
+    into the tensor-parallel form on ``devices`` (copies)."""
+    tp = len(devices)
+    ranks = [
+        {"k": k.to(d, copy=True).contiguous(), "v": v.to(d, copy=True).contiguous()}
+        for d, k, v in zip(devices, cache["k"].chunk(tp, dim=2), cache["v"].chunk(tp, dim=2))
+    ]
+    return {"ranks": ranks, "offset": cache["offset"].to(devices[0], copy=True)}
 
 
 def kv_cache_from_voice_state(
@@ -221,16 +267,24 @@ def transformer_forward_cached(
     real; the offset advances by it, and padded tokens are never visible to
     later queries (their slots sit beyond the new offset and are overwritten
     by later writes). Returns ``(y, cache)``; the cache buffers are the
-    input's, written in place, with a new offset tensor.
+    input's, written in place, with a new offset tensor. A tensor-parallel
+    tree and cache run every T in plain PyTorch.
     """
     t = x.shape[1]
     offset = cache["offset"]
     valid = t if valid_len is None else valid_len
+    if "ranks" in params:
+        return _forward_cached_tp(params["ranks"], cfg, cache, x), {
+            "ranks": cache["ranks"],
+            "offset": offset + valid,
+        }
     capacity = cache["k"].shape[3]
     device = x.device
 
     use_kernel = t == 1 and cfg.context is None
-    if not use_kernel:
+    if use_kernel:
+        step = decode_attention.decode_attention_step if cfg.use_kernels else decode_attention.decode_attention_step_plain
+    else:
         # A slot's position equals its index; causal masking over absolute
         # positions hides unwritten and padded slots.
         pos_q = offset + torch.arange(t, dtype=torch.int32, device=device)
@@ -246,7 +300,7 @@ def transformer_forward_cached(
             _split_heads(part, cfg.num_heads, cfg.head_dim) for part in qkv.chunk(3, dim=-1)
         )
         if use_kernel:
-            attn, k_all, v_all = decode_attention.decode_attention_step(
+            attn, k_all, v_all = step(
                 q, k, k_all, v_all, v, offset, params["rope_cos"], params["rope_sin"], layer=i
             )
         else:
@@ -261,6 +315,35 @@ def transformer_forward_cached(
         x = x + apply_linear(layer["linear2"], gelu_erf(apply_linear(layer["linear1"], n2)))
 
     return x, {"k": k_all, "v": v_all, "offset": offset + valid}
+
+
+def _batched_attention(
+    cfg: TransformerConfig,
+    rope: Tuple[torch.Tensor, torch.Tensor],
+    part: Params,
+    offsets: torch.Tensor,
+    layer: int,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+) -> torch.Tensor:
+    """One layer's batched decode attention over ``part`` (a cache, or one
+    rank's), writing the step's rows: the fused kernel step for a causal
+    config, separate ops for a windowed one."""
+    k_all, v_all = part["k"], part["v"]
+    ks_all, vs_all = part.get("k_scale"), part.get("v_scale")
+    if cfg.context is None:
+        step = bda.batched_decode_attention_step if cfg.use_kernels else bda.batched_decode_attention_step_plain
+        return step(q, k, v, k_all, v_all, offsets, *rope, layer, ks_all, vs_all)
+    batch, capacity = q.shape[0], k_all.shape[3]
+    pos_q = offsets[:, None]
+    pos_k = torch.arange(capacity, dtype=torch.int32, device=q.device).expand(batch, capacity)
+    q = bda.write_step_rows(q, k, v, k_all, v_all, offsets, *rope, layer, ks_all, vs_all)
+    if ks_all is not None:
+        return attention_with_positions_int8kv(
+            q, k_all[layer], ks_all[layer], v_all[layer], vs_all[layer], pos_q, pos_k, cfg.context
+        )
+    return attention_with_positions(q, k_all[layer], v_all[layer], pos_q, pos_k, cfg.context)
 
 
 def transformer_step_batched(
@@ -278,43 +361,114 @@ def transformer_step_batched(
     lane whose offset has reached the capacity (a finished lane that filled
     it) writes nothing. A causal config does all of that in one fused
     kernel launch per layer
-    (:func:`~go_pocket_tts_tpu_torch.kernels.batched_decode_attention.batched_decode_attention_step`);
-    a windowed one runs it as separate ops. Returns ``(y, cache)``: the
-    buffers are the input's, updated in place, with offsets ``+ 1``.
+    (:func:`~go_pocket_tts_tpu_torch.kernels.batched_decode_attention.batched_decode_attention_step`),
+    per rank under tensor parallelism; a windowed one runs it as separate
+    ops. Returns ``(y, cache)``: the buffers are the input's, updated in
+    place, with offsets ``+ 1``.
     """
     offsets = cache["offset"]
-    batch, capacity = x.shape[0], cache["k"].shape[3]
-    use_kernel = cfg.context is None
-    if not use_kernel:
-        pos_q = offsets[:, None]
-        pos_k = torch.arange(capacity, dtype=torch.int32, device=x.device).expand(batch, capacity)
+    if "ranks" in params:
+        ranks = params["ranks"]
+        rank_offsets = [offsets.to(r["rope_cos"].device) for r in ranks]
 
-    k_all, v_all = cache["k"], cache["v"]
-    ks_all, vs_all = cache.get("k_scale"), cache.get("v_scale")
+        def attend(r, i, q, k, v):
+            rope = (ranks[r]["rope_cos"], ranks[r]["rope_sin"])
+            return _batched_attention(cfg, rope, cache["ranks"][r], rank_offsets[r], i, q, k, v)
+
+        return _tp_layers(ranks, cfg, x, attend), {"ranks": cache["ranks"], "offset": offsets + 1}
+
+    batch = x.shape[0]
     rope = (params["rope_cos"], params["rope_sin"])
     for i, layer in enumerate(params["layers"]):
         n1 = layer_norm(x, layer["norm1"]["weight"], layer["norm1"]["bias"])
         qkv = apply_linear(layer["in_proj"], n1)
         # [B,H,1,Dh] views into the projection: the kernel takes their strides.
         q, k, v = qkv.reshape(batch, 1, 3, cfg.num_heads, cfg.head_dim).permute(2, 0, 3, 1, 4)
-        if use_kernel:
-            attn = bda.batched_decode_attention_step(q, k, v, k_all, v_all, offsets, *rope, i, ks_all, vs_all)
-        else:
-            q = bda.write_step_rows(q, k, v, k_all, v_all, offsets, *rope, i, ks_all, vs_all)
-            if ks_all is not None:
-                attn = attention_with_positions_int8kv(
-                    q, k_all[i], ks_all[i], v_all[i], vs_all[i], pos_q, pos_k, cfg.context
-                )
-            else:
-                attn = attention_with_positions(q, k_all[i], v_all[i], pos_q, pos_k, cfg.context)
+        attn = _batched_attention(cfg, rope, cache, offsets, i, q, k, v)
         x = x + apply_linear(layer["out_proj"], _merge_heads(attn))
         n2 = layer_norm(x, layer["norm2"]["weight"], layer["norm2"]["bias"])
         x = x + apply_linear(layer["linear2"], gelu_erf(apply_linear(layer["linear1"], n2)))
 
-    new_cache = {"k": k_all, "v": v_all, "offset": offsets + 1}
-    if ks_all is not None:
-        new_cache["k_scale"], new_cache["v_scale"] = ks_all, vs_all
+    new_cache = {"k": cache["k"], "v": cache["v"], "offset": offsets + 1}
+    if "k_scale" in cache:
+        new_cache["k_scale"], new_cache["v_scale"] = cache["k_scale"], cache["v_scale"]
     return x, new_cache
+
+
+# -- tensor parallel ----------------------------------------------------------
+
+
+def _reduce(parts: List[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """The ranks' float32 partials summed on x's device, rounded once to
+    x's dtype."""
+    total = parts[0].to(x.device)
+    for part in parts[1:]:
+        total = total + part.to(x.device)
+    return total.to(x.dtype)
+
+
+def _tp_layers(
+    ranks: Sequence[Params],
+    cfg: TransformerConfig,
+    x: torch.Tensor,
+    attend: Callable[[int, int, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor],
+) -> torch.Tensor:
+    """The layers of a tensor-parallel forward. Per layer: the norm on rank
+    0; each rank's column product on its device, split into its heads'
+    q, k, v ``[B,H/tp,T,Dh]`` views for ``attend(rank, layer, q, k, v)``,
+    and its row product as a float32 partial; one reduction per residual
+    add."""
+    b, t = x.shape[:2]
+    heads = cfg.num_heads // len(ranks)
+    devices = [r["rope_cos"].device for r in ranks]
+    for i in range(cfg.num_layers):
+        norms = ranks[0]["layers"][i]
+        n1 = layer_norm(x, norms["norm1"]["weight"], norms["norm1"]["bias"])
+        parts = []
+        for r, (rank, dev) in enumerate(zip(ranks, devices)):
+            layer = rank["layers"][i]
+            qkv = apply_linear(layer["in_proj"], n1.to(dev))
+            q, k, v = qkv.reshape(b, t, 3, heads, cfg.head_dim).permute(2, 0, 3, 1, 4)
+            attn = attend(r, i, q, k, v)
+            parts.append(apply_linear(layer["out_proj"], _merge_heads(attn), out_dtype=torch.float32))
+        x = x + _reduce(parts, x)
+        n2 = layer_norm(x, norms["norm2"]["weight"], norms["norm2"]["bias"])
+        parts = []
+        for rank, dev in zip(ranks, devices):
+            layer = rank["layers"][i]
+            h = gelu_erf(apply_linear(layer["linear1"], n2.to(dev)))
+            parts.append(apply_linear(layer["linear2"], h, out_dtype=torch.float32))
+        x = x + _reduce(parts, x)
+    return x
+
+
+def _forward_cached_tp(ranks: Sequence[Params], cfg: TransformerConfig, cache: Params, x: torch.Tensor) -> torch.Tensor:
+    """:func:`transformer_forward_cached`'s plain path, per rank over its
+    heads and its cache."""
+    t = x.shape[1]
+    per_rank = []
+    for rank, part in zip(ranks, cache["ranks"]):
+        dev = part["k"].device
+        offset = cache["offset"].to(dev)
+        cos_rows, sin_rows = rope_rows(rank["rope_cos"], rank["rope_sin"], offset, t)
+        per_rank.append((
+            offset + torch.arange(t, dtype=torch.int32, device=dev),
+            torch.arange(part["k"].shape[3], dtype=torch.int32, device=dev),
+            offset.long() + torch.arange(t, device=dev),
+            cos_rows,
+            sin_rows,
+        ))
+
+    def attend(r, i, q, k, v):
+        pos_q, pos_k, slots, cos_rows, sin_rows = per_rank[r]
+        k_all, v_all = cache["ranks"][r]["k"], cache["ranks"][r]["v"]
+        q = apply_rope_rows(q, cos_rows, sin_rows)
+        k = apply_rope_rows(k, cos_rows, sin_rows)
+        k_all[i].index_copy_(2, slots, k.to(k_all.dtype))
+        v_all[i].index_copy_(2, slots, v.to(v_all.dtype))
+        return attention_with_positions(q, k_all[i], v_all[i], pos_q, pos_k, cfg.context)
+
+    return _tp_layers(ranks, cfg, x, attend)
 
 
 def transformer_forward_stateless(params: Params, cfg: TransformerConfig, x: torch.Tensor) -> torch.Tensor:

@@ -23,7 +23,8 @@ this decode and could not fit it in a TPU's scoped VMEM; its
 fused tail kernels, as in the reference's kernel branch. The wrappers
 launch the CUDA kernels for CUDA tensors and run their plain versions on
 the CPU. The stream decoder (:mod:`models.mimi_stream`) runs the same
-stages through the cascade kernel instead.
+stages through the cascade kernel instead. ``MimiConfig.use_kernels=False``
+(the reference's ``use_pallas``) calls the plain versions on any device.
 """
 
 from __future__ import annotations
@@ -73,6 +74,7 @@ class MimiConfig:
     context: int = 250
     upsample_groups: int = 512  # read from the checkpoint at load
     seanet_strides: Tuple[int, int, int] = (6, 5, 4)
+    use_kernels: bool = True  # False: the SEANet kernels' plain versions, on any device
 
     @property
     def steps_per_latent(self) -> int:
@@ -296,8 +298,12 @@ def mimi_decode(params: Params, cfg: MimiConfig, mimi_latent: torch.Tensor) -> t
     x = elu(_conv(params["init_conv"], x))
     x = _convtr(params["up1"], x, s1)
     x = elu(_resblock(params["res1"], x))
+    st = seanet_tail
+    up2_res = st.fused_up2_res if cfg.use_kernels else st.fused_up2_res_plain
+    up_tail = st.fused_seanet_up_tail if cfg.use_kernels else st.fused_seanet_up_tail_plain
+    tail = st.fused_seanet_tail if cfg.use_kernels else st.fused_seanet_tail_plain
     if takes_up2_kernel(params, cfg) and seanet_tail.supports_up2(x.shape[1], x.shape[-1], 10):
-        x = seanet_tail.fused_up2_res(x, *up2_weights(params))
+        x = up2_res(x, *up2_weights(params))
     else:
         x = _convtr(params["up2"], x, s2)
         x = elu(_resblock(params["res2"], x))
@@ -309,9 +315,9 @@ def mimi_decode(params: Params, cfg: MimiConfig, mimi_latent: torch.Tensor) -> t
         and seanet_tail.supports_up(x.shape[1], x.shape[-1], wu.shape[-1])
     ):
         bu = params["up3"].get("b", torch.zeros(64, dtype=x.dtype, device=x.device))
-        return seanet_tail.fused_seanet_up_tail(x, wu, bu, *tail_weights(params))
+        return up_tail(x, wu, bu, *tail_weights(params))
     x = _convtr(params["up3"], x, s3)
     if x.shape[1] == 64 and seanet_tail.supports(x.shape[-1]):
-        return seanet_tail.fused_seanet_tail(x, *tail_weights(params))
+        return tail(x, *tail_weights(params))
     x = elu(_resblock(params["res3"], x))
     return _conv(params["final_conv"], x)

@@ -275,7 +275,7 @@ def decode_block(
     x = elu(x).contiguous()
     halo = state["up2_in"].to(x.dtype).contiguous()
     weights = cascade_weights(params)
-    if takes_cascade_kernel(params, cfg) and seanet_tail.supports_stream(x.shape[1], x.shape[2], 10, 8):
+    if cfg.use_kernels and takes_cascade_kernel(params, cfg) and seanet_tail.supports_stream(x.shape[1], x.shape[2], 10, 8):
         pcm = seanet_tail.fused_up2_up3_tail_stream(x, halo, start, *weights)
     else:
         pcm = seanet_tail.fused_up2_up3_tail_stream_plain(x, halo, start, *weights, strides=(s2, s3))

@@ -8,6 +8,8 @@ into the 1×1 quantizer projection at load (``w' = w·std``,
 
 from __future__ import annotations
 
+import dataclasses
+import os
 from dataclasses import dataclass
 from typing import Dict, Mapping, Optional, Union
 
@@ -22,6 +24,8 @@ from go_pocket_tts_tpu_torch.utils.safetensors import Store, open_store
 
 __all__ = [
     "ModelConfig",
+    "auto_pallas_mimi",
+    "with_kernels",
     "PocketTTSModel",
     "load_model",
     "load_model_from_store",
@@ -45,6 +49,33 @@ KEEP_F32 = ("rope_cos", "rope_sin", "scale", "latent_to_mimi")
 class ModelConfig:
     flow_lm: flm.FlowLMConfig
     mimi: mimi_mod.MimiConfig
+
+
+def with_kernels(model: "PocketTTSModel", enabled: bool) -> "PocketTTSModel":
+    """``model`` with every kernel call site of the transformer and of the
+    Mimi decoders on (the default) or, with ``enabled=False``, on the
+    kernels' plain versions: the ``use_kernels`` flags of both configs (the
+    reference's ``use_pallas``). The quantized linears have switches of
+    their own (``models/params.py``)."""
+    cfg = model.config
+    if cfg.flow_lm.transformer.use_kernels == enabled and cfg.mimi.use_kernels == enabled:
+        return model
+    tcfg = dataclasses.replace(cfg.flow_lm.transformer, use_kernels=enabled)
+    flow_cfg = dataclasses.replace(cfg.flow_lm, transformer=tcfg)
+    mimi_cfg = dataclasses.replace(cfg.mimi, use_kernels=enabled)
+    return PocketTTSModel(model.params, ModelConfig(flow_lm=flow_cfg, mimi=mimi_cfg))
+
+
+def auto_pallas_mimi(model: "PocketTTSModel") -> "PocketTTSModel":
+    """The reference's Mimi kernel policy, on the port's flag: the env
+    override ``POCKETTTS_PALLAS_MIMI=0`` sends the SEANet kernels' call
+    sites to their plain versions, ``=1`` to the kernels; unset, the model
+    keeps its flag (the kernels, unless a runtime turned them off)."""
+    env = os.environ.get("POCKETTTS_PALLAS_MIMI", "")
+    if env not in ("0", "1") or model.config.mimi.use_kernels == (env == "1"):
+        return model
+    mimi_cfg = dataclasses.replace(model.config.mimi, use_kernels=env == "1")
+    return PocketTTSModel(model.params, ModelConfig(flow_lm=model.config.flow_lm, mimi=mimi_cfg))
 
 
 def _fuse_latent_to_mimi(flow_params: Params, mimi_params: Params) -> Optional[Params]:

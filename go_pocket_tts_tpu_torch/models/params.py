@@ -5,19 +5,34 @@ int8 / packed int4), and the linear layer itself (counterpart of
 
 Parameters are nested dicts of tensors with the reference package's keys,
 so a tree from either package can be compared leaf by leaf.
+
+The quantized linears' formulations are module-level switches, as in the
+reference: :func:`set_quantized_matmul_backend` (int8: ``"pallas"``, the
+quantized-matmul kernel where its gate admits the shape, or ``"xla"``, the
+plain product) and :func:`set_int4_matmul_variant` (packed int4:
+``"pallas"``, the int4 kernel, ``"split"``, the per-group float32 product,
+or ``"dequant"``, one product on the dequantized weight; env
+``POCKETTTS_INT4_VARIANT``). A ``:interpret`` suffix is accepted and means
+the kernel's plain version. The defaults are the kernels, where the
+reference's are ``"xla"`` and ``"split"``: the port's kernels are what its
+card paths were measured with. :func:`matmul_backends` sets both for one
+thread while a block runs (a runtime built with ``pallas=False`` runs its
+device work inside it), over the module-level values.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, List, Mapping, Optional, Tuple
+import os
+import threading
+from typing import Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from go_pocket_tts_tpu_torch.kernels import int4_matmul as i4mm
 from go_pocket_tts_tpu_torch.kernels import quantized_matmul as qmm
-from go_pocket_tts_tpu_torch.models.quantize import depack_int4_pairs
+from go_pocket_tts_tpu_torch.models.quantize import depack_int4_pairs, dequantize_weight
 
 __all__ = [
     "VarBuilder",
@@ -25,6 +40,9 @@ __all__ = [
     "layer_norm_params",
     "record_linear_weight_names",
     "apply_linear",
+    "matmul_backends",
+    "set_int4_matmul_variant",
+    "set_quantized_matmul_backend",
     "tree_map",
 ]
 
@@ -144,6 +162,51 @@ def layer_norm_params(vb: VarBuilder, name: str) -> Params:
     return {"weight": vb.tensor(name + ".weight"), "bias": vb.tensor(name + ".bias")}
 
 
+_QUANT_BACKENDS = ("xla", "pallas")
+_INT4_VARIANTS = ("split", "dequant", "pallas")
+_QUANT_BACKEND = "pallas"
+_INT4_VARIANT = os.environ.get("POCKETTTS_INT4_VARIANT", "pallas")
+# Per thread: the (int8 backend, int4 variant) pair matmul_backends set.
+_SCOPED = threading.local()
+
+
+def _checked(value: str, allowed: Tuple[str, ...], what: str) -> str:
+    if value.split(":")[0] not in allowed:
+        raise ValueError(f"unknown {what} {value!r}")
+    return value
+
+
+def set_quantized_matmul_backend(backend: str) -> None:
+    """int8 linears: ``"pallas"`` (the kernel) or ``"xla"`` (the plain
+    product); ``:interpret`` means the kernel's plain version."""
+    global _QUANT_BACKEND
+    _QUANT_BACKEND = _checked(backend, _QUANT_BACKENDS, "quantized matmul backend")
+
+
+def set_int4_matmul_variant(variant: str) -> None:
+    """Packed int4 linears: ``"pallas"`` (the kernel), ``"split"`` or
+    ``"dequant"``; ``:interpret`` means the kernel's plain version."""
+    global _INT4_VARIANT
+    _INT4_VARIANT = _checked(variant, _INT4_VARIANTS, "int4 matmul variant")
+
+
+@contextlib.contextmanager
+def matmul_backends(quantized: str, int4: str) -> Iterator[None]:
+    """Both switches, on this thread only, while the block runs."""
+    pair = (_checked(quantized, _QUANT_BACKENDS, "quantized matmul backend"),
+            _checked(int4, _INT4_VARIANTS, "int4 matmul variant"))
+    prev = getattr(_SCOPED, "pair", None)
+    _SCOPED.pair = pair
+    try:
+        yield
+    finally:
+        _SCOPED.pair = prev
+
+
+def _backends() -> Tuple[str, str]:
+    return getattr(_SCOPED, "pair", None) or (_QUANT_BACKEND, _INT4_VARIANT)
+
+
 def _int4_product(x2: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """``x2 [M, K]`` times a packed int4 linear outside the int4 kernel's
     gate, float32: what the reference's default ``"split"`` variant
@@ -157,7 +220,16 @@ def _int4_product(x2: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> tor
     return torch.matmul(x2.float(), depack_int4_pairs(w).reshape(k, n).float()) * scale.float()
 
 
-def apply_linear(params: Params, x: torch.Tensor) -> torch.Tensor:
+def _product(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    """``x @ w`` (``w`` in x's dtype) as ``out_dtype``: float32 products of
+    the rounded operands when a float32 result is asked of a bfloat16 ``x``."""
+    w = w.to(x.dtype)
+    if out_dtype == x.dtype:
+        return torch.matmul(x, w)
+    return torch.matmul(x.float(), w.float())
+
+
+def apply_linear(params: Params, x: torch.Tensor, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``y = x @ w (+ b)`` in the activation dtype, float32 accumulation.
 
     Quantized linears (``models/quantize.py``) are told apart by the weight's
@@ -172,9 +244,17 @@ def apply_linear(params: Params, x: torch.Tensor) -> torch.Tensor:
       int4 kernel where its gate admits the shape (the AR step's group-wise
       linears; cast and bias fused as for int8), else
       :func:`_int4_product`.
-    The result is cast to the activation dtype, then the bias is added in it.
+    The backend switches above can send either to its plain form. The
+    result is cast to the activation dtype, then the bias is added in it.
+
+    ``out_dtype=torch.float32`` returns the product before that cast: a
+    tensor-parallel rank's partial, which the ranks sum and round once. A
+    linear with a bias refuses it, so that no bias is added once per rank.
     """
     w = params["w"]
+    out = x.dtype if out_dtype is None else out_dtype
+    if out_dtype is not None and "b" in params:
+        raise ValueError("apply_linear: a partial product (out_dtype) of a linear with a bias")
     if w.dtype in (torch.int8, torch.uint8):
         if "scale" not in params:
             raise ValueError(f"linear weight of dtype {w.dtype} without a scale")
@@ -182,19 +262,23 @@ def apply_linear(params: Params, x: torch.Tensor) -> torch.Tensor:
         m = x.numel() // k
         x2 = x.reshape(m, k)
         scale = params["scale"]
-        if w.dtype == torch.uint8 and i4mm.supports(m, k, n, tuple(scale.shape)):
-            y = i4mm.int4_matmul(x2, w, scale, bias=params.get("b"), out_dtype=x.dtype)
-            return y.reshape(*lead, n)
+        quant, int4 = _backends()
         if w.dtype == torch.uint8:
-            y = _int4_product(x2, w, scale)
-        elif qmm.supports(m, k, n):
-            y = qmm.quantized_matmul(x2, w, scale, bias=params.get("b"), out_dtype=x.dtype)
+            if int4 == "pallas" and i4mm.supports(m, k, n, tuple(scale.shape)):
+                y = i4mm.int4_matmul(x2, w, scale, bias=params.get("b"), out_dtype=out)
+                return y.reshape(*lead, n)
+            if int4 == "dequant":
+                y = _product(x2, dequantize_weight(params), out)
+            else:
+                y = _int4_product(x2, w, scale)
+        elif quant == "pallas" and qmm.supports(m, k, n):
+            y = qmm.quantized_matmul(x2, w, scale, bias=params.get("b"), out_dtype=out)
             return y.reshape(*lead, n)
         else:
             y = torch.matmul(x2.float(), w.float()) * scale.float()
-        y = y.reshape(*lead, n).to(x.dtype)
+        y = y.reshape(*lead, n).to(out)
     else:
-        y = torch.matmul(x, w.to(x.dtype))
+        y = _product(x, w, out)
     if "b" in params:
         y = y + params["b"].to(x.dtype)
     return y

@@ -41,7 +41,25 @@ session snapshot is a copy. The LSD noise comes from a device
 threefry bits cannot be reproduced, so the two packages agree at
 temperature 0 only).
 
-Not ported: the reference's dp and tp meshes (``mesh=``).
+**Meshes** (``mesh=``, ``parallel/mesh.py``). Each dp row of the mesh is an
+engine replica: ``slots/dp`` slots, its own state, stream decoder, device
+``torch.Generator`` and thread, over one queue that every replica admits
+from, taking only as many requests as it has free slots. A replica's model
+is replicated on its row's rank-0 device or, with ``tp > 1``, its
+transformer is Megatron-split over the row's ranks, each rank's KV cache
+holding its heads (``models/flow_transformer.py``); the kernels run on each
+rank's shard. Everything after the transformer (flowNet, EOS, the harvest
+and stream decodes) runs on the replica's rank 0. Replicas that share a
+device share its stream; their tensors are disjoint, so the in-place
+ordering argument above holds per replica. A session's snapshot gathers
+the heads back into one lane on the replica's rank 0, so it resumes on any
+replica.
+
+``pallas=False`` (or ``None`` with ``POCKETTTS_PALLAS=0``) runs every
+kernel's plain version on the card, as ``GPURuntime`` does. An idle engine
+waits for a request without taking it from the queue, so a burst is
+admitted in the order it was submitted; the reference takes the waking
+request and puts it back at the end.
 """
 
 from __future__ import annotations
@@ -64,12 +82,22 @@ from go_pocket_tts_tpu_torch.models import flow_transformer as ftr
 from go_pocket_tts_tpu_torch.models import mimi_stream
 from go_pocket_tts_tpu_torch.models.model import PocketTTSModel
 from go_pocket_tts_tpu_torch.models.quantize import quantize_kv_rows
+from go_pocket_tts_tpu_torch.parallel.mesh import (
+    Mesh,
+    replicate_params,
+    shard_params_tp,
+    shard_state,
+    shard_state_tp,
+)
 from go_pocket_tts_tpu_torch.runtime.generate import (
     GenerateConfig,
     HostCopy,
     _full_f32,
     decode_pcm16,
+    kernel_model,
+    kernels_scope,
     quantized_model,
+    resolve_pallas,
 )
 from go_pocket_tts_tpu_torch.text.prepare import estimate_max_frames
 from go_pocket_tts_tpu_torch.utils import buckets as bk
@@ -224,33 +252,47 @@ def _batched_ar_multi_step(params, cfg, state: State, k: int, decode_steps: int,
     return state, windows, state["n_frames"] - n_before, flags
 
 
-def _set_cache_lanes(cache: State, idx: torch.Tensor, lanes_k: torch.Tensor, lanes_v: torch.Tensor, offsets: torch.Tensor) -> None:
-    """Write prefilled float K/V lanes ``[L, N, H, C, Dh]`` into the stacked
-    cache at lanes ``idx`` ``[N]``, in place, quantizing each row first when
-    the cache is int8."""
+def _kv_parts(cache: State) -> List[State]:
+    """The cache's K/V buffers: the cache itself, or its tensor-parallel
+    ranks'."""
+    return cache["ranks"] if "ranks" in cache else [cache]
+
+
+def _set_cache_lanes(cache: State, idx: torch.Tensor, lanes: State, offsets: torch.Tensor) -> None:
+    """Write prefilled float K/V lanes (a cache ``[L, N, H, C, Dh]``, or its
+    ranks' heads) into the stacked cache at lanes ``idx`` ``[N]``, in
+    place, quantizing each row first when the cache is int8."""
     cache["offset"][idx] = offsets
-    if "k_scale" in cache:
-        for name, lane in (("k", lanes_k), ("v", lanes_v)):
-            q, scale = quantize_kv_rows(lane)
-            cache[name][:, idx] = q
-            cache[f"{name}_scale"][:, idx] = scale
-    else:
-        cache["k"][:, idx] = lanes_k.to(cache["k"].dtype)
-        cache["v"][:, idx] = lanes_v.to(cache["v"].dtype)
+    for part, lane in zip(_kv_parts(cache), _kv_parts(lanes)):
+        at = idx.to(part["k"].device)
+        if "k_scale" in part:
+            for name in ("k", "v"):
+                q, scale = quantize_kv_rows(lane[name])
+                part[name][:, at] = q
+                part[f"{name}_scale"][:, at] = scale
+        else:
+            part["k"][:, at] = lane["k"].to(part["k"].dtype)
+            part["v"][:, at] = lane["v"].to(part["v"].dtype)
 
 
-def _prefill_lanes(params, tcfg, embs: torch.Tensor, capacity: int):
+def _prefill_lanes(params, tcfg, embs: torch.Tensor, capacity: int) -> State:
     """Prefill ``N`` fresh lanes together: ``embs [N, bucket, D]``
-    (zero-padded per lane) → K/V ``[L, N, H, capacity, Dh]``. Every lane
-    starts at offset 0 with the same positions, so the uniform-offset
-    forward applies; rows past a lane's prompt are never visible (its
-    offset masks them, and its AR steps overwrite them)."""
-    cache = ftr.init_kv_cache(tcfg, embs.shape[0], capacity, embs.dtype, embs.device)
-    _, cache = ftr.transformer_forward_cached(params["transformer"], tcfg, cache, embs)
-    return cache["k"], cache["v"]
+    (zero-padded per lane) → a K/V cache ``[L, N, H, capacity, Dh]`` (per
+    rank under tensor parallelism). Every lane starts at offset 0 with the
+    same positions, so the uniform-offset forward applies; rows past a
+    lane's prompt are never visible (its offset masks them, and its AR
+    steps overwrite them)."""
+    transformer = params["transformer"]
+    if "ranks" in transformer:
+        devices = [r["rope_cos"].device for r in transformer["ranks"]]
+        cache = ftr.init_kv_cache_tp(tcfg, embs.shape[0], capacity, embs.dtype, devices)
+    else:
+        cache = ftr.init_kv_cache(tcfg, embs.shape[0], capacity, embs.dtype, embs.device)
+    _, cache = ftr.transformer_forward_cached(transformer, tcfg, cache, embs)
+    return cache
 
 
-def _insert_lanes(state: State, slots: List[int], lanes_k, lanes_v, offsets, max_steps, eos_thresholds, frames_after_eos, sigmas) -> None:
+def _insert_lanes(state: State, slots: List[int], lanes: State, offsets, max_steps, eos_thresholds, frames_after_eos, sigmas) -> None:
     """Splice N prefilled lanes into the batch state, in place (duplicate
     slots carry identical data). The per-lane values are host lists."""
     dev = state["frame"].device
@@ -259,7 +301,7 @@ def _insert_lanes(state: State, slots: List[int], lanes_k, lanes_v, offsets, max
         return torch.as_tensor(np.asarray(values), dtype=dtype).to(dev, non_blocking=True)
 
     idx = lane_values(slots, torch.long)
-    _set_cache_lanes(state["cache"], idx, lanes_k, lanes_v, lane_values(offsets, torch.int32))
+    _set_cache_lanes(state["cache"], idx, lanes, lane_values(offsets, torch.int32))
     state["frame"][idx] = float("nan")
     state["n_frames"][idx] = 0
     state["countdown"][idx] = -1
@@ -328,16 +370,20 @@ class BatchContinuation:
 
 def _snapshot_lane(cache: State, slot: int):
     """A copy of one lane of the stacked KV cache (int8 rows dequantized
-    with their scales) and of its offset. A copy, never a view: later
-    blocks write the stacked cache in place."""
+    with their scales; a tensor-parallel cache's heads gathered onto its
+    rank 0) and of its offset. A copy, never a view: later blocks write the
+    stacked cache in place."""
     lane = slice(slot, slot + 1)
-    k, v = cache["k"][:, lane], cache["v"][:, lane]
-    if "k_scale" in cache:
-        k = k.float() * cache["k_scale"][:, lane, ..., None]
-        v = v.float() * cache["v_scale"][:, lane, ..., None]
-    else:
-        k, v = k.clone(), v.clone()
-    return k, v, cache["offset"][lane].clone()
+    dev = cache["offset"].device
+    ks, vs = [], []
+    for part in _kv_parts(cache):
+        k, v = part["k"][:, lane], part["v"][:, lane]
+        if "k_scale" in part:
+            k = k.float() * part["k_scale"][:, lane, ..., None]
+            v = v.float() * part["v_scale"][:, lane, ..., None]
+        ks.append(k.to(dev))
+        vs.append(v.to(dev))
+    return torch.cat(ks, dim=2), torch.cat(vs, dim=2), cache["offset"][lane].clone()
 
 
 # -- the host side: requests, slots, the engine loop -------------------------
@@ -376,8 +422,465 @@ class _SlotInfo:
     epoch: int = 0
 
 
-class ContinuousBatcher:
-    """Slot-based continuous batching over one model on one device.
+class _Engine:
+    """One engine: a set of slots over one model replica (its tp ranks when
+    the replica's transformer is sharded), stepped by its own thread, which
+    admits from its owner's queue. The unsharded batcher is its own and
+    only engine; a batcher over a mesh has one per dp row."""
+
+    def _init_engine(
+        self,
+        owner: "ContinuousBatcher",
+        model: PocketTTSModel,
+        slots: int,
+        device: torch.device,
+        seed: Optional[int],
+        state: State,
+    ) -> None:
+        self._owner = owner
+        self.model, self.slots, self.device, self._state = model, slots, device, state
+        self.dtype, self.kv_quantize, self.kernels = owner.dtype, owner.kv_quantize, owner.kernels
+        self.steps_per_sync, self.steps_per_sync_burst = owner.steps_per_sync, owner.steps_per_sync_burst
+        self.max_frames, self.capacity = owner.max_frames, owner.capacity
+        self._queue, self._arrival = owner._queue, owner._arrival
+        self._last_block_k = 0  # block size of the last block enqueued
+        self._slot_info = [_SlotInfo() for _ in range(slots)]
+        # The batched stream decoder's state, one lane per slot, made on the
+        # first streaming admission; the lanes admitted in one burst are
+        # reset together at its end.
+        self._stream_state: Optional[State] = None
+        self._pending_stream_resets: List[int] = []
+        self._harvest_pool: Optional[ThreadPoolExecutor] = self._new_pool()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._crashed: Optional[Exception] = None
+        self._gen = torch.Generator(device=device)
+        self._gen.manual_seed(seed if seed is not None else time.time_ns() & 0x7FFFFFFF)
+        flow = model.params["flow_lm"]
+        ranks = flow["transformer"].get("ranks")
+        self._rank_devices = None if ranks is None else [r["rope_cos"].device for r in ranks]
+        with torch.no_grad(), kernels_scope(self.kernels):
+            # Loop invariants of the AR step (the reference builds them inside
+            # each block program).
+            self._time_cond = flm.fnet.precompute_time_cond(flow["flow_net"], 1)
+            self._fused_ada = flm.fnet.precompute_fused_adaln(flow["flow_net"])
+
+    @staticmethod
+    def _new_pool() -> ThreadPoolExecutor:
+        return ThreadPoolExecutor(max_workers=1, thread_name_prefix="pockettts-harvest")
+
+    def _start_engine(self) -> None:
+        self._stop.clear()
+        if self._harvest_pool is None:  # restart after stop()
+            self._harvest_pool = self._new_pool()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def _stop_engine(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=30)
+        # Deliver every already-harvested wave before returning.
+        if self._harvest_pool is not None:
+            self._harvest_pool.shutdown(wait=True)
+            self._harvest_pool = None
+        # Never strand a caller or a stream consumer: fail whatever is still
+        # attached.
+        if any(info.request is not None for info in self._slot_info):
+            self._fail_slots(RuntimeError("batcher stopped with requests in flight"))
+
+    def _free_slots(self) -> List[int]:
+        return [i for i, s in enumerate(self._slot_info) if s.request is None]
+
+    def _pad_count(self, n: int) -> int:
+        """An admission or harvest burst is padded to 1 or the full slot
+        count, the reference's two program variants."""
+        return 1 if n <= 1 else self.slots
+
+    def _admit(self) -> None:
+        free = self._free_slots()
+        pending = []
+        while free and not self._queue.empty():
+            try:
+                req = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            pending.append((free.pop(0), req))
+        if not pending:
+            return
+        # A voice model state or a carried session hydrates an existing KV
+        # cache, one lane at a time; the rest prefill together.
+        batchable = []
+        for slot, req in pending:
+            if req.cfg.voice_model_state is not None or req.cont is not None:
+                try:
+                    self._prefill_into_slot(slot, req)
+                except Exception as exc:  # noqa: BLE001
+                    _fail_request(req, exc)
+            else:
+                batchable.append((slot, req))
+        if batchable:
+            self._admit_batch(batchable)
+        if self._pending_stream_resets:
+            # One in-place reset of every stream lane admitted this burst,
+            # after the stream decode enqueued before the admission.
+            idx = torch.as_tensor(self._pending_stream_resets).to(self.device, non_blocking=True)
+            self._stream_state = mimi_stream.reset_lanes(self._stream_state, idx)
+            self._pending_stream_resets = []
+
+    def _tokens(self, req: _Request) -> np.ndarray:
+        tokens = np.asarray(req.tokens, np.int64)
+        n_bins = self.model.params["flow_lm"]["conditioner_embed"].shape[0]
+        if np.any(tokens < 0) or np.any(tokens >= n_bins):
+            raise ValueError(f"token id out of range [0,{n_bins})")
+        return tokens
+
+    def _max_steps(self, cfg: GenerateConfig, n_tokens: int) -> int:
+        return min(cfg.max_steps or cfg.estimated_max_steps or estimate_max_frames(n_tokens), self.max_frames)
+
+    def _embed(self, tokens: np.ndarray, width: int) -> torch.Tensor:
+        """Text embeddings ``[1, width, D]`` of ``tokens`` padded to
+        ``width`` on the host; the pad ids' K/V sit past the lane's offset
+        and are never attended."""
+        ids = np.zeros((1, width), np.int64)
+        ids[0, : len(tokens)] = tokens
+        flow = self.model.params["flow_lm"]
+        return flm.text_embeddings(flow, torch.from_numpy(ids).to(self.device)).to(self.dtype)
+
+    def _admit_batch(self, items) -> None:
+        """Prefill N requests in one batched forward and splice them in. An
+        embedding voice goes in front of the text and counts in the prompt
+        bucket."""
+        flow = self.model.params["flow_lm"]
+        flow_cfg = self.model.config.flow_lm
+        d_model = flow["conditioner_embed"].shape[1]
+        prepped = []
+        for slot, req in items:
+            try:
+                cfg = req.cfg
+                tokens = self._tokens(req)
+                max_steps = self._max_steps(cfg, len(tokens))
+                voice = None
+                if cfg.voice_embedding is not None:
+                    voice = torch.as_tensor(np.asarray(cfg.voice_embedding, np.float32)).to(self.device, self.dtype)
+                    if voice.ndim != 3 or voice.shape[0] != 1 or voice.shape[2] != d_model:
+                        raise ValueError(f"voice embedding shape {tuple(voice.shape)}, want [1, T, {d_model}]")
+                voice_len = 0 if voice is None else voice.shape[1]
+                prompt_len = voice_len + len(tokens)
+                bucket = bk.pick_bucket(prompt_len, bk.PROMPT_BUCKETS)
+                if bucket + self.max_frames > self.capacity:
+                    raise ValueError(
+                        f"prompt ({prompt_len} tokens) exceeds batcher capacity "
+                        f"{self.capacity - self.max_frames}; raise prompt_capacity"
+                    )
+                emb = self._embed(tokens, bucket - voice_len)
+                if voice is not None:
+                    emb = torch.cat([voice, emb], dim=1)
+                prepped.append((slot, req, emb, prompt_len, bucket, max_steps))
+            except Exception as exc:  # noqa: BLE001
+                _fail_request(req, exc)
+        if not prepped:
+            return
+
+        try:
+            # Every lane pads to the largest bucket present; the burst pads to
+            # 1 or the full slot count by repeating its first entry.
+            bucket = max(p[4] for p in prepped)
+            padded = prepped + [prepped[0]] * (self._pad_count(len(prepped)) - len(prepped))
+            embs = torch.cat(
+                [torch.nn.functional.pad(p[2], (0, 0, 0, bucket - p[2].shape[1])) for p in padded]
+            )
+            lanes = _prefill_lanes(flow, flow_cfg.transformer, embs, self.capacity)
+            _insert_lanes(
+                self._state,
+                [p[0] for p in padded],
+                lanes,
+                [p[3] for p in padded],
+                [p[5] for p in padded],
+                [p[1].cfg.eos_threshold for p in padded],
+                [p[1].cfg.frames_after_eos for p in padded],
+                [math.sqrt(max(float(p[1].cfg.temperature), 0.0)) for p in padded],
+            )
+        except Exception as exc:  # noqa: BLE001
+            for _slot, req, *_ in prepped:
+                _fail_request(req, exc)
+            return
+        for slot, req, *_ in prepped:
+            self._attach_request(slot, req)
+
+    def _prefill_into_slot(self, slot: int, req: _Request) -> None:
+        """Hydrate one lane from a voice model state or a session's
+        snapshot, prefill the chunk's text after it and splice it in."""
+        cfg = req.cfg
+        if cfg.voice_embedding is not None:
+            # A session's chunks arrive stripped (_strip_voice_if_carried).
+            raise ValueError("voice embedding and model-state/session conditioning are mutually exclusive")
+        flow = self.model.params["flow_lm"]
+        flow_cfg = self.model.config.flow_lm
+        tokens = self._tokens(req)
+        max_steps = self._max_steps(cfg, len(tokens))
+        prompt_len = len(tokens)
+        bucket = bk.pick_bucket(prompt_len, bk.PROMPT_BUCKETS)
+        if cfg.voice_model_state is not None:
+            first = next(iter(cfg.voice_model_state.modules.values()))
+            voice_frames = int(np.asarray(first["offset"]).reshape(-1)[0])
+        else:
+            voice_frames = int(req.cont.offset_host)  # read by _validate_cont
+        # Bound by this chunk's own step budget, not the engine's max_frames:
+        # the lane writes K/V at offset .. offset + bucket + max_steps.
+        if voice_frames + bucket + max_steps > self.capacity:
+            raise ValueError(
+                f"prompt ({voice_frames} voice + {prompt_len} text tokens) + {max_steps} steps "
+                f"exceeds batcher KV capacity {self.capacity}; raise prompt_capacity"
+            )
+        if cfg.voice_model_state is not None:
+            lane = ftr.kv_cache_from_voice_state(
+                flow_cfg.transformer, cfg.voice_model_state.modules, self.capacity, self.dtype, self.device
+            )
+        else:
+            # Copies: the prefill writes the cache it is given in place, and
+            # a continuation may be submitted again.
+            lane = {
+                "k": req.cont.k.to(self.device, self.dtype, copy=True),
+                "v": req.cont.v.to(self.device, self.dtype, copy=True),
+                "offset": req.cont.offset.to(self.device, copy=True).reshape(()),
+            }
+        if self._rank_devices is not None:
+            lane = ftr.shard_cache_heads(lane, self._rank_devices)
+        lane = flm.prompt(flow, flow_cfg, lane, self._embed(tokens, bucket), prompt_len)
+        _insert_lanes(
+            self._state,
+            [slot],
+            lane,
+            [voice_frames + prompt_len],
+            [max_steps],
+            [cfg.eos_threshold],
+            [cfg.frames_after_eos],
+            [math.sqrt(max(float(cfg.temperature), 0.0))],
+        )
+        self._attach_request(slot, req)
+
+    def _attach_request(self, slot: int, req: _Request) -> None:
+        info = self._slot_info[slot]
+        info.epoch += 1
+        info.request = req
+        info.emitted_frames = 0
+        info.streaming = req.stream is not None
+        info.stream_parts = None
+        if info.streaming:
+            if self._stream_state is None:
+                mimi_cfg = self.model.config.mimi
+                self._stream_state = mimi_stream.init_stream_state(
+                    self.model.params["mimi"],
+                    mimi_cfg,
+                    batch=self.slots,
+                    max_steps=self.max_frames * mimi_cfg.steps_per_latent,
+                    dtype=self.dtype,
+                    per_lane_offsets=True,
+                )
+            self._pending_stream_resets.append(slot)
+            info.stream_parts = []
+
+    def _any_streaming(self) -> bool:
+        return any(s.request is not None and s.streaming for s in self._slot_info)
+
+    def _emit_streams(self, pcm_np: np.ndarray, n_new: np.ndarray, epochs) -> None:
+        """Hand one decoded block (on the host) to the streaming slots'
+        consumers; ``epochs`` gates recycled slots."""
+        samples_per = self.model.config.mimi.samples_per_latent
+        for slot, info in enumerate(self._slot_info):
+            n = int(n_new[slot])
+            if info.request is None or not info.streaming or n <= 0 or info.epoch != epochs[slot]:
+                continue
+            block = pcm_np[slot, 0, : n * samples_per].astype(np.float32) / 32767.0
+            info.emitted_frames += n
+            info.stream_parts.append(block)
+            info.request.stream.put(block)
+
+    def _snapshot(self, slot: int) -> BatchContinuation:
+        k, v, offset = _snapshot_lane(self._state["cache"], slot)
+        return BatchContinuation(k=k, v=v, offset=offset, capacity=self.capacity)
+
+    def _harvest(self, done, active, n_frames, epochs) -> None:
+        to_decode = []  # (slot, n) of finished plain requests
+        for slot, info in enumerate(self._slot_info):
+            if info.request is None or not (active[slot] and done[slot]):
+                continue
+            if info.epoch != epochs[slot]:
+                continue  # stale block: its flags describe the previous occupant
+            if info.streaming:
+                # Every block was emitted already.
+                req = info.request
+                audio = np.concatenate(info.stream_parts) if info.stream_parts else np.zeros(0, np.float32)
+                if req.keep_state:
+                    # Before the end of the stream: stream_session's
+                    # next_state() is read once the generator has ended.
+                    req.state_out = self._snapshot(slot)
+                req.stream.put(None)
+                _try_resolve(req.future, result=audio)
+                self._release_slots([slot])
+            else:
+                to_decode.append((slot, int(n_frames[slot])))
+        if not to_decode:
+            return
+        # All finished lanes decode together (count padded like admission);
+        # the drainer thread waits for the PCM, so the engine goes on.
+        frames = self._state["frames"]
+        bucket = min(bk.pick_bucket(max(n for _s, n in to_decode), bk.DECODE_BUCKETS), frames.shape[1])
+        slot_ids = [s for s, _n in to_decode]
+        slot_ids += [slot_ids[0]] * (self._pad_count(len(slot_ids)) - len(slot_ids))
+        pcm = _harvest_decode_pcm16(
+            self.model,
+            frames,
+            torch.as_tensor(slot_ids, dtype=torch.long).to(self.device),
+            self._state["n_frames"],
+            bucket,
+        )
+        # Padding lanes are dropped before the copy to the host.
+        pcm = HostCopy(pcm[: len(to_decode)])
+        for slot, _n in to_decode:
+            req = self._slot_info[slot].request
+            if req.keep_state:
+                # Before the slot is freed, and before the drainer resolves
+                # the future.
+                req.state_out = self._snapshot(slot)
+        items = [(self._slot_info[s].request, n) for s, n in to_decode]
+        self._release_slots([s for s, _n in to_decode])
+        self._harvest_pool.submit(self._drain_harvest, pcm, items)
+
+    def _drain_harvest(self, pcm, items) -> None:
+        """Drainer thread: wait for the int16 PCM and resolve each lane's
+        future (with the exception if the copy failed: never strand)."""
+        try:
+            samples_per = self.model.config.mimi.samples_per_latent
+            pcm_np = pcm.numpy()
+            for i, (req, n) in enumerate(items):
+                audio = pcm_np[i, 0, : n * samples_per].astype(np.float32) / 32767.0
+                _try_resolve(req.future, result=audio)
+        except Exception as exc:  # noqa: BLE001
+            for req, _n in items:
+                _try_resolve(req.future, exc=exc)
+
+    def _release_slots(self, slots_: List[int]) -> None:
+        """Free the slots: one in-place update of the device's active flags."""
+        for slot in slots_:
+            info = self._slot_info[slot]
+            info.epoch += 1
+            info.request = None
+            info.streaming = False
+            info.stream_parts = None
+        idx = torch.as_tensor(slots_, dtype=torch.long).to(self.device)
+        self._state["active"][idx] = False
+
+    def _loop(self) -> None:
+        try:
+            if self.device.type == "cuda":
+                torch.cuda.set_device(self.device)
+            with torch.no_grad(), _full_f32(self.dtype == torch.float32), kernels_scope(self.kernels):
+                self._loop_inner()
+        except Exception as exc:  # noqa: BLE001
+            # A crashed engine must not leave callers waiting on futures.
+            log.exception("batcher engine crashed: %s", exc)
+            self._crashed = self._owner._crashed = exc
+            self._fail_all(exc)
+
+    def _fail_slots(self, exc: Exception) -> None:
+        # Harvested waves belong to the drainer, which resolves them itself.
+        # A stream consumer gets the exception itself, never a clean end.
+        for info in self._slot_info:
+            if info.request is not None:
+                _fail_request(info.request, exc)
+                info.request = None
+
+    def _fail_queue(self, exc: Exception) -> None:
+        while True:
+            try:
+                req = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            _fail_request(req, exc)
+
+    def _fail_all(self, exc: Exception) -> None:
+        self._fail_slots(exc)
+        self._fail_queue(exc)
+
+    def _reap_cancelled(self) -> None:
+        """Free the lanes whose stream consumer went away. A block already
+        enqueued runs the lane once more, for nobody; the future resolves
+        with the audio streamed so far."""
+        for slot, info in enumerate(self._slot_info):
+            req = info.request
+            if req is None or not req.cancelled.is_set():
+                continue
+            if req.stream is not None:
+                req.stream.put(None)
+            parts = info.stream_parts or []
+            _try_resolve(req.future, result=np.concatenate(parts) if parts else np.zeros(0, np.float32))
+            self._release_slots([slot])
+
+    def _resolve_block(self, blk) -> None:
+        """Read a block's outputs (their copies were enqueued with it, one
+        iteration ago, so the wait overlaps the next block): emit the
+        streamed PCM, then harvest the lanes it finished."""
+        flags = blk["flags"].numpy()
+        if blk["pcm"] is not None:
+            self._emit_streams(blk["pcm"].numpy(), blk["n_new"].numpy(), blk["epochs"])
+        self._harvest(flags[0].astype(bool), flags[1].astype(bool), flags[2], blk["epochs"])
+
+    def _loop_inner(self) -> None:
+        params = self.model.params["flow_lm"]
+        cfg = self.model.config.flow_lm
+        k_lo = self.steps_per_sync
+        k_hi = self.steps_per_sync_burst or k_lo
+        pending = None  # the previous block's outputs, not read yet
+        while not self._stop.is_set():
+            self._reap_cancelled()
+            if all(s.request is None for s in self._slot_info):
+                # Nothing attached: a pending block has no reader. Admit
+                # synchronously, or wait for a request.
+                pending = None
+                self._admit()
+                if all(s.request is None for s in self._slot_info):
+                    # Wait without taking from the queue: the request that
+                    # wakes the engine keeps its place in the burst.
+                    with self._arrival:
+                        if self._queue.empty():
+                            self._arrival.wait(timeout=0.05)
+                    continue
+            # Streaming consumers need steps_per_sync cadence; plain traffic
+            # takes the burst block. Slots change only in _admit and harvest
+            # (this thread), so the stream decode below sees the same set.
+            streaming = [s.request is not None and s.streaming for s in self._slot_info]
+            k = k_lo if any(streaming) else k_hi
+            self._last_block_k = k
+            self._state, windows, n_new, flags = _batched_ar_multi_step(
+                params, cfg, self._state, k, 1, self._gen, self._time_cond, self._fused_ada
+            )
+            pcm = n_new_host = None
+            if any(streaming):
+                mask = torch.as_tensor(streaming).to(self.device, non_blocking=True)
+                pcm16, self._stream_state = _batched_stream_decode(self.model, self._stream_state, windows, n_new, mask)
+                pcm, n_new_host = HostCopy(pcm16), HostCopy(n_new)
+            flags = HostCopy(flags)
+            # Admission after the block is enqueued: the host prepares it
+            # while the device runs the block, and admitted lanes join from
+            # the next block on.
+            self._admit()
+            prev, pending = pending, {
+                "flags": flags,
+                "pcm": pcm,
+                "n_new": n_new_host,
+                "epochs": [s.epoch for s in self._slot_info],
+            }
+            if prev is not None:
+                self._resolve_block(prev)
+        if pending is not None:  # so stop() strands no consumer
+            self._resolve_block(pending)
+
+
+class ContinuousBatcher(_Engine):
+    """Slot-based continuous batching over one model, on one device or over
+    a dp/tp mesh.
 
     ``submit`` is thread-safe and returns a Future resolving to float32 PCM
     at 24 kHz; ``submit_stream`` yields PCM blocks of ``steps_per_sync``
@@ -389,7 +892,10 @@ class ContinuousBatcher:
     ``quantize=True`` (or 8) runs every linear with int8 weights,
     ``quantize=4`` with packed group-wise int4 weights (a model loaded from a
     pre-quantized checkpoint runs quantized as it is); ``kv_quantize`` keeps
-    the KV cache in int8 with per-row scales.
+    the KV cache in int8 with per-row scales. ``mesh`` (``parallel.mesh``;
+    ``slots`` must split over its ``dp``) serves through one engine replica
+    per dp row, sharded over its tp ranks, and ``device`` is then unused;
+    ``pallas=False`` runs the kernels' plain versions on the card.
     """
 
     def __init__(
@@ -405,16 +911,15 @@ class ContinuousBatcher:
         quantize: Union[bool, int] = False,
         kv_quantize: bool = False,
         device: Union[str, torch.device] = DEFAULT_DEVICE,
+        mesh: Optional[Mesh] = None,
+        pallas: Optional[bool] = None,
     ) -> None:
-        self.device = resolve_device(device)
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"ContinuousBatcher: dtype {dtype} not supported (float32 or bfloat16)")
+        if mesh is not None and slots % mesh.dp:
+            raise ValueError(f"ContinuousBatcher: {slots} slots do not split over dp={mesh.dp}")
         self.dtype = dtype
-        with torch.no_grad():
-            model = quantized_model(model, quantize)
-            if (model.device, model.dtype) != (self.device, dtype):
-                model = model.to(self.device, dtype)
-        self.model = model
+        self.mesh = mesh
         self.slots = slots
         self.steps_per_sync = max(steps_per_sync, 1)
         # Burst blocks: while no streaming lane is attached every block runs
@@ -436,54 +941,68 @@ class ContinuousBatcher:
                 )
             self.steps_per_sync_burst = 0
         k_max = self.steps_per_sync_burst or self.steps_per_sync
-        self._last_block_k = 0  # block size of the last block enqueued
         # Aligned to the largest block, so a lane's last window fits.
         self.max_frames = bk.round_up(max_frames, k_max)
         self.capacity = prompt_capacity + self.max_frames
         self.kv_quantize = kv_quantize
-
+        self.kernels = resolve_pallas(pallas)
         self._queue: "queue.Queue[_Request]" = queue.Queue()
-        self._slot_info = [_SlotInfo() for _ in range(slots)]
-        # The batched stream decoder's state, one lane per slot, made on the
-        # first streaming admission; the lanes admitted in one burst are
-        # reset together at its end.
-        self._stream_state: Optional[State] = None
-        self._pending_stream_resets: List[int] = []
-        self._harvest_pool: Optional[ThreadPoolExecutor] = self._new_pool()
-        self._stop = threading.Event()
-        self._thread: Optional[threading.Thread] = None
+        # Notified on every submission: an idle engine waits on it.
+        self._arrival = threading.Condition()
         self._crashed: Optional[Exception] = None
 
-        self._gen = torch.Generator(device=self.device)
-        self._gen.manual_seed(seed if seed is not None else time.time_ns() & 0x7FFFFFFF)
-        flow = self.model.params["flow_lm"]
+        device = resolve_device(device) if mesh is None else mesh.devices[0][0]
         with torch.no_grad():
-            # Loop invariants of the AR step (the reference builds them inside
-            # each block program).
-            self._time_cond = flm.fnet.precompute_time_cond(flow["flow_net"], 1)
-            self._fused_ada = flm.fnet.precompute_fused_adaln(flow["flow_net"])
-            self._state = make_batched_state(
-                self.model.config.flow_lm,
+            model = kernel_model(quantized_model(model, quantize), self.kernels)
+            if (model.device, model.dtype) != (device, dtype):
+                model = model.to(device, dtype)
+            state = make_batched_state(
+                model.config.flow_lm,
                 slots,
                 self.capacity,
                 self.max_frames,
                 k_max,  # the frames slack covers the largest block
                 dtype,
                 kv_quantize=kv_quantize,
-                device=self.device,
+                device=device,
             )
+            if mesh is None:
+                self._replicas: Optional[List[_Engine]] = None
+                self._init_engine(self, model, slots, device, seed, state)
+                return
+            if mesh.tp > 1:
+                rows = shard_params_tp(model.params, mesh, model.config.flow_lm.transformer.num_heads)
+                states = shard_state_tp(state, mesh)
+            else:
+                rows = replicate_params(model.params, mesh)
+                states = shard_state(state, mesh)
+        self.device = device
+        self.model = PocketTTSModel(rows[0], model.config)
+        self._replicas = []
+        for i, (params, part) in enumerate(zip(rows, states)):
+            replica = _Engine()
+            replica._init_engine(
+                self,
+                PocketTTSModel(params, model.config),
+                slots // mesh.dp,
+                mesh.devices[i][0],
+                None if seed is None else seed + i,
+                part,
+            )
+            self._replicas.append(replica)
 
-    @staticmethod
-    def _new_pool() -> ThreadPoolExecutor:
-        return ThreadPoolExecutor(max_workers=1, thread_name_prefix="pockettts-harvest")
+    def _engines(self) -> List[_Engine]:
+        return self._replicas or [self]
 
     # -- public API --------------------------------------------------------
 
     def _enqueue(self, req: _Request) -> None:
         self._queue.put(req)
+        with self._arrival:
+            self._arrival.notify_all()
         if self._crashed is not None:
             # Lost the race with a crashing engine: fail what it left queued.
-            self._fail_all(self._crashed)
+            self._fail_queue(self._crashed)
 
     def submit(self, tokens, cfg: GenerateConfig) -> "Future[np.ndarray]":
         fut: Future = Future()
@@ -624,408 +1143,13 @@ class ContinuousBatcher:
         log.info("prewarmed single admission and the stream decode")
 
     def start(self) -> None:
-        self._stop.clear()
-        if self._harvest_pool is None:  # restart after stop()
-            self._harvest_pool = self._new_pool()
-        self._thread = threading.Thread(target=self._loop, daemon=True)
-        self._thread.start()
+        for engine in self._engines():
+            engine._start_engine()
 
     def stop(self) -> None:
-        self._stop.set()
-        if self._thread is not None:
-            self._thread.join(timeout=30)
-        # Deliver every already-harvested wave before returning.
-        if self._harvest_pool is not None:
-            self._harvest_pool.shutdown(wait=True)
-            self._harvest_pool = None
-        # Never strand a caller or a stream consumer: fail whatever is still
-        # attached or queued.
-        if any(info.request is not None for info in self._slot_info) or not self._queue.empty():
-            self._fail_all(RuntimeError("batcher stopped with requests in flight"))
-
-    # -- engine ------------------------------------------------------------
-
-    def _free_slots(self) -> List[int]:
-        return [i for i, s in enumerate(self._slot_info) if s.request is None]
-
-    def _pad_count(self, n: int) -> int:
-        """An admission or harvest burst is padded to 1 or the full slot
-        count, the reference's two program variants."""
-        return 1 if n <= 1 else self.slots
-
-    def _admit(self) -> None:
-        free = self._free_slots()
-        pending = []
-        while free and not self._queue.empty():
-            try:
-                req = self._queue.get_nowait()
-            except queue.Empty:
-                break
-            pending.append((free.pop(0), req))
-        if not pending:
-            return
-        # A voice model state or a carried session hydrates an existing KV
-        # cache, one lane at a time; the rest prefill together.
-        batchable = []
-        for slot, req in pending:
-            if req.cfg.voice_model_state is not None or req.cont is not None:
-                try:
-                    self._prefill_into_slot(slot, req)
-                except Exception as exc:  # noqa: BLE001
-                    _fail_request(req, exc)
-            else:
-                batchable.append((slot, req))
-        if batchable:
-            self._admit_batch(batchable)
-        if self._pending_stream_resets:
-            # One in-place reset of every stream lane admitted this burst,
-            # after the stream decode enqueued before the admission.
-            idx = torch.as_tensor(self._pending_stream_resets).to(self.device, non_blocking=True)
-            self._stream_state = mimi_stream.reset_lanes(self._stream_state, idx)
-            self._pending_stream_resets = []
-
-    def _tokens(self, req: _Request) -> np.ndarray:
-        tokens = np.asarray(req.tokens, np.int64)
-        n_bins = self.model.params["flow_lm"]["conditioner_embed"].shape[0]
-        if np.any(tokens < 0) or np.any(tokens >= n_bins):
-            raise ValueError(f"token id out of range [0,{n_bins})")
-        return tokens
-
-    def _max_steps(self, cfg: GenerateConfig, n_tokens: int) -> int:
-        return min(cfg.max_steps or cfg.estimated_max_steps or estimate_max_frames(n_tokens), self.max_frames)
-
-    def _embed(self, tokens: np.ndarray, width: int) -> torch.Tensor:
-        """Text embeddings ``[1, width, D]`` of ``tokens`` padded to
-        ``width`` on the host; the pad ids' K/V sit past the lane's offset
-        and are never attended."""
-        ids = np.zeros((1, width), np.int64)
-        ids[0, : len(tokens)] = tokens
-        flow = self.model.params["flow_lm"]
-        return flm.text_embeddings(flow, torch.from_numpy(ids).to(self.device)).to(self.dtype)
-
-    def _admit_batch(self, items) -> None:
-        """Prefill N requests in one batched forward and splice them in. An
-        embedding voice goes in front of the text and counts in the prompt
-        bucket."""
-        flow = self.model.params["flow_lm"]
-        flow_cfg = self.model.config.flow_lm
-        d_model = flow["conditioner_embed"].shape[1]
-        prepped = []
-        for slot, req in items:
-            try:
-                cfg = req.cfg
-                tokens = self._tokens(req)
-                max_steps = self._max_steps(cfg, len(tokens))
-                voice = None
-                if cfg.voice_embedding is not None:
-                    voice = torch.as_tensor(np.asarray(cfg.voice_embedding, np.float32)).to(self.device, self.dtype)
-                    if voice.ndim != 3 or voice.shape[0] != 1 or voice.shape[2] != d_model:
-                        raise ValueError(f"voice embedding shape {tuple(voice.shape)}, want [1, T, {d_model}]")
-                voice_len = 0 if voice is None else voice.shape[1]
-                prompt_len = voice_len + len(tokens)
-                bucket = bk.pick_bucket(prompt_len, bk.PROMPT_BUCKETS)
-                if bucket + self.max_frames > self.capacity:
-                    raise ValueError(
-                        f"prompt ({prompt_len} tokens) exceeds batcher capacity "
-                        f"{self.capacity - self.max_frames}; raise prompt_capacity"
-                    )
-                emb = self._embed(tokens, bucket - voice_len)
-                if voice is not None:
-                    emb = torch.cat([voice, emb], dim=1)
-                prepped.append((slot, req, emb, prompt_len, bucket, max_steps))
-            except Exception as exc:  # noqa: BLE001
-                _fail_request(req, exc)
-        if not prepped:
-            return
-
-        try:
-            # Every lane pads to the largest bucket present; the burst pads to
-            # 1 or the full slot count by repeating its first entry.
-            bucket = max(p[4] for p in prepped)
-            padded = prepped + [prepped[0]] * (self._pad_count(len(prepped)) - len(prepped))
-            embs = torch.cat(
-                [torch.nn.functional.pad(p[2], (0, 0, 0, bucket - p[2].shape[1])) for p in padded]
-            )
-            lanes_k, lanes_v = _prefill_lanes(flow, flow_cfg.transformer, embs, self.capacity)
-            _insert_lanes(
-                self._state,
-                [p[0] for p in padded],
-                lanes_k,
-                lanes_v,
-                [p[3] for p in padded],
-                [p[5] for p in padded],
-                [p[1].cfg.eos_threshold for p in padded],
-                [p[1].cfg.frames_after_eos for p in padded],
-                [math.sqrt(max(float(p[1].cfg.temperature), 0.0)) for p in padded],
-            )
-        except Exception as exc:  # noqa: BLE001
-            for _slot, req, *_ in prepped:
-                _fail_request(req, exc)
-            return
-        for slot, req, *_ in prepped:
-            self._attach_request(slot, req)
-
-    def _prefill_into_slot(self, slot: int, req: _Request) -> None:
-        """Hydrate one lane from a voice model state or a session's
-        snapshot, prefill the chunk's text after it and splice it in."""
-        cfg = req.cfg
-        if cfg.voice_embedding is not None:
-            # A session's chunks arrive stripped (_strip_voice_if_carried).
-            raise ValueError("voice embedding and model-state/session conditioning are mutually exclusive")
-        flow = self.model.params["flow_lm"]
-        flow_cfg = self.model.config.flow_lm
-        tokens = self._tokens(req)
-        max_steps = self._max_steps(cfg, len(tokens))
-        prompt_len = len(tokens)
-        bucket = bk.pick_bucket(prompt_len, bk.PROMPT_BUCKETS)
-        if cfg.voice_model_state is not None:
-            first = next(iter(cfg.voice_model_state.modules.values()))
-            voice_frames = int(np.asarray(first["offset"]).reshape(-1)[0])
-        else:
-            voice_frames = int(req.cont.offset_host)  # read by _validate_cont
-        # Bound by this chunk's own step budget, not the engine's max_frames:
-        # the lane writes K/V at offset .. offset + bucket + max_steps.
-        if voice_frames + bucket + max_steps > self.capacity:
-            raise ValueError(
-                f"prompt ({voice_frames} voice + {prompt_len} text tokens) + {max_steps} steps "
-                f"exceeds batcher KV capacity {self.capacity}; raise prompt_capacity"
-            )
-        if cfg.voice_model_state is not None:
-            lane = ftr.kv_cache_from_voice_state(
-                flow_cfg.transformer, cfg.voice_model_state.modules, self.capacity, self.dtype, self.device
-            )
-        else:
-            # Copies: the prefill writes the cache it is given in place, and
-            # a continuation may be submitted again.
-            lane = {
-                "k": req.cont.k.to(self.device, self.dtype, copy=True),
-                "v": req.cont.v.to(self.device, self.dtype, copy=True),
-                "offset": req.cont.offset.to(self.device, copy=True).reshape(()),
-            }
-        lane = flm.prompt(flow, flow_cfg, lane, self._embed(tokens, bucket), prompt_len)
-        _insert_lanes(
-            self._state,
-            [slot],
-            lane["k"],
-            lane["v"],
-            [voice_frames + prompt_len],
-            [max_steps],
-            [cfg.eos_threshold],
-            [cfg.frames_after_eos],
-            [math.sqrt(max(float(cfg.temperature), 0.0))],
-        )
-        self._attach_request(slot, req)
-
-    def _attach_request(self, slot: int, req: _Request) -> None:
-        info = self._slot_info[slot]
-        info.epoch += 1
-        info.request = req
-        info.emitted_frames = 0
-        info.streaming = req.stream is not None
-        info.stream_parts = None
-        if info.streaming:
-            if self._stream_state is None:
-                mimi_cfg = self.model.config.mimi
-                self._stream_state = mimi_stream.init_stream_state(
-                    self.model.params["mimi"],
-                    mimi_cfg,
-                    batch=self.slots,
-                    max_steps=self.max_frames * mimi_cfg.steps_per_latent,
-                    dtype=self.dtype,
-                    per_lane_offsets=True,
-                )
-            self._pending_stream_resets.append(slot)
-            info.stream_parts = []
-
-    def _any_streaming(self) -> bool:
-        return any(s.request is not None and s.streaming for s in self._slot_info)
-
-    def _emit_streams(self, pcm_np: np.ndarray, n_new: np.ndarray, epochs) -> None:
-        """Hand one decoded block (on the host) to the streaming slots'
-        consumers; ``epochs`` gates recycled slots."""
-        samples_per = self.model.config.mimi.samples_per_latent
-        for slot, info in enumerate(self._slot_info):
-            n = int(n_new[slot])
-            if info.request is None or not info.streaming or n <= 0 or info.epoch != epochs[slot]:
-                continue
-            block = pcm_np[slot, 0, : n * samples_per].astype(np.float32) / 32767.0
-            info.emitted_frames += n
-            info.stream_parts.append(block)
-            info.request.stream.put(block)
-
-    def _snapshot(self, slot: int) -> BatchContinuation:
-        k, v, offset = _snapshot_lane(self._state["cache"], slot)
-        return BatchContinuation(k=k, v=v, offset=offset, capacity=self.capacity)
-
-    def _harvest(self, done, active, n_frames, epochs) -> None:
-        to_decode = []  # (slot, n) of finished plain requests
-        for slot, info in enumerate(self._slot_info):
-            if info.request is None or not (active[slot] and done[slot]):
-                continue
-            if info.epoch != epochs[slot]:
-                continue  # stale block: its flags describe the previous occupant
-            if info.streaming:
-                # Every block was emitted already.
-                req = info.request
-                audio = np.concatenate(info.stream_parts) if info.stream_parts else np.zeros(0, np.float32)
-                if req.keep_state:
-                    # Before the end of the stream: stream_session's
-                    # next_state() is read once the generator has ended.
-                    req.state_out = self._snapshot(slot)
-                req.stream.put(None)
-                _try_resolve(req.future, result=audio)
-                self._release_slots([slot])
-            else:
-                to_decode.append((slot, int(n_frames[slot])))
-        if not to_decode:
-            return
-        # All finished lanes decode together (count padded like admission);
-        # the drainer thread waits for the PCM, so the engine goes on.
-        frames = self._state["frames"]
-        bucket = min(bk.pick_bucket(max(n for _s, n in to_decode), bk.DECODE_BUCKETS), frames.shape[1])
-        slot_ids = [s for s, _n in to_decode]
-        slot_ids += [slot_ids[0]] * (self._pad_count(len(slot_ids)) - len(slot_ids))
-        pcm = _harvest_decode_pcm16(
-            self.model,
-            frames,
-            torch.as_tensor(slot_ids, dtype=torch.long).to(self.device),
-            self._state["n_frames"],
-            bucket,
-        )
-        # Padding lanes are dropped before the copy to the host.
-        pcm = HostCopy(pcm[: len(to_decode)])
-        for slot, _n in to_decode:
-            req = self._slot_info[slot].request
-            if req.keep_state:
-                # Before the slot is freed, and before the drainer resolves
-                # the future.
-                req.state_out = self._snapshot(slot)
-        items = [(self._slot_info[s].request, n) for s, n in to_decode]
-        self._release_slots([s for s, _n in to_decode])
-        self._harvest_pool.submit(self._drain_harvest, pcm, items)
-
-    def _drain_harvest(self, pcm, items) -> None:
-        """Drainer thread: wait for the int16 PCM and resolve each lane's
-        future (with the exception if the copy failed: never strand)."""
-        try:
-            samples_per = self.model.config.mimi.samples_per_latent
-            pcm_np = pcm.numpy()
-            for i, (req, n) in enumerate(items):
-                audio = pcm_np[i, 0, : n * samples_per].astype(np.float32) / 32767.0
-                _try_resolve(req.future, result=audio)
-        except Exception as exc:  # noqa: BLE001
-            for req, _n in items:
-                _try_resolve(req.future, exc=exc)
-
-    def _release_slots(self, slots_: List[int]) -> None:
-        """Free the slots: one in-place update of the device's active flags."""
-        for slot in slots_:
-            info = self._slot_info[slot]
-            info.epoch += 1
-            info.request = None
-            info.streaming = False
-            info.stream_parts = None
-        idx = torch.as_tensor(slots_, dtype=torch.long).to(self.device)
-        self._state["active"][idx] = False
-
-    def _loop(self) -> None:
-        try:
-            if self.device.type == "cuda":
-                torch.cuda.set_device(self.device)
-            with torch.no_grad(), _full_f32(self.dtype == torch.float32):
-                self._loop_inner()
-        except Exception as exc:  # noqa: BLE001
-            # A crashed engine must not leave callers waiting on futures.
-            log.exception("batcher engine crashed: %s", exc)
-            self._crashed = exc
-            self._fail_all(exc)
-
-    def _fail_all(self, exc: Exception) -> None:
-        # Harvested waves belong to the drainer, which resolves them itself.
-        # A stream consumer gets the exception itself, never a clean end.
-        for info in self._slot_info:
-            if info.request is not None:
-                _fail_request(info.request, exc)
-                info.request = None
-        while True:
-            try:
-                req = self._queue.get_nowait()
-            except queue.Empty:
-                break
-            _fail_request(req, exc)
-
-    def _reap_cancelled(self) -> None:
-        """Free the lanes whose stream consumer went away. A block already
-        enqueued runs the lane once more, for nobody; the future resolves
-        with the audio streamed so far."""
-        for slot, info in enumerate(self._slot_info):
-            req = info.request
-            if req is None or not req.cancelled.is_set():
-                continue
-            if req.stream is not None:
-                req.stream.put(None)
-            parts = info.stream_parts or []
-            _try_resolve(req.future, result=np.concatenate(parts) if parts else np.zeros(0, np.float32))
-            self._release_slots([slot])
-
-    def _resolve_block(self, blk) -> None:
-        """Read a block's outputs (their copies were enqueued with it, one
-        iteration ago, so the wait overlaps the next block): emit the
-        streamed PCM, then harvest the lanes it finished."""
-        flags = blk["flags"].numpy()
-        if blk["pcm"] is not None:
-            self._emit_streams(blk["pcm"].numpy(), blk["n_new"].numpy(), blk["epochs"])
-        self._harvest(flags[0].astype(bool), flags[1].astype(bool), flags[2], blk["epochs"])
-
-    def _loop_inner(self) -> None:
-        params = self.model.params["flow_lm"]
-        cfg = self.model.config.flow_lm
-        k_lo = self.steps_per_sync
-        k_hi = self.steps_per_sync_burst or k_lo
-        pending = None  # the previous block's outputs, not read yet
-        while not self._stop.is_set():
-            self._reap_cancelled()
-            if all(s.request is None for s in self._slot_info):
-                # Nothing attached: a pending block has no reader. Admit
-                # synchronously, or wait for a request.
-                pending = None
-                self._admit()
-                if all(s.request is None for s in self._slot_info):
-                    try:
-                        req = self._queue.get(timeout=0.05)
-                        self._queue.put(req)
-                    except queue.Empty:
-                        pass
-                    continue
-            # Streaming consumers need steps_per_sync cadence; plain traffic
-            # takes the burst block. Slots change only in _admit and harvest
-            # (this thread), so the stream decode below sees the same set.
-            streaming = [s.request is not None and s.streaming for s in self._slot_info]
-            k = k_lo if any(streaming) else k_hi
-            self._last_block_k = k
-            self._state, windows, n_new, flags = _batched_ar_multi_step(
-                params, cfg, self._state, k, 1, self._gen, self._time_cond, self._fused_ada
-            )
-            pcm = n_new_host = None
-            if any(streaming):
-                mask = torch.as_tensor(streaming).to(self.device, non_blocking=True)
-                pcm16, self._stream_state = _batched_stream_decode(self.model, self._stream_state, windows, n_new, mask)
-                pcm, n_new_host = HostCopy(pcm16), HostCopy(n_new)
-            flags = HostCopy(flags)
-            # Admission after the block is enqueued: the host prepares it
-            # while the device runs the block, and admitted lanes join from
-            # the next block on.
-            self._admit()
-            prev, pending = pending, {
-                "flags": flags,
-                "pcm": pcm,
-                "n_new": n_new_host,
-                "epochs": [s.epoch for s in self._slot_info],
-            }
-            if prev is not None:
-                self._resolve_block(prev)
-        if pending is not None:  # so stop() strands no consumer
-            self._resolve_block(pending)
+        for engine in self._engines():
+            engine._stop_engine()
+        self._fail_queue(RuntimeError("batcher stopped with requests in flight"))
 
 
 class BatcherRuntime:
@@ -1050,6 +1174,8 @@ class BatcherRuntime:
         steps_per_sync_burst: int = 0,
         prompt_capacity: int = 128,
         device: Union[str, torch.device] = DEFAULT_DEVICE,
+        mesh: Optional[Mesh] = None,
+        pallas: Optional[bool] = None,
     ) -> None:
         self._model = model
         self._timeout = timeout
@@ -1064,6 +1190,8 @@ class BatcherRuntime:
             steps_per_sync=steps_per_sync,
             steps_per_sync_burst=steps_per_sync_burst,
             device=device,
+            mesh=mesh,
+            pallas=pallas,
         )
         self.batcher.start()
 

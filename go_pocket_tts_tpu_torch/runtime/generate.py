@@ -30,6 +30,17 @@ frame streaming lives in :mod:`runtime.streaming`.
 
 Shapes are bucketed as in the reference (``utils/buckets.py``), so caches
 and buffers keep a few static sizes.
+
+The reference's switches: ``pallas`` (``None`` = auto, which reads
+``POCKETTTS_PALLAS``, ``True``, ``False``) and ``matmul_precision``. With
+``pallas=False`` every kernel call site runs its plain PyTorch version on
+the card (the models' ``use_kernels`` flags, and the quantized linears'
+plain backends while the runtime computes), so no launch counter moves;
+auto and on run every kernel. ``matmul_precision`` sets TF32 for float32
+products: ``highest`` keeps it off in matmuls and cuDNN convolutions,
+``high`` turns it on in both, ``default`` leaves the process's flags as
+they are; ``""`` or ``None`` is ``highest`` in float32 and ``default`` in
+bfloat16, as in the reference.
 """
 
 from __future__ import annotations
@@ -37,6 +48,8 @@ from __future__ import annotations
 import contextlib
 import logging
 import math
+import os
+import threading
 import time
 from dataclasses import dataclass
 from typing import Callable, Dict, Iterator, Optional, Tuple, Union
@@ -47,7 +60,8 @@ import torch
 from go_pocket_tts_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from go_pocket_tts_tpu_torch.models import flow_lm as flm
 from go_pocket_tts_tpu_torch.models import flow_transformer as ftr
-from go_pocket_tts_tpu_torch.models.model import PocketTTSModel
+from go_pocket_tts_tpu_torch.models.model import PocketTTSModel, auto_pallas_mimi, with_kernels
+from go_pocket_tts_tpu_torch.models.params import matmul_backends
 from go_pocket_tts_tpu_torch.models.quantize import quantize_model_params
 from go_pocket_tts_tpu_torch.text.prepare import estimate_max_frames
 from go_pocket_tts_tpu_torch.utils import buckets as bk
@@ -60,10 +74,13 @@ __all__ = [
     "GenerateConfig",
     "GPURuntime",
     "HostCopy",
+    "MATMUL_PRECISIONS",
     "decode_float",
     "decode_pcm16",
     "estimate_max_frames",
+    "kernel_model",
     "quantized_model",
+    "resolve_pallas",
 ]
 
 @dataclass
@@ -117,6 +134,13 @@ class HostCopy:
         return self._host.numpy()
 
 
+# Holders of _full_f32 across threads (the batcher's engine replicas): the
+# first saves the process's TF32 flags and turns them off, the last
+# restores them.
+_F32_LOCK = threading.Lock()
+_F32_HOLD = {"count": 0, "saved": None}
+
+
 @contextlib.contextmanager
 def _full_f32(enabled: bool) -> Iterator[None]:
     """Keep float32 products in float32 (no TF32 in matmuls or cuDNN
@@ -125,13 +149,62 @@ def _full_f32(enabled: bool) -> Iterator[None]:
     if not enabled:
         yield
         return
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    with _F32_LOCK:
+        if _F32_HOLD["count"] == 0:
+            _F32_HOLD["saved"] = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        _F32_HOLD["count"] += 1
     try:
-        with torch.backends.cudnn.flags(allow_tf32=False):
+        yield
+    finally:
+        with _F32_LOCK:
+            _F32_HOLD["count"] -= 1
+            if _F32_HOLD["count"] == 0:
+                torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = _F32_HOLD["saved"]
+
+
+MATMUL_PRECISIONS = ("default", "high", "highest")
+
+
+@contextlib.contextmanager
+def _matmul_precision(precision: str) -> Iterator[None]:
+    """TF32 for float32 products while the block runs: off (``highest``),
+    on (``high``) or the process's own flags (``default``)."""
+    if precision == "highest":
+        with _full_f32(True):
+            yield
+        return
+    if precision != "high":
+        yield
+        return
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with torch.backends.cudnn.flags(allow_tf32=True):
             yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def resolve_pallas(pallas: Optional[bool]) -> bool:
+    """The reference's tri-state kernel switch as a yes or no: ``None``
+    (auto) is yes unless ``POCKETTTS_PALLAS=0``; auto and on run every
+    kernel."""
+    if pallas is None:
+        return os.environ.get("POCKETTTS_PALLAS", "") != "0"
+    return bool(pallas)
+
+
+def kernel_model(model: PocketTTSModel, kernels: bool) -> PocketTTSModel:
+    """``model`` with its kernel call sites off when ``kernels`` is no, then
+    the Mimi env override (``auto_pallas_mimi``)."""
+    return auto_pallas_mimi(model if kernels else with_kernels(model, False))
+
+
+def kernels_scope(kernels: bool) -> contextlib.AbstractContextManager:
+    """The quantized linears' plain backends while a runtime without
+    kernels computes (nothing when ``kernels``)."""
+    return contextlib.nullcontext() if kernels else matmul_backends("xla", "split")
 
 
 def decode_float(
@@ -181,7 +254,8 @@ class GPURuntime:
     as it is.
     Randomness comes from a ``torch.Generator`` seeded with ``seed``; each
     request draws its own seed from it, so a request's noise does not depend
-    on how many steps earlier requests ran.
+    on how many steps earlier requests ran. ``pallas`` and
+    ``matmul_precision`` are the reference's switches (module docstring).
     """
 
     SYNC_EVERY = 16  # AR steps between host reads of ``done``
@@ -194,12 +268,20 @@ class GPURuntime:
         frame_bucket: int = 256,
         device: Union[str, torch.device] = DEFAULT_DEVICE,
         quantize: Union[bool, int] = False,
+        pallas: Optional[bool] = None,
+        matmul_precision: Optional[str] = None,
     ) -> None:
         self.device = resolve_device(device)
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"GPURuntime: dtype {dtype} not supported (float32 or bfloat16)")
         self.dtype = dtype
-        model = quantized_model(model, quantize)
+        if not matmul_precision:
+            matmul_precision = "highest" if dtype == torch.float32 else "default"
+        if matmul_precision not in MATMUL_PRECISIONS:
+            raise ValueError(f"GPURuntime: matmul_precision {matmul_precision!r} (want one of {MATMUL_PRECISIONS})")
+        self.matmul_precision = matmul_precision
+        self.kernels = resolve_pallas(pallas)
+        model = kernel_model(quantized_model(model, quantize), self.kernels)
         self.model = model if (model.device, model.dtype) == (self.device, dtype) else model.to(
             self.device, dtype
         )
@@ -212,12 +294,14 @@ class GPURuntime:
         self._time_cond = {}
 
     def _compute(self) -> contextlib.ExitStack:
-        """The context of the runtime's device work: inference mode, and
-        full float32 products on the float32 path. The streaming paths
-        enter it around each segment's work, never across a ``yield``."""
+        """The context of the runtime's device work: inference mode, its
+        matmul precision and, without kernels, the quantized linears' plain
+        backends. The streaming paths enter it around each segment's work,
+        never across a ``yield``."""
         stack = contextlib.ExitStack()
         stack.enter_context(torch.inference_mode())
-        stack.enter_context(_full_f32(self.dtype == torch.float32))
+        stack.enter_context(_matmul_precision(self.matmul_precision))
+        stack.enter_context(kernels_scope(self.kernels))
         return stack
 
     def mimi_timing(self) -> Tuple[float, float, int]:

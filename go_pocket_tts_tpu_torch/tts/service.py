@@ -130,17 +130,29 @@ def _stream_pcm_chunks(blocks, chunk_index: int, last_chunk: bool):
         yield PCMChunk(samples=np.zeros(0, np.float32), chunk_index=chunk_index, final=True)
 
 
-def _check_kernel_switch(value: str) -> None:
-    """The reference's ``--runtime-pallas``: the port has no switch that
-    sends the card path to the plain versions, so ``off`` is refused."""
+_PALLAS = {"auto": None, "on": True, "true": True, "1": True, "off": False, "false": False, "0": False}
+
+
+def _kernel_switch(value: str) -> Optional[bool]:
+    """``--runtime-pallas`` as the runtimes' tri-state ``pallas``."""
     key = str(value).strip().lower()
-    if key in ("off", "false", "0"):
-        raise ValueError(
-            "--runtime-pallas off has no counterpart in go_pocket_tts_tpu_torch: "
-            "it always runs its CUDA kernels on the card (use auto or on)"
-        )
-    if key not in ("auto", "on", "true", "1"):
-        raise ValueError(f"--runtime-pallas must be auto or on (got {value!r})")
+    if key not in _PALLAS:
+        raise ValueError(f"--runtime-pallas must be auto, on, or off (got {value!r})")
+    return _PALLAS[key]
+
+
+def _mesh(runtime_cfg):
+    """The mesh of ``--runtime-dp``/``--runtime-tp`` on the configured
+    device (None for neither): the reference's choice of ``dp_tp_mesh``
+    or ``dp_mesh``. Raises where the host has fewer cards than asked."""
+    from go_pocket_tts_tpu_torch.parallel.mesh import dp_mesh, dp_tp_mesh
+
+    dp, tp, device = runtime_cfg.dp_devices, runtime_cfg.tp_devices, runtime_cfg.device
+    if tp > 1:
+        return dp_tp_mesh(max(dp, 1), tp, device=device)
+    if dp > 1:
+        return dp_mesh(dp, device=device)
+    return None
 
 
 class Service:
@@ -167,8 +179,11 @@ class Service:
         unless the caller set ``cpu``): for ``gpu``, :class:`GPURuntime` at
         ``batch_slots <= 1``, else :class:`BatcherRuntime`; for ``torch``,
         :class:`TorchRuntime`; for ``cli``, :class:`CLIRuntime` (no device,
-        no tokenizer). Raises on a host without CUDA when the device is
-        ``cuda``; never falls back."""
+        no tokenizer). ``runtime.dp_devices``/``tp_devices`` above 1 serve
+        the batcher over their mesh (``parallel/mesh.py``), ``runtime.pallas``
+        and ``matmul_precision`` are the reference's switches. Raises on a
+        host without CUDA when the device is ``cuda``, or with fewer cards
+        than the mesh asks for; never falls back."""
         backend = normalize_backend(cfg.tts.backend)
         if backend == BACKEND_CLI:
             from go_pocket_tts_tpu_torch.tts.runtime_cli import CLIRuntime
@@ -180,8 +195,8 @@ class Service:
                 config_path=cfg.tts.cli_config_path,
             )
             return cls(runtime, None, cfg.tts)
-        device = resolve_device(cfg.runtime.device)
         if backend == BACKEND_TORCH:
+            device = resolve_device(cfg.runtime.device)
             from go_pocket_tts_tpu_torch.tts.runtime_torch import TorchRuntime
 
             tokenizer = load_tokenizer(cfg.paths.tokenizer_model)
@@ -190,7 +205,7 @@ class Service:
             )
             log.info("loaded torch runtime model=%s device=%s", cfg.paths.model_path, device)
             return cls(runtime, tokenizer, cfg.tts)
-        _check_kernel_switch(cfg.runtime.pallas)
+        pallas = _kernel_switch(cfg.runtime.pallas)
         batched = cfg.runtime.batch_slots > 1
         if not batched and cfg.runtime.kv_quantize:
             raise ValueError(
@@ -198,12 +213,17 @@ class Service:
                 "set --runtime-batch-slots > 1 (the single-request AR "
                 "step is weight-bound; int8 KV only pays at batch>1)"
             )
-        if cfg.runtime.tp_devices > 1 or cfg.runtime.dp_devices > 1:
+        if not batched and (cfg.runtime.tp_devices > 1 or cfg.runtime.dp_devices > 1):
+            # Meshes ride the continuous batcher; a silent single-card run
+            # would report numbers as "N-way parallel", so refuse loudly.
             raise ValueError(
-                "--runtime-tp/--runtime-dp are not yet ported to go_pocket_tts_tpu_torch "
-                f"(meshes, ROADMAP.md §1; got tp={cfg.runtime.tp_devices} "
-                f"dp={cfg.runtime.dp_devices})"
+                "--runtime-tp/--runtime-dp require the batched runtime: "
+                "set --runtime-batch-slots > 1 (got "
+                f"tp={cfg.runtime.tp_devices} dp={cfg.runtime.dp_devices} "
+                f"batch_slots={cfg.runtime.batch_slots})"
             )
+        mesh = _mesh(cfg.runtime) if batched else None
+        device = resolve_device(cfg.runtime.device)
         if cfg.runtime.compile_cache_dir:
             from go_pocket_tts_tpu_torch.kernels import build
 
@@ -251,13 +271,16 @@ class Service:
                 steps_per_sync=max(cfg.runtime.steps_per_sync, 1),
                 steps_per_sync_burst=max(cfg.runtime.steps_per_sync_burst, 0),
                 device=device,
+                mesh=mesh,
+                pallas=pallas,
             )
             log.info(
-                "loaded batched runtime model=%s device=%s dtype=%s slots=%d",
+                "loaded batched runtime model=%s device=%s dtype=%s slots=%d mesh=%s",
                 cfg.paths.model_path,
                 device,
                 dtype,
                 cfg.runtime.batch_slots,
+                None if mesh is None else mesh.shape,
             )
         else:
             runtime = GPURuntime(
@@ -267,6 +290,8 @@ class Service:
                 frame_bucket=cfg.runtime.frame_bucket,
                 quantize=quantize,
                 device=device,
+                pallas=pallas,
+                matmul_precision=cfg.runtime.matmul_precision or None,
             )
             log.info("loaded runtime model=%s device=%s dtype=%s", cfg.paths.model_path, device, dtype)
         return cls(runtime, tokenizer, cfg.tts)

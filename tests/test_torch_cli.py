@@ -30,12 +30,10 @@ from go_pocket_tts_tpu_torch.utils.safetensors import write_file
 
 ROOT = Path(__file__).resolve().parent.parent
 SECTIONS = ("paths", "runtime", "server", "tts")
-# The JAX package's field the port does not parse (XLA's matmul
-# precision), and the one it adds (where the runtimes run; set by the CLI
-# from POCKETTTS_PLATFORM).
-NOT_PARSED = {
-    "runtime": {"matmul_precision"},
-}
+# The JAX package's fields the port does not parse (none since the port
+# parses matmul_precision), and the one it adds (where the runtimes run;
+# set by the CLI from POCKETTTS_PLATFORM).
+NOT_PARSED = {}
 ADDED = {"runtime": {"device"}}
 DIFFERENT_DEFAULTS = {("runtime", "compile_cache_dir"), ("tts", "backend")}
 

@@ -1199,3 +1199,100 @@ def test_torch_oracle_on_card_matches_the_cpu(card):
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
     assert outs["cuda"].shape == outs["cpu"].shape == (18 * 1920,)
     assert np.sqrt(np.mean((outs["cuda"].astype(np.float64) - outs["cpu"]) ** 2)) < 1e-5
+
+
+# The four transformer linears of real_arch() as one tp=2 rank holds them:
+# in_proj and linear1 by columns, out_proj and linear2 by rows.
+TP2_LINEARS = [(1024, 1536), (512, 1024), (1024, 2048), (2048, 1024)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+def test_batched_decode_attention_step_at_the_tp2_shard(card, dtype, int8):
+    """Kernel 4's fused step on one tp=2 rank of real_arch(): 8 of the 16
+    heads, 8 lanes, capacity 384."""
+    gen = torch.Generator(device=card).manual_seed(16 + int8)
+    n_layers, b, h, c, d, layer = 6, 8, 8, 384, 64, 3
+    cos, sin = (t.to(card) for t in build_rope_tables(8192, d))
+    k, v = ((torch.randn((n_layers, b, h, c, d), generator=gen, device=card) * 0.3).to(dtype) for _ in range(2))
+    caches = [*quantize_kv_rows(k), *quantize_kv_rows(v)] if int8 else [k, v]
+    offsets = torch.tensor([0, c - 1, c, 5, 100, 383, 200, 17], dtype=torch.int32, device=card)
+    qkv = torch.randn((b, 1, 3 * h * d), generator=gen, device=card).to(dtype)
+    q, k_new, v_new = qkv.reshape(b, 1, 3, h, d).permute(2, 0, 3, 1, 4)
+    mine, ref = [x.clone() for x in caches], [x.clone() for x in caches]
+
+    def step(fn, bufs):
+        if int8:
+            return fn(q, k_new, v_new, bufs[0], bufs[2], offsets, cos, sin, layer, bufs[1], bufs[3])
+        return fn(q, k_new, v_new, bufs[0], bufs[1], offsets, cos, sin, layer)
+
+    counter = bda.batched_decode_attention_int8 if int8 else bda.batched_decode_attention
+    before = counter.launches
+    got = step(bda.batched_decode_attention_step, mine)
+    want = step(bda.batched_decode_attention_step_plain, ref)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    _close(got, want, dtype)
+    assert all(torch.equal(x, y) for x, y in zip(mine, ref))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("k,n", TP2_LINEARS)
+def test_matmul_kernels_at_the_tp2_shard_shapes(card, dtype, bits, k, n):
+    """Kernels 5 and 6 at a tp=2 rank's linears, 8 rows: the float32
+    partial a row-split rank hands to the reduction, and the product in the
+    activation dtype a column-split rank feeds on."""
+    gen = torch.Generator(device=card).manual_seed(k + n + bits)
+    x = torch.randn((8, k), generator=gen, device=card).to(dtype)
+    lin = quantize_linear({"w": torch.randn((k, n), generator=gen, device=card) / k**0.5}, bits=bits)
+    mod, plain = (qmm.quantized_matmul, qmm.quantized_matmul_plain) if bits == 8 else (i4mm.int4_matmul, i4mm.int4_matmul_plain)
+    for out_dtype in (torch.float32, dtype):
+        before = mod.launches
+        got = mod(x, lin["w"], lin["scale"], out_dtype=out_dtype)
+        want = plain(x, lin["w"], lin["scale"], out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert mod.launches == before + 1 and got.dtype == out_dtype
+        if out_dtype == torch.float32:
+            torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)  # f32 sums, another order
+        else:
+            _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_tiny_tp_batcher_kernels_match_plain(card, bits):
+    """The batcher over dp=2 × tp=2 on one card (four ranks at cuda:0) with
+    int8 or int4 weights and an int8 KV cache, on a tiny model whose heads
+    are 64 wide and whose rank linears pass the kernels' gates: kernels 4
+    and 5 or 6 launch on the shards, ``pallas=False`` launches nothing, and
+    both are the unsharded batcher within the path budget."""
+    from go_pocket_tts_tpu_torch.parallel import ContinuousBatcher, dp_tp_mesh
+
+    arch = dataclasses.replace(synthetic.tiny_arch(), d_model=512, num_heads=8, ffn_dim=1024, flow_dim=256, flow_hidden=256)
+    model = load_model_from_tensors(synthetic.build_checkpoint(arch, seed=2), num_heads=arch.num_heads, device=card)
+    cfg = GenerateConfig(temperature=0.0, eos_threshold=1e9, max_steps=8)
+
+    def serve(**kw):
+        batcher = ContinuousBatcher(
+            model, slots=4, prompt_capacity=16, max_frames=16, seed=1, quantize=bits, kv_quantize=True, device=card, **kw
+        )
+        batcher.start()
+        try:
+            futs = [batcher.submit(t, cfg) for t in ([3, 17, 41], [5, 9, 2, 60, 7], [8, 8], [1, 2, 3, 4])]
+            return [f.result(timeout=120) for f in futs]
+        finally:
+            batcher.stop()
+
+    mesh = dp_tp_mesh(2, 2, devices=[card] * 4)
+    kernels.reset_launches()
+    got = serve(mesh=mesh)
+    matmul = qmm.quantized_matmul if bits == 8 else i4mm.int4_matmul
+    assert bda.batched_decode_attention_int8.launches > 0 and matmul.launches > 0
+    kernels.reset_launches()
+    off = serve(mesh=mesh, pallas=False)
+    assert all(fn.launches == 0 for fn in kernels.WRAPPERS)
+    want = serve()
+    for g, o, w in zip(got, off, want):
+        assert g.shape == o.shape == w.shape == (8 * 1920,)
+        assert np.sqrt(np.mean((g - w) ** 2)) < 1e-3
+        assert np.sqrt(np.mean((o - w) ** 2)) < 1e-3

@@ -412,7 +412,7 @@ def _imported_roots(path: Path):
     PORT_FILES
     + ["chip_smoke.py", "scripts/torch_profile.py", "scripts/torch_profile_batched.py"]
     + ["scripts/time_up2_kernels.py", "scripts/time_decode_attention.py", "scripts/time_quantized_matmul.py"]
-    + ["scripts/torch_dump_parity.py"],
+    + ["scripts/torch_dump_parity.py", "scripts/torch_mesh_drift.py"],
 )
 def test_no_jax_imports(path):
     bad = [root for root in _imported_roots(ROOT / path) if root in FORBIDDEN]

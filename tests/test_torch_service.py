@@ -231,10 +231,10 @@ def test_from_config_builds_the_runtime_on_the_configured_device(fixture_files, 
     "runtime,match",
     [
         ({"kv_quantize": True}, "requires the batched runtime"),
-        ({"tp_devices": 2, "batch_slots": 4}, "not yet ported"),
-        ({"dp_devices": 2}, "not yet ported"),
-        ({"pallas": "off"}, "no counterpart"),
-        ({"pallas": "sometimes"}, "must be auto or on"),
+        ({"tp_devices": 2}, "require the batched runtime"),
+        ({"dp_devices": 2}, "require the batched runtime"),
+        ({"dp_devices": 2, "batch_slots": 2, "device": "cuda"}, "requested 2 devices but only"),
+        ({"pallas": "sometimes"}, "must be auto, on, or off"),
     ],
 )
 def test_from_config_refusals(fixture_files, runtime, match):
