@@ -172,6 +172,25 @@ failure exits non-zero:
    launch counter 0, the PCM within ``PATH_RMS_TOL`` of the kernels', both
    walls printed; (f) ``matmul_precision="highest"`` bit-equal to the
    float32 default, ``"high"`` runs.
+17. the per-bucket CUDA graphs (``runtime/graphs.py``; its launches kept
+   out of the kernel table), at ``real_arch()``: (a) each runner's replay
+   against its eager loop (a runtime or batcher with ``_graphs = None``),
+   float32 at temperature 0: the single path's frames, counts and int16
+   PCM over 40 frames (16-step graphs and a tail of 8), the streamed
+   blocks of 4, 8, 16 and a 3-frame tail, and the 8-slot int8-KV batcher
+   with int8 and with int4 weights driven by hand (admissions between
+   blocks, 8- and 64-step blocks, the stream decode, the harvest decode at
+   1 and 8 lanes, the final state), each bit-equal or within
+   ``GRAPH_RMS_TOL`` (printed which); in bfloat16 at temperature 0.7 on the
+   same noise, all of them bit-equal; (b) a ``Service``'s single runtime
+   (bfloat16) eager and as graphs in turns, four runs an arm: ``bench`` (x
+   real time, TTFA p50), ``stageprof`` (AR ms a step) and the first block
+   of ``stream_generate``, medians; (c) the device's busy share of a
+   24-token request under the profiler, each arm; (d) the graphs, capture
+   seconds and pool bytes of every cache the phase filled.
+
+Phases 3, 5, 7 and 9 (and every later one but the meshes) run their AR
+loops and decodes as those graphs; the launch counts are the replays'.
 
 Phase 2 also holds the SEANet kernels (bf16 on tensor cores) against
 their plain versions at 160 frames, bit-equal over two calls: kernels 2
@@ -1068,11 +1087,12 @@ def main_path(model, arch, counts: dict) -> None:
             f"samples {len(audio)} wall {wall * 1e3:.1f} ms  x{secs / wall:.2f} real time  [{CARD}]"
         )
     # A 15-frame latent: its pre-up3 length (7,200) is not a multiple of 512,
-    # so the decoder takes the fallback tail (up3, then fused_seanet_tail).
+    # so the decoder takes the fallback tail (up3, then fused_seanet_tail),
+    # here as the runtime's decode graph of that length.
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     latent = torch.randn((1, 15, arch.latent_dim), generator=gen, device="cuda").to(torch.bfloat16)
-    with torch.inference_mode():
-        pcm = model.mimi_decode(model.latent_to_mimi(latent))
+    with rt._compute():
+        pcm = rt._decode(latent, torch.full((1,), 15, dtype=torch.int32, device="cuda"), 15, pcm16=False)
     torch.cuda.synchronize()
     if tuple(pcm.shape) != (1, 1, 15 * 1920) or not torch.isfinite(pcm.float()).all():
         fail(f"fallback decode: pcm {tuple(pcm.shape)} or not finite")
@@ -1796,26 +1816,27 @@ SERVING = dict(slots=8, prompt_capacity=128, steps_per_sync=8, steps_per_sync_bu
 
 class BlockLog:
     """The size of every AR block the batcher enqueues while it is open,
-    with whether a streaming lane was attached then (the module's
-    ``_batched_ar_multi_step`` wrapped; the engine looks it up per block)."""
+    with whether a streaming lane was attached then (the engine class's
+    ``_ar_block`` wrapped; the engine looks it up per block)."""
 
     def __init__(self, batcher) -> None:
         from go_pocket_tts_tpu_torch.parallel import batching
 
         self.blocks: list = []
-        self._mod, self._orig = batching, batching._batched_ar_multi_step
+        self._cls, self._orig = batching._Engine, batching._Engine._ar_block
+        orig = self._orig
 
-        def logged(params, cfg, state, k, *args):
+        def logged(engine, k):
             self.blocks.append((k, batcher._any_streaming()))
-            return self._orig(params, cfg, state, k, *args)
+            return orig(engine, k)
 
-        batching._batched_ar_multi_step = logged
+        batching._Engine._ar_block = logged
 
     def __enter__(self) -> "BlockLog":
         return self
 
     def __exit__(self, *exc) -> None:
-        self._mod._batched_ar_multi_step = self._orig
+        self._cls._ar_block = self._orig
 
     def runs(self) -> list:
         """``[[k, streaming, n_blocks], ...]`` in order."""
@@ -3701,6 +3722,305 @@ def meshes_and_switches(fixtures, rows: dict) -> None:
     print(f"  phase 16 launches: {counts}")
 
 
+# -- phase 17: the per-bucket CUDA graphs against the eager loops ---------------
+
+# Replay against the eager loops in float32: bit-equal, or within this RMS
+# where a library picks another algorithm under capture (printed which).
+GRAPH_RMS_TOL = 1e-6
+
+
+def _replay_vs_eager(got, want, what: str, strict: bool = False) -> str:
+    g, w = (torch.as_tensor(x).detach().float().cpu() for x in (got, want))
+    if g.shape != w.shape:
+        fail(f"{what}: replay shape {tuple(g.shape)} != eager {tuple(w.shape)}")
+    if torch.equal(g, w):
+        return "bit-equal"
+    rms = float(torch.sqrt(torch.mean((g - w) ** 2)))
+    if strict or not rms <= GRAPH_RMS_TOL:
+        fail(f"{what}: replay differs from the eager loop, RMS {rms:.3e}"
+             + ("" if strict else f" > {GRAPH_RMS_TOL}"))
+    return f"RMS {rms:.3e}, not bit-equal"
+
+
+def _key_name(key) -> str:
+    """A batcher graph's key as kind:steps, or kind:lanes x bucket."""
+    return f"{key[0]}:{key[-2]}x{key[-1]}" if key[0] == "harvest" else f"{key[0]}:{key[-1]}"
+
+
+def _single_arms(model, dtype, tokens, cfg):
+    """The one-shot path (setup, AR loop, int16 decode) on a graph runtime and
+    an eager one of the same seed: ``(graph runtime, [(frames, n, pcm16)] for
+    graphs then eager)``."""
+    from go_pocket_tts_tpu_torch.runtime import GPURuntime
+    from go_pocket_tts_tpu_torch.utils import buckets as bk
+
+    out, graph_rt = [], None
+    for graphs_on in (True, False):
+        rt = GPURuntime(model, dtype=dtype, seed=SEED, device="cuda")
+        if graphs_on:
+            graph_rt = rt
+        else:
+            rt._graphs = None
+        with rt._compute():
+            cache, max_steps, decode_steps, bucket, _ = rt._setup(tokens, cfg)
+            frames, n, _ = rt._ar_loop(cache, cfg, max_steps, decode_steps, bucket)
+            pcm = rt._decode(frames, n, min(bk.round_up(max_steps, 32), bucket))
+            out.append((frames.clone(), n.clone(), pcm.clone()))
+    return graph_rt, out
+
+
+def _streamed_arms(model, dtype, tokens, cfg):
+    """``stream_generate`` on a graph runtime and an eager one."""
+    from go_pocket_tts_tpu_torch.runtime import GPURuntime, stream_generate
+
+    out, graph_rt = [], None
+    for graphs_on in (True, False):
+        rt = GPURuntime(model, dtype=dtype, seed=SEED, device="cuda")
+        if graphs_on:
+            graph_rt = rt
+        else:
+            rt._graphs = None
+        out.append(list(stream_generate(rt, tokens, cfg)))
+    return graph_rt, out
+
+
+def _drive_engine(batcher, reqs, temperature: float) -> list:
+    """The engine's programs by hand, in this thread, so that both arms see
+    the same admissions: lane 0 streamed and three plain lanes admitted at
+    once, two 8-step blocks with the stream decode, the other requests
+    admitted (a full-slot prefill), two more 8-step blocks and one 64-step
+    block, then the harvest decode at 1 and at every lane. Returns every
+    output, copied."""
+    import queue
+    from concurrent.futures import Future
+
+    from go_pocket_tts_tpu_torch.parallel.batching import _Request
+    from go_pocket_tts_tpu_torch.runtime import GenerateConfig
+
+    def admit(items, first_streams):
+        for i, (tokens, frames) in enumerate(items):
+            cfg = GenerateConfig(temperature=temperature, eos_threshold=1e9, max_steps=frames)
+            stream = queue.Queue() if first_streams and i == 0 else None
+            batcher._queue.put(_Request(list(tokens), cfg, Future(), stream=stream))
+        batcher._admit()
+
+    out = []
+    streaming = lambda: [info.request is not None and info.streaming for info in batcher._slot_info]  # noqa: E731
+    with torch.no_grad():
+        admit(reqs[:4], True)
+        for block, k in enumerate((8, 8, 8, 8, 64)):
+            if block == 2:
+                admit(reqs[4:], False)
+            windows, n_new, flags = batcher._ar_block(k)
+            out += [t.clone() for t in (windows, n_new, flags)]
+            if k == 8:
+                out.append(batcher._stream_decode(windows, n_new, streaming()).clone())
+        for lanes in ([3], list(range(batcher.slots))):
+            out.append(batcher._harvest_decode(torch.tensor(lanes), 128).clone())
+        state = batcher._state
+        out += [state["frames"].clone(), state["n_frames"].clone(), state["cache"]["k"].clone()]
+        out += [t.clone() for t in batcher._stream_state.values()]
+    torch.cuda.synchronize()
+    return out
+
+
+def _batched_arms(model, reqs, quantize, temperature: float):
+    """The 8-slot int8-KV batcher at the serving block sizes, driven by hand
+    with graphs and eagerly: ``(graph batcher, [outputs, outputs])``."""
+    from go_pocket_tts_tpu_torch.parallel import ContinuousBatcher
+
+    out, graph_b = [], None
+    for graphs_on in (True, False):
+        b = ContinuousBatcher(
+            model, slots=8, prompt_capacity=128, max_frames=256, dtype=model.dtype, seed=SEED, steps_per_sync=8,
+            steps_per_sync_burst=64, quantize=quantize, kv_quantize=True, device="cuda",
+        )
+        if graphs_on:
+            graph_b = b
+        else:
+            b._graphs = None
+        out.append(_drive_engine(b, reqs, temperature))
+    return graph_b, out
+
+
+def _cache_stats(what: str, cache) -> tuple:
+    """(what, graphs, captures, capture seconds, pool bytes) of a graph cache."""
+    return what, len(cache), cache.captures, cache.capture_seconds, cache.pool_bytes()
+
+
+def _release() -> None:
+    """Free what the dropped runtimes and batchers held (a batcher that was
+    never started is its own engine: a reference cycle)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def replay_against_eager(arch) -> list:
+    """(a): every runner's replay against its eager loop at ``real_arch()``;
+    returns the statistics of the graph caches it filled."""
+    from go_pocket_tts_tpu_torch.runtime import GenerateConfig
+
+    caches = []
+    tokens = main_requests(arch)[1][0]
+    reqs, _ = serving_requests(arch)
+    reqs = [(t, f) for t, f in zip(reqs[:8], (40, 24, 33, 70, 19, 45, 28, 61))]
+    _arch, model32 = build_model(torch.float32)
+    cfg0 = GenerateConfig(temperature=0.0, eos_threshold=1e9, max_steps=40)  # 2 x 16 + a tail of 8
+    rt, ((fg, ng, pg), (fe, ne, pe)) = _single_arms(model32, torch.float32, tokens, cfg0)
+    caches.append(_cache_stats("single f32", rt._graphs))
+    print(f"  single f32 T=0, 40 frames ({sorted(k[-1] for k in rt._graphs.keys() if k[0] == 'ar')}-step AR "
+          f"graphs): frames {_replay_vs_eager(fg, fe, 'single frames')}, n_frames "
+          f"{_replay_vs_eager(ng, ne, 'single n_frames', strict=True)}, PCM {_replay_vs_eager(pg, pe, 'single PCM')}  "
+          f"[{CARD}]")
+    cfg31 = GenerateConfig(temperature=0.0, eos_threshold=1e9, max_steps=31)  # segments 4, 8, 16 and a tail of 3
+    rt, (got, want) = _streamed_arms(model32, torch.float32, tokens, cfg31)
+    caches.append(_cache_stats("streamed f32", rt._graphs))
+    sizes = [len(b) // 1920 for b in got]
+    if sizes != [4, 8, 16, 3] or sizes != [len(b) // 1920 for b in want]:
+        fail(f"streamed blocks {sizes}, eager {[len(b) // 1920 for b in want]}, want [4, 8, 16, 3]")
+    verdicts = [_replay_vs_eager(g, w, f"streamed block {i}") for i, (g, w) in enumerate(zip(got, want))]
+    print(f"  streamed f32 T=0, blocks of {sizes} frames: {verdicts}  [{CARD}]")
+    for quantize, name in ((True, "int8"), (4, "int4")):
+        b, (got, want) = _batched_arms(model32, reqs, quantize, 0.0)
+        caches.append(_cache_stats(f"batcher f32 {name}", b._graphs))
+        verdicts = {_replay_vs_eager(g, w, f"batcher {name} output {i}") for i, (g, w) in enumerate(zip(got, want))}
+        print(f"  batcher f32 T=0 {name} weights, int8 KV: {len(got)} outputs (blocks of 8 and 64 steps, stream "
+              f"decode, harvest decode at 1 and 8 lanes, final state): {sorted(verdicts)}; graphs "
+              f"{sorted(_key_name(k) for k in b._graphs.keys())}  [{CARD}]")
+        del b, got, want
+        _release()
+    del model32, rt
+    _release()
+
+    _arch, model16 = build_model(torch.bfloat16)
+    cfg7 = GenerateConfig(temperature=0.7, eos_threshold=1e9, max_steps=40)
+    rt, ((fg, ng, pg), (fe, ne, pe)) = _single_arms(model16, torch.bfloat16, tokens, cfg7)
+    caches.append(_cache_stats("single bf16", rt._graphs))
+    for what, g, w in (("frames", fg, fe), ("PCM", pg, pe)):
+        _replay_vs_eager(g, w, f"single bf16 T=0.7 {what}", strict=True)
+    rt, (got, want) = _streamed_arms(model16, torch.bfloat16, tokens, GenerateConfig(temperature=0.7, eos_threshold=1e9,
+                                                                                     max_steps=31))
+    caches.append(_cache_stats("streamed bf16", rt._graphs))
+    for i, (g, w) in enumerate(zip(got, want)):
+        _replay_vs_eager(g, w, f"streamed bf16 T=0.7 block {i}", strict=True)
+    b, (got, want) = _batched_arms(model16, reqs, True, 0.7)
+    caches.append(_cache_stats("batcher bf16 int8", b._graphs))
+    for i, (g, w) in enumerate(zip(got, want)):
+        _replay_vs_eager(g, w, f"batcher bf16 T=0.7 output {i}", strict=True)
+    print(f"  bf16 T=0.7, the same noise: the single path's frames and PCM, the 4 streamed blocks and the "
+          f"{len(got)} batcher outputs (int8 weights): bit-equal  [{CARD}]")
+    del b, model16, rt, got, want
+    _release()
+    return caches
+
+
+def _busy(rt, tokens, cfg) -> tuple:
+    """One request under the profiler: (device ms, wall ms, CUDA events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        rt.generate_audio(tokens, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.self_device_time_total for e in events) / 1e3, wall * 1e3, sum(e.count for e in events)
+
+
+def eager_against_graphs(fixtures, arch) -> list:
+    """(b) and (c): the single runtime of a ``Service`` (bf16, the card's
+    defaults), its loops eager and as graphs in turns: ``bench`` (x real
+    time, TTFA p50), ``stageprof`` (AR ms a step), the first block of
+    ``stream_generate``, each arm four runs, medians; then the device's
+    busy share of a 24-token request under the profiler, each arm."""
+    from go_pocket_tts_tpu_torch.bench.harness import run_bench
+    from go_pocket_tts_tpu_torch.bench.stageprof import profile_synthesis
+    from go_pocket_tts_tpu_torch.runtime import GenerateConfig, stream_generate
+    from go_pocket_tts_tpu_torch.text import prepare_chunks
+    from go_pocket_tts_tpu_torch.tts.service import Service
+
+    svc = Service.from_config(entry_config(*fixtures, batch_slots=1, temperature=0.7))
+    rt = svc.runtime
+    graphs = rt._graphs
+    ids = prepare_chunks(TOOLS_TEXT, svc.tokenizer, 50)[0].token_ids
+    cfg = GenerateConfig(temperature=0.7, eos_threshold=1e9)
+    readings = {"eager": [], "graphs": []}
+
+    def run(arm: str) -> dict:
+        rt._graphs = graphs if arm == "graphs" else None
+        stats = run_bench(svc, TOOLS_TEXT, runs=1, include_cold=False)
+        prof = profile_synthesis(svc, TOOLS_TEXT)
+        frames = round(prof.audio_seconds / 0.08)
+        with svc._lock:
+            t = time.perf_counter()
+            blocks = stream_generate(rt, ids, cfg)
+            next(blocks)
+            first = time.perf_counter() - t
+            for _ in blocks:
+                pass
+        return {"x": stats.runs[0].x_realtime, "ttfa": stats.ttfa_p50 * 1e3, "ar": prof.stages["ar"] * 1e3 / frames,
+                "stream_ttfa": first * 1e3, "frames": frames}
+
+    for arm in ("eager", "graphs"):  # warm: the graphs' captures, the first prefills
+        run(arm)
+    for arm in ("eager", "graphs", "graphs", "eager") * 2:
+        readings[arm].append(run(arm))
+    med = {arm: {k: statistics.median(r[k] for r in rs) for k in rs[0]} for arm, rs in readings.items()}
+    for key, what, unit in (("ar", "AR per step (stageprof)", "ms"), ("x", "x real time (bench)", ""),
+                            ("ttfa", "TTFA p50 (bench, one-shot chunk)", "ms"),
+                            ("stream_ttfa", "first streamed block (stream_generate)", "ms")):
+        e, g = med["eager"][key], med["graphs"][key]
+        runs = {arm: [f"{r[key]:.2f}" for r in rs] for arm, rs in readings.items()}
+        gain = e / g if key != "x" else g / e
+        print(f"  {what}: eager median {e:.3f}{unit}, graphs median {g:.3f}{unit} (x{gain:.2f} better); runs eager "
+              f"{runs['eager']}, graphs {runs['graphs']}  [{CARD}]")
+    print(f"  ({med['graphs']['frames']:.0f} frames a bench run, 4 runs an arm alternated eager/graphs/graphs/eager)")
+
+    tokens = main_requests(arch)[1][0]
+    with svc._lock:
+        rt.generate_audio(tokens, cfg)  # this request's buckets captured before the profiled runs
+    busy = {}
+    for arm in ("eager", "graphs", "graphs", "eager"):
+        rt._graphs = graphs if arm == "graphs" else None
+        with svc._lock:
+            busy.setdefault(arm, []).append(_busy(rt, tokens, cfg))
+    for arm, rs in busy.items():
+        dev, wall, n = rs[-1]
+        print(f"  {arm} under the profiler, 24 tokens (125 frames): device busy {dev:.2f} ms of {wall:.2f} ms wall "
+              f"({100 * dev / wall:.1f}%), {n} CUDA events; other run {100 * rs[0][0] / rs[0][1]:.1f}%  [{CARD}]")
+    rt._graphs = graphs
+    return [_cache_stats("service single bf16", graphs)]
+
+
+def _memory() -> str:
+    free, total = torch.cuda.mem_get_info()
+    return (f"card memory free {free / 2**30:.1f} of {total / 2**30:.1f} GiB, this process reserves "
+            f"{torch.cuda.memory_reserved() / 2**30:.1f} GiB")
+
+
+def graphs_phase(fixtures, arch) -> None:
+    """Phase 17: the graphs against the eager loops, then what they cost."""
+    from go_pocket_tts_tpu_torch import kernels
+
+    _release()
+    print(f"  at the start: {_memory()}  [{CARD}]")
+    caches = replay_against_eager(arch)
+    caches += eager_against_graphs(fixtures, arch)
+    kernels.reset_launches()  # phase 17's launches stay out of the kernel table
+    total = {"graphs": 0, "captures": 0, "seconds": 0.0, "bytes": 0}
+    for what, n, captures, seconds, pool in caches:
+        total["graphs"] += n
+        total["captures"] += captures
+        total["seconds"] += seconds
+        total["bytes"] += pool
+        print(f"  {what}: {n} graphs, {captures} captures in {seconds:.2f} s, pool {pool / 2**20:.1f} MiB")
+    print(f"  phase 17: {total['graphs']} graphs captured in {total['seconds']:.2f} s, their pools "
+          f"{total['bytes'] / 2**20:.1f} MiB; {_memory()}  [{CARD}]")
+
+
 def main() -> int:
     global CARD
     if not torch.cuda.is_available():
@@ -3777,6 +4097,7 @@ def main() -> int:
     print("the SEANet kernels' device time on the paths of phases 3, 5, 7 and 9 (bfloat16)")
     path_device_times(rows)
 
+    print(f"  phases 1-10 took {time.perf_counter() - t_start:.1f} s; {_memory()}  [{CARD}]")
     print("phase 11: the entry points: Service, HTTP server and CLI (real_arch, bfloat16)")
     t = time.perf_counter()
     fixtures = entry_points(model, root)
@@ -3785,7 +4106,7 @@ def main() -> int:
     print("phase 12: batched serving, whole: streams, voices, sessions, cancel, HTTP (real_arch, bfloat16)")
     t = time.perf_counter()
     batched_serving_whole(model, arch, fixtures, int8_one_shot)
-    print(f"  phase 12 took {time.perf_counter() - t:.1f} s  [{CARD}]")
+    print(f"  phase 12 took {time.perf_counter() - t:.1f} s; {_memory()}  [{CARD}]")
     print("the SEANet kernels' device time on phase 12's paths (bfloat16)")
     path_device_times(rows, PHASE12_SHAPES, "phase12_path")
 
@@ -3810,7 +4131,12 @@ def main() -> int:
     print("phase 16: dp/tp meshes on one card, kernels at the tp shards, pallas=off and matmul_precision")
     t = time.perf_counter()
     meshes_and_switches(fixtures, rows)
-    print(f"  phase 16 took {time.perf_counter() - t:.1f} s  [{CARD}]")
+    print(f"  phase 16 took {time.perf_counter() - t:.1f} s; {_memory()}  [{CARD}]")
+
+    print("phase 17: the per-bucket CUDA graphs against the eager loops (real_arch): replay, walls, busy share, cost")
+    t = time.perf_counter()
+    graphs_phase(fixtures, checkpoint()[0])
+    print(f"  phase 17 took {time.perf_counter() - t:.1f} s  [{CARD}]")
 
     for name, row in rows.items():
         row["launches"] = counts.get(name, 0)

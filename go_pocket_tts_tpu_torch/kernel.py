@@ -16,6 +16,7 @@ the one-shot route launches the decode-attention and SEANet kernels and the
 
 from __future__ import annotations
 
+import threading
 from pathlib import Path
 from typing import Callable, List, Optional, Union
 
@@ -64,6 +65,9 @@ class PocketTTSKernel:
         self._device = resolve_device(device)
         self._runtime: Optional[GPURuntime] = None
         self._tokenizer = None
+        # The runtime replays its graphs over static buffers: one
+        # synthesis at a time.
+        self._lock = threading.Lock()
 
     @property
     def loaded(self) -> bool:
@@ -109,6 +113,10 @@ class PocketTTSKernel:
         ``continuity=True`` carries the flow-LM KV state across text chunks
         (long-form prosody); progress keeps block granularity there too via
         the session-aware frame streamer."""
+        with self._lock:
+            return self._synthesize(text, voice, temperature, eos_threshold, lsd_decode_steps, progress, continuity)
+
+    def _synthesize(self, text, voice, temperature, eos_threshold, lsd_decode_steps, progress, continuity) -> bytes:
         self._require_loaded()
         voice_emb = voice_state = None
         if voice:

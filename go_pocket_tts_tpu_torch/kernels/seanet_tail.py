@@ -178,7 +178,11 @@ def fused_up2_up3_tail_stream_plain(
     they cover the chain's receptive field (2 input columns for the
     reference's kernel sizes), and with ``s < HALO`` the extended sequence
     begins at absolute 0, where the chain's own zero padding is the causal
-    mask. Reads ``start`` on the host. ``strides`` are (up2, up3)."""
+    mask. ``strides`` are (up2, up3). For CPU tensors it reads ``start`` on
+    the host and runs the chain once per group of lanes; for CUDA ones
+    (a CUDA graph may be capturing it) :func:`_stream_plain_every_halo`."""
+    if start.is_cuda:
+        return _stream_plain_every_halo(x, halo, start, *weights, strides=strides)
     b, _, t = x.shape
     per_sample = strides[0] * strides[1]
     lanes_of: Dict[int, list] = {}
@@ -189,6 +193,23 @@ def fused_up2_up3_tail_stream_plain(
         idx = torch.tensor(lanes, device=x.device)
         xe = torch.cat([halo[idx, :, HALO - n :].to(x.dtype), x[idx]], dim=2)
         out[idx] = fused_up2_up3_tail_plain(xe, *weights, strides=strides)[:, :, per_sample * n :]
+    return out
+
+
+def _stream_plain_every_halo(
+    x, halo, start, *weights, strides: Tuple[int, int] = (_UP2_S, _UP_S)
+) -> torch.Tensor:
+    """:func:`fused_up2_up3_tail_stream_plain` without reading ``start`` on
+    the host: the chain runs over every lane once for each halo length
+    ``0..HALO``, and each lane keeps the run of its own length."""
+    b, _, t = x.shape
+    per_sample = strides[0] * strides[1]
+    n_of = start.clamp(0, HALO)[:, None, None]
+    out = torch.zeros((b, 1, per_sample * t), dtype=x.dtype, device=x.device)
+    for n in range(HALO + 1):
+        xe = torch.cat([halo[:, :, HALO - n :].to(x.dtype), x], dim=2)
+        pcm = fused_up2_up3_tail_plain(xe, *weights, strides=strides)[:, :, per_sample * n :]
+        out = torch.where(n_of == n, pcm, out)
     return out
 
 

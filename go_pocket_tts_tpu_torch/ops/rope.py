@@ -50,8 +50,13 @@ def rope_rows(
     """The cos/sin rows ``[T, half]`` for positions ``pos .. pos+t-1``.
 
     ``pos`` may be a Python int or a 0-d int tensor on the tables' device;
-    the gather is an ``index_select`` so a device offset needs no sync."""
-    idx = torch.arange(t, device=cos.device) + torch.as_tensor(pos, device=cos.device).long()
+    the gather is an ``index_select`` so a device offset needs no sync, and
+    an int offset needs no copy to the device (a CUDA graph may be
+    capturing)."""
+    if isinstance(pos, int):
+        idx = torch.arange(pos, pos + t, device=cos.device)
+    else:
+        idx = torch.arange(t, device=cos.device) + torch.as_tensor(pos, device=cos.device).long()
     return cos.index_select(0, idx), sin.index_select(0, idx)
 
 

@@ -32,14 +32,21 @@ A fixed set of request *slots* steps together:
 
 Unlike the reference, whose state arrays are donated to each program and
 replaced, the KV caches, the frame buffer, the per-lane fields and the
-stream decoder's K/V buffers are updated IN PLACE. All device work of the
-engine is issued from its thread on one stream, so each in-place write is
-ordered after every read that was enqueued before it; everything the engine
-reads one iteration later (flags, PCM, counts) is a fresh tensor, and a
-session snapshot is a copy. The LSD noise comes from a device
-``torch.Generator`` the batcher owns, drawn per block on the device (JAX's
-threefry bits cannot be reproduced, so the two packages agree at
-temperature 0 only).
+stream decoder's state are updated IN PLACE. On the card the engine's
+programs are captured CUDA graphs (``runtime/graphs.py``), the reference's
+jitted ones: one AR block graph per block size, its stream decode per
+block size, and the harvest decode per (padded lane count, decode
+bucket). Each writes every new state leaf back into the engine's state
+tensors, which so keep their addresses, and admissions write into them
+between blocks. All device work of the engine is issued from its thread
+on one stream, so each in-place write is ordered after every read that was
+enqueued before it; everything the engine reads one iteration later
+(flags, PCM, counts) is copied to the host before the next graph runs, and
+a session snapshot is a copy. The LSD noise comes from a device
+``torch.Generator`` the batcher owns, drawn per block into the block
+graph's static noise buffer (JAX's threefry bits cannot be reproduced, so
+the two packages agree at temperature 0 only). On the CPU the graphs'
+bodies run eagerly over the same buffers.
 
 **Meshes** (``mesh=``, ``parallel/mesh.py``). Each dp row of the mesh is an
 engine replica: ``slots/dp`` slots, its own state, stream decoder, device
@@ -55,6 +62,7 @@ ordering argument above holds per replica. A session's snapshot gathers
 the heads back into one lane on the replica's rank 0, so it resumes on any
 replica.
 
+A mesh replica runs its programs eagerly: its tp ranks span devices.
 ``pallas=False`` (or ``None`` with ``POCKETTTS_PALLAS=0``) runs every
 kernel's plain version on the card, as ``GPURuntime`` does. An idle engine
 waits for a request without taking it from the queue, so a burst is
@@ -99,6 +107,7 @@ from go_pocket_tts_tpu_torch.runtime.generate import (
     quantized_model,
     resolve_pallas,
 )
+from go_pocket_tts_tpu_torch.runtime.graphs import GraphCache, feed, write_back
 from go_pocket_tts_tpu_torch.text.prepare import estimate_max_frames
 from go_pocket_tts_tpu_torch.utils import buckets as bk
 
@@ -228,20 +237,29 @@ def _ar_step_body(params, cfg, state: State, noise: torch.Tensor, decode_steps: 
 
 def _batched_ar_multi_step(params, cfg, state: State, k: int, decode_steps: int, gen: torch.Generator, time_cond, fused_ada):
     """``k`` AR steps for all lanes, enqueued with no host sync: the noise
-    of the whole block is drawn on the device first, scaled per lane by
-    ``sqrt(temperature)``.
+    of the whole block is drawn on the device first (``[k, B, L]`` from
+    ``gen``), then :func:`_ar_block_steps`. The eager form of the engine's
+    block graph."""
+    frame = state["frame"]
+    noise = torch.randn((k, frame.shape[0], frame.shape[2]), generator=gen, device=frame.device, dtype=torch.float32)
+    return _ar_block_steps(params, cfg, state, noise, decode_steps, time_cond, fused_ada)
+
+
+def _ar_block_steps(params, cfg, state: State, noise: torch.Tensor, decode_steps: int, time_cond, fused_ada):
+    """``len(noise)`` AR steps for all lanes, the noise ``[k, B, L]`` scaled
+    per lane by ``sqrt(temperature)``.
 
     Returns ``(state, windows, n_new, flags)``: ``windows [B, k, L]`` is
     each lane's frames written by this block, left-aligned from its frame
     count before the block, ``n_new [B]`` their number (0 for a lane that
     is not live), and ``flags`` a ``[3, B]`` int32 copy of
     done/active/n_frames. All three are fresh tensors (a gather, a
-    difference, a stack): the engine reads them one iteration later, after
-    the next block and admissions have written the state in place."""
+    difference, a stack), never views of the state: the engine copies them
+    to the host and reads them one iteration later, after the next block
+    and admissions have written the state in place."""
     frame = state["frame"]
-    slots, latent = frame.shape[0], frame.shape[2]
+    k, slots = noise.shape[0], frame.shape[0]
     n_before = state["n_frames"].clone()
-    noise = torch.randn((k, slots, latent), generator=gen, device=frame.device, dtype=torch.float32)
     noise = (noise * state["sigma"][None, :, None]).to(frame.dtype)
     for step in range(k):
         state = _ar_step_body(params, cfg, state, noise[step], decode_steps, time_cond, fused_ada)
@@ -464,6 +482,9 @@ class _Engine:
             # each block program).
             self._time_cond = flm.fnet.precompute_time_cond(flow["flow_net"], 1)
             self._fused_ada = flm.fnet.precompute_fused_adaln(flow["flow_net"])
+        # The block, stream-decode and harvest-decode graphs, captured and
+        # replayed by the engine thread. A mesh replica runs them eagerly.
+        self._graphs: Optional[GraphCache] = GraphCache(device) if owner.mesh is None else None
 
     @staticmethod
     def _new_pool() -> ThreadPoolExecutor:
@@ -480,6 +501,9 @@ class _Engine:
         self._stop.set()
         if self._thread is not None:
             self._thread.join(timeout=30)
+        if self._graphs is not None:
+            # Release the graphs and their pool; a restart captures anew.
+            self._graphs.release()
         # Deliver every already-harvested wave before returning.
         if self._harvest_pool is not None:
             self._harvest_pool.shutdown(wait=True)
@@ -725,19 +749,11 @@ class _Engine:
             return
         # All finished lanes decode together (count padded like admission);
         # the drainer thread waits for the PCM, so the engine goes on.
-        frames = self._state["frames"]
-        bucket = min(bk.pick_bucket(max(n for _s, n in to_decode), bk.DECODE_BUCKETS), frames.shape[1])
+        bucket = min(bk.pick_bucket(max(n for _s, n in to_decode), bk.DECODE_BUCKETS), self._state["frames"].shape[1])
         slot_ids = [s for s, _n in to_decode]
         slot_ids += [slot_ids[0]] * (self._pad_count(len(slot_ids)) - len(slot_ids))
-        pcm = _harvest_decode_pcm16(
-            self.model,
-            frames,
-            torch.as_tensor(slot_ids, dtype=torch.long).to(self.device),
-            self._state["n_frames"],
-            bucket,
-        )
         # Padding lanes are dropped before the copy to the host.
-        pcm = HostCopy(pcm[: len(to_decode)])
+        pcm = HostCopy(self._harvest_decode(torch.as_tensor(slot_ids, dtype=torch.long), bucket)[: len(to_decode)])
         for slot, _n in to_decode:
             req = self._slot_info[slot].request
             if req.keep_state:
@@ -771,6 +787,92 @@ class _Engine:
             info.stream_parts = None
         idx = torch.as_tensor(slots_, dtype=torch.long).to(self.device)
         self._state["active"][idx] = False
+
+    # -- the engine's programs: graphs, or eager on a mesh replica ---------
+
+    def _ar_block(self, k: int):
+        """One AR block of ``k`` steps → ``(windows, n_new, flags)``
+        (:func:`_ar_block_steps`), as the graph of its block size, which
+        draws its noise from the engine's generator into its static buffer
+        and writes every new state leaf back into ``self._state``: the state
+        keeps its addresses, and admissions write into it between blocks.
+        The outputs are static: copied or consumed before the next block."""
+        params, cfg = self.model.params["flow_lm"], self.model.config.flow_lm
+        time_cond, fused_ada = self._time_cond, self._fused_ada
+        if self._graphs is None:
+            self._state, windows, n_new, flags = _batched_ar_multi_step(
+                params, cfg, self._state, k, 1, self._gen, time_cond, fused_ada
+            )
+            return windows, n_new, flags
+
+        def make():
+            frame = self._state["frame"]
+            noise = torch.empty((k, frame.shape[0], frame.shape[2]), dtype=torch.float32, device=self.device)
+
+            def body(inputs):
+                new, windows, n_new, flags = _ar_block_steps(
+                    params, cfg, inputs["state"], inputs["noise"], 1, time_cond, fused_ada
+                )
+                write_back(inputs["state"], new)
+                return windows, n_new, flags
+
+            return body, {"state": self._state, "noise": noise}
+
+        graph = self._graphs.get(("block", self.slots, self.capacity, self.dtype, self.kv_quantize, k), make)
+        graph.inputs["noise"].normal_(generator=self._gen)
+        return graph.run()
+
+    def _stream_decode(self, windows: torch.Tensor, n_new: torch.Tensor, streaming: List[bool]) -> torch.Tensor:
+        """:func:`_batched_stream_decode` of a block's frames for the
+        streaming lanes, as the graph of its block size over the engine's
+        stream state (updated in place) → int16 PCM (static)."""
+        mask = torch.as_tensor(streaming)
+        if self._graphs is None:
+            pcm16, self._stream_state = _batched_stream_decode(
+                self.model, self._stream_state, windows, n_new, mask.to(self.device, non_blocking=True)
+            )
+            return pcm16
+
+        model = self.model
+
+        def make():
+            def body(inputs):
+                pcm16, new = _batched_stream_decode(
+                    model, inputs["state"], inputs["windows"], inputs["n_new"], inputs["mask"]
+                )
+                write_back(inputs["state"], new)
+                return pcm16
+
+            # The block graph's outputs are static: read in place.
+            inputs = {"state": self._stream_state, "windows": windows, "n_new": n_new}
+            return body, {**inputs, "mask": torch.empty(mask.shape, dtype=torch.bool, device=self.device)}
+
+        graph = self._graphs.get(("stream", self.slots, self.dtype, windows.shape[1]), make)
+        feed(graph.inputs, windows=windows, n_new=n_new, mask=mask)
+        return graph.run()
+
+    def _harvest_decode(self, slot_ids: torch.Tensor, bucket: int) -> torch.Tensor:
+        """:func:`_harvest_decode_pcm16` of the lanes ``slot_ids`` (a host
+        tensor, padded to 1 or every slot) at ``bucket`` frames, as the graph
+        of (lane count, bucket) with the ids in a static buffer → int16 PCM
+        (static)."""
+        if self._graphs is None:
+            return _harvest_decode_pcm16(
+                self.model, self._state["frames"], slot_ids.to(self.device), self._state["n_frames"], bucket
+            )
+
+        model = self.model
+
+        def make():
+            def body(inputs):
+                return _harvest_decode_pcm16(model, inputs["frames"], inputs["slots"], inputs["n_frames"], bucket)
+
+            inputs = {"frames": self._state["frames"], "n_frames": self._state["n_frames"]}
+            return body, {**inputs, "slots": torch.empty(slot_ids.shape, dtype=torch.long, device=self.device)}
+
+        graph = self._graphs.get(("harvest", self.dtype, len(slot_ids), bucket), make)
+        feed(graph.inputs, slots=slot_ids)
+        return graph.run()
 
     def _loop(self) -> None:
         try:
@@ -828,8 +930,6 @@ class _Engine:
         self._harvest(flags[0].astype(bool), flags[1].astype(bool), flags[2], blk["epochs"])
 
     def _loop_inner(self) -> None:
-        params = self.model.params["flow_lm"]
-        cfg = self.model.config.flow_lm
         k_lo = self.steps_per_sync
         k_hi = self.steps_per_sync_burst or k_lo
         pending = None  # the previous block's outputs, not read yet
@@ -853,14 +953,10 @@ class _Engine:
             streaming = [s.request is not None and s.streaming for s in self._slot_info]
             k = k_lo if any(streaming) else k_hi
             self._last_block_k = k
-            self._state, windows, n_new, flags = _batched_ar_multi_step(
-                params, cfg, self._state, k, 1, self._gen, self._time_cond, self._fused_ada
-            )
+            windows, n_new, flags = self._ar_block(k)
             pcm = n_new_host = None
             if any(streaming):
-                mask = torch.as_tensor(streaming).to(self.device, non_blocking=True)
-                pcm16, self._stream_state = _batched_stream_decode(self.model, self._stream_state, windows, n_new, mask)
-                pcm, n_new_host = HostCopy(pcm16), HostCopy(n_new)
+                pcm, n_new_host = HostCopy(self._stream_decode(windows, n_new, streaming)), HostCopy(n_new)
             flags = HostCopy(flags)
             # Admission after the block is enqueued: the host prepares it
             # while the device runs the block, and admitted lanes join from
@@ -1119,8 +1215,9 @@ class ContinuousBatcher(_Engine):
     def prewarm(self, token_lengths=(10, 30, 50), timeout: float = 600.0) -> None:
         """Run the engine's admission and streaming waves once before serving.
 
-        The port compiles nothing per shape, but a first wave still pays for
-        loading the kernel libraries, the kernels' first launches, the
+        A first wave pays for capturing the engine's graphs (the AR block of
+        each block size, the stream decode, the harvest decode of each lane
+        count and bucket it reaches), loading the kernel libraries, the
         caching allocator's first blocks and the stream decoder's state:
         a full-slot admission at each token length, a single admission, a
         streamed single and a streamed full-slot wave. Sweeping the

@@ -12,16 +12,33 @@ Three stages, each on the device:
    last stage in the fused SEANet tail kernel) → int16, truncating toward
    zero.
 
-The reference runs the AR loop as one ``lax.while_loop``. Here the loop is
-driven from the host, but its state stays on the device: frame buffer,
-``n_frames``, countdown, ``done`` and the cache offset. The host reads
-``done`` only every ``SYNC_EVERY`` steps. Steps run after every lane is done
-change nothing the decode reads (their frames lie past ``n_frames`` and are
+The reference runs the AR loop as one ``lax.while_loop`` inside one
+compiled program per shape bucket, and the decode as another. Here, on the
+card, the loop runs as captured CUDA graphs (``runtime/graphs.py``): one
+graph of ``SYNC_EVERY`` AR steps, replayed until every lane is done or the
+budget is spent, and one graph for a tail of ``n_steps mod SYNC_EVERY``
+steps, so the graphs run exactly the steps of the eager loop (a runtime
+whose ``_graphs`` is None, kept for comparisons). The loop's
+state lives in static buffers on the device: the KV cache, frame buffer,
+``n_frames``, countdown, ``done``, the step index, and the sampling knobs
+(``sigma``, the EOS threshold and ``frames_after_eos``). The host reads
+``done`` only between graphs. Steps run after every lane is done change
+nothing the decode reads (their frames lie past ``n_frames`` and are
 masked), and the loop ends by setting the cache offset to where the
 while_loop stops (the K/V rows those steps wrote lie past it, unread), so
-the audio and the carried cache are the while_loop's exactly. The loop takes and returns its carry
-(cache, frame, countdown, done, generator), so the streaming path runs it
-in segments and a continuity session carries the cache into the next chunk.
+the audio and the carried cache are the while_loop's exactly. The loop
+takes and returns its carry (cache, frame, countdown, ``done`` and the
+request's noise), so the streaming path runs it in segments and a
+continuity session carries the cache into the next chunk; a session's
+cache is a copy, never the loop's buffers. The decode is a graph per
+decode bucket. On the CPU the same bodies run eagerly over the same
+buffers. The first request of a bucket pays a capture, as the
+reference's pays a compile.
+
+A request's LSD noise is drawn once, ``[steps, B, L]`` from its own
+generator, and each graph reads its steps' rows from a static buffer: the
+noise of a step does not depend on how the steps are cut into graphs or
+segments, so the streamed and the one-shot paths give the same frames.
 
 Voice conditioning (``GenerateConfig.voice_embedding`` or
 ``voice_model_state``) and continuity sessions (``generate_audio_session``,
@@ -63,6 +80,7 @@ from go_pocket_tts_tpu_torch.models import flow_transformer as ftr
 from go_pocket_tts_tpu_torch.models.model import PocketTTSModel, auto_pallas_mimi, with_kernels
 from go_pocket_tts_tpu_torch.models.params import matmul_backends
 from go_pocket_tts_tpu_torch.models.quantize import quantize_model_params
+from go_pocket_tts_tpu_torch.runtime.graphs import GraphCache, feed
 from go_pocket_tts_tpu_torch.text.prepare import estimate_max_frames
 from go_pocket_tts_tpu_torch.utils import buckets as bk
 from go_pocket_tts_tpu_torch.utils.safetensors import VoiceModelState
@@ -79,6 +97,7 @@ __all__ = [
     "decode_pcm16",
     "estimate_max_frames",
     "kernel_model",
+    "own_cache",
     "quantized_model",
     "resolve_pallas",
 ]
@@ -116,7 +135,8 @@ class GenerateConfig:
 class HostCopy:
     """A device tensor on its way to the host: the copy is enqueued now (into
     pinned memory, behind the work that produces the tensor) and waited for
-    in :meth:`numpy`, from any thread."""
+    in :meth:`numpy`, from any thread. The tensor may be a graph's static
+    output: the next run of the graph does not change the copy."""
 
     def __init__(self, t: torch.Tensor) -> None:
         self._event = None
@@ -126,7 +146,7 @@ class HostCopy:
             self._event = torch.cuda.Event()
             self._event.record()
         else:
-            self._host = t
+            self._host = t.clone()
 
     def numpy(self) -> np.ndarray:
         if self._event is not None:
@@ -229,6 +249,13 @@ def decode_pcm16(
     return (pcm.float().clamp(-1.0, 1.0) * 32767.0).to(torch.int16)
 
 
+def own_cache(cache: Dict) -> Dict:
+    """A copy of a carried KV cache for a continuity session: the AR loop's
+    cache is a graph's static buffer, which the runtime's next request of
+    the same bucket writes."""
+    return {key: val.clone() for key, val in cache.items()}
+
+
 def quantized_model(model: PocketTTSModel, quantize: Union[bool, int]) -> PocketTTSModel:
     """``model`` with every float linear weight-only quantized: int8 when
     ``quantize`` is True or 8, packed int4 when it is 4; unchanged when it
@@ -238,6 +265,37 @@ def quantized_model(model: PocketTTSModel, quantize: Union[bool, int]) -> Pocket
         return model
     bits = 8 if quantize is True else int(quantize)
     return PocketTTSModel(quantize_model_params(model.params, bits=bits), model.config)
+
+
+def _ar_steps(model: PocketTTSModel, fused_ada, s: Dict, noise: torch.Tensor, time_cond, decode_steps: int) -> None:
+    """``len(noise)`` AR steps over the loop state ``s`` (cache ``k``,
+    ``v``, ``offset``; ``frame``, ``countdown``, ``done``, ``frames``,
+    ``n_frames``, the step index ``step`` and the knobs ``sigma``,
+    ``eos_threshold``, ``frames_after_eos``), written back in place:
+    the body of both the graphs and the eager loop."""
+    flow = model.params["flow_lm"]
+    flow_cfg = model.config.flow_lm
+    cache = {"k": s["k"], "v": s["v"], "offset": s["offset"]}
+    frame, countdown, done, n_frames, step = s["frame"], s["countdown"], s["done"], s["n_frames"], s["step"]
+    for i in range(noise.shape[0]):
+        cache, frame, eos_logit = flm.ar_core(
+            flow, flow_cfg, cache, frame, (noise[i] * s["sigma"]).to(frame.dtype), decode_steps, time_cond, fused_ada
+        )
+        s["frames"].index_copy_(1, step.reshape(1).long(), frame)
+        # EOS bookkeeping: the frame from the EOS step is kept; the
+        # countdown decrements after the zero check.
+        is_eos = eos_logit.float() > s["eos_threshold"]
+        newly = is_eos & (countdown < 0) & ~done
+        countdown = torch.where(newly, s["frames_after_eos"], countdown)
+        n_frames = torch.where(done, n_frames, step + 1)
+        done = done | (countdown == 0)
+        countdown = torch.where((countdown > 0) & ~done, countdown - 1, countdown)
+        step = step + 1
+    for key, val in (
+        ("offset", cache["offset"]), ("frame", frame), ("countdown", countdown), ("done", done),
+        ("n_frames", n_frames), ("step", step),
+    ):
+        s[key].copy_(val)
 
 
 class GPURuntime:
@@ -292,6 +350,11 @@ class GPURuntime:
         # Loop invariants of the AR step, built once per runtime.
         self._fused_ada = flm.fnet.precompute_fused_adaln(flow["flow_net"])
         self._time_cond = {}
+        # The AR loop's, the decode's and the stream decoder's graphs, and
+        # their static buffers. One caller at a time: the Service holds its
+        # lock around a runtime, PocketTTSKernel its own.
+        self._graphs: Optional[GraphCache] = GraphCache(self.device)
+        self._buffers: Dict[tuple, Dict[str, torch.Tensor]] = {}
 
     def _compute(self) -> contextlib.ExitStack:
         """The context of the runtime's device work: inference mode, its
@@ -349,6 +412,28 @@ class GPURuntime:
         # offset and are never visible.
         return flm.prompt(flow, flow_cfg, cache, emb, valid)
 
+    def _new_carry(self, cfg: GenerateConfig, batch: int, steps: int) -> Dict:
+        """The carry of a new request, from the BOS frame: no EOS yet, not
+        done, and the noise of its ``steps`` AR steps, ``[steps, B, L]``
+        float32 from the request's own generator (zeros at temperature 0),
+        drawn at once so that a step's noise does not depend on how the
+        steps are cut into graphs or segments."""
+        latent = self.model.params["flow_lm"]["bos_emb"].shape[0]
+        dev = self.device
+        if cfg.temperature > 0:
+            gen = self._request_generator()
+            noise = torch.randn((steps, batch, latent), generator=gen, device=dev, dtype=torch.float32)
+        else:
+            noise = torch.zeros((steps, batch, latent), dtype=torch.float32, device=dev)
+        return {
+            # BOS sentinel: a NaN frame, replaced by bos_emb inside the step.
+            "frame": torch.full((batch, 1, latent), float("nan"), dtype=self.dtype, device=dev),
+            "countdown": torch.full((batch,), -1, dtype=torch.int32, device=dev),  # -1: no EOS yet
+            "done": torch.zeros((batch,), dtype=torch.bool, device=dev),
+            "noise": noise,
+            "t": 0,  # noise rows used so far
+        }
+
     def _ar_loop(
         self,
         cache,
@@ -359,65 +444,130 @@ class GPURuntime:
         carry: Optional[Dict] = None,
     ):
         """Up to ``min(max_steps, max_frames)`` AR steps, resuming from
-        ``carry`` (None: a new request, from the BOS frame). Returns
+        ``carry`` (None: a new request; :meth:`_new_carry`). Returns
         (frames [B, max_frames, L], n_frames [B] int32, carry), all on the
         device; ``n_frames`` counts this call's frames, and ``carry`` holds
-        the cache, the last frame, the countdown, ``done`` and the noise
-        generator."""
-        flow = self.model.params["flow_lm"]
-        flow_cfg = self.model.config.flow_lm
-        batch = cache["k"].shape[1]
-        latent_dim = flow["bos_emb"].shape[0]
-        dev, dtype = self.device, self.dtype
+        the cache, the last frame, the countdown, ``done`` and the noise.
 
-        sigma = math.sqrt(max(float(cfg.temperature), 0.0))
-        time_cond = self._time_conditioning(decode_steps)
-        if carry is None:
-            carry = {
-                # BOS sentinel: a NaN frame, replaced by bos_emb inside the step.
-                "frame": torch.full((batch, 1, latent_dim), float("nan"), dtype=dtype, device=dev),
-                "countdown": torch.full((batch,), -1, dtype=torch.int32, device=dev),  # -1: no EOS yet
-                "done": torch.zeros((batch,), dtype=torch.bool, device=dev),
-                "gen": self._request_generator() if sigma > 0 else None,
-            }
-        frame, countdown, done, gen = carry["frame"], carry["countdown"], carry["done"], carry["gen"]
-        frames = torch.zeros((batch, max_frames, latent_dim), dtype=dtype, device=dev)
-        n_frames = torch.zeros((batch,), dtype=torch.int32, device=dev)
-        zero_noise = torch.zeros((batch, latent_dim), dtype=dtype, device=dev)
-
+        Runs the graphs of ``SYNC_EVERY`` steps and of the tail over the
+        static buffers of (batch, capacity) and of the frame width: the
+        returned frames, counts and carry ARE those buffers, valid until
+        the runtime's next call (copy them out, or enqueue the copy,
+        first). Without graphs (``_graphs`` None: the eager loop the card
+        checks compare with) the same steps run as eager launches over
+        buffers of this call's own."""
+        batch, capacity = cache["k"].shape[1], cache["k"].shape[3]
         n_steps = min(max_steps, max_frames)
-        offset0 = cache["offset"]
-        for step in range(n_steps):
-            if gen is None:
-                noise = zero_noise
+        if carry is None:
+            carry = self._new_carry(cfg, batch, n_steps)
+        time_cond = self._time_conditioning(decode_steps)
+        s = self._loop_buffers(batch, capacity, max_frames, fresh=self._graphs is None)
+        feed(s, k=cache["k"], v=cache["v"], offset=cache["offset"])
+        feed(s, frame=carry["frame"], countdown=carry["countdown"], done=carry["done"])
+        s["sigma"].fill_(math.sqrt(max(float(cfg.temperature), 0.0)))
+        s["eos_threshold"].fill_(float(cfg.eos_threshold))
+        s["frames_after_eos"].fill_(int(cfg.frames_after_eos))
+        for key in ("frames", "n_frames", "step"):
+            s[key].zero_()
+        offset0 = s["offset"].clone()
+        t, ran = carry["t"], n_steps
+        for start in range(0, n_steps, self.SYNC_EVERY):
+            n = min(self.SYNC_EVERY, n_steps - start)
+            noise = carry["noise"][t + start : t + start + n]
+            if self._graphs is None:
+                _ar_steps(self.model, self._fused_ada, s, noise, time_cond, decode_steps)
             else:
-                noise = (
-                    torch.randn((batch, latent_dim), generator=gen, device=dev, dtype=torch.float32)
-                    * sigma
-                ).to(dtype)
-            cache, frame, eos_logit = flm.ar_core(
-                flow, flow_cfg, cache, frame, noise, decode_steps, time_cond, self._fused_ada
-            )
-            frames[:, step] = frame[:, 0]
-            # EOS bookkeeping: the frame from the EOS step is kept; the
-            # countdown decrements after the zero check.
-            is_eos = eos_logit.float() > cfg.eos_threshold
-            newly = is_eos & (countdown < 0) & ~done
-            countdown = torch.where(newly, cfg.frames_after_eos, countdown)
-            n_frames = torch.where(done, n_frames, step + 1).to(torch.int32)
-            done = done | (countdown == 0)
-            countdown = torch.where((countdown > 0) & ~done, countdown - 1, countdown)
-            if (step + 1) % self.SYNC_EVERY == 0 and step + 1 < n_steps and bool(done.all()):
+                key = ("ar", batch, capacity, max_frames, self.dtype, decode_steps, n)
+                graph = self._graphs.get(key, lambda: self._ar_graph(s, n, time_cond, decode_steps))
+                graph.inputs["noise"].copy_(noise)
+                graph.run()
+            if start + n < n_steps and bool(s["done"].all()):
+                ran = start + n
                 break
         # The reference's loop stops at the step on which every lane is
         # done: it runs as many steps as the longest lane has frames. Steps
         # past that wrote K/V rows beyond this offset, which are never read.
-        cache["offset"] = offset0 + n_frames.max()
-        carry = {"cache": cache, "frame": frame, "countdown": countdown, "done": done, "gen": gen}
-        return frames, n_frames, carry
+        s["offset"].copy_(offset0 + s["n_frames"].max())
+        carry = {
+            "cache": {"k": s["k"], "v": s["v"], "offset": s["offset"]},
+            "frame": s["frame"],
+            "countdown": s["countdown"],
+            "done": s["done"],
+            "noise": carry["noise"],
+            "t": t + ran,
+        }
+        return s["frames"], s["n_frames"], carry
+
+    def _ar_graph(self, s: Dict, n: int, time_cond: torch.Tensor, decode_steps: int):
+        batch, _, latent = s["frame"].shape
+        noise = torch.empty((n, batch, latent), dtype=torch.float32, device=self.device)
+        # The body holds the model, not the runtime: dropping the runtime
+        # frees its graphs and their pool.
+        model, fused_ada = self.model, self._fused_ada
+
+        def body(inputs):
+            _ar_steps(model, fused_ada, inputs, inputs["noise"], time_cond, decode_steps)
+
+        return body, {**s, "noise": noise}
+
+    def _loop_buffers(self, batch: int, capacity: int, width: int, fresh: bool = False) -> Dict[str, torch.Tensor]:
+        """The AR loop's static buffers: the cache's of (batch, capacity),
+        the frames' of (batch, width) and the rest of (batch); with
+        ``fresh``, new ones for one call."""
+        tcfg = self.model.config.flow_lm.transformer
+        latent = self.model.params["flow_lm"]["bos_emb"].shape[0]
+        dev, dtype = self.device, self.dtype
+
+        def group(key, make):
+            if fresh:
+                return make()
+            if key not in self._buffers:
+                self._buffers[key] = make()
+            return self._buffers[key]
+
+        cache = group(("cache", batch, capacity), lambda: ftr.init_kv_cache(tcfg, batch, capacity, dtype, dev))
+        frames = group(
+            ("frames", batch, width),
+            lambda: {"frames": torch.zeros((batch, width, latent), dtype=dtype, device=dev)},
+        )
+        loop = group(
+            ("loop", batch),
+            lambda: {
+                "frame": torch.zeros((batch, 1, latent), dtype=dtype, device=dev),
+                "countdown": torch.zeros((batch,), dtype=torch.int32, device=dev),
+                "done": torch.zeros((batch,), dtype=torch.bool, device=dev),
+                "n_frames": torch.zeros((batch,), dtype=torch.int32, device=dev),
+                "step": torch.zeros((), dtype=torch.int32, device=dev),
+                "sigma": torch.zeros((), dtype=torch.float32, device=dev),
+                "eos_threshold": torch.zeros((), dtype=torch.float32, device=dev),
+                "frames_after_eos": torch.zeros((), dtype=torch.int32, device=dev),
+            },
+        )
+        return {**cache, **frames, **loop}
+
+    def _decode(self, frames: torch.Tensor, n_frames: torch.Tensor, decode_frames: int, pcm16: bool = True):
+        """The decode of ``frames [B, W, L]`` at ``decode_frames``
+        (:func:`decode_pcm16`, or :func:`decode_float` when not ``pcm16``)
+        as the graph of its bucket; the PCM is a static output."""
+        fn = decode_pcm16 if pcm16 else decode_float
+        if self._graphs is None:
+            return fn(self.model, frames, n_frames, decode_frames)
+        key = ("decode", *frames.shape[:2], decode_frames, self.dtype, pcm16)
+
+        def make():
+            model = self.model
+
+            def body(inputs):
+                return fn(model, inputs["frames"], inputs["n_frames"], decode_frames)
+
+            return body, {"frames": torch.empty_like(frames), "n_frames": torch.empty_like(n_frames)}
+
+        graph = self._graphs.get(key, make)
+        feed(graph.inputs, frames=frames, n_frames=n_frames)
+        return graph.run()
 
     def _decode_pcm16(self, frames: torch.Tensor, n_frames: torch.Tensor, decode_frames: int):
-        return decode_pcm16(self.model, frames, n_frames, decode_frames)
+        return self._decode(frames, n_frames, decode_frames)
 
     # -- voice conditioning and bucketing ---------------------------------
 
@@ -562,7 +712,7 @@ class GPURuntime:
             stages["ar"] = time.perf_counter() - t0
 
             t0 = time.perf_counter()
-            pcm = decode_float(self.model, frames, n_frames, bk.pick_bucket(n, bk.DECODE_BUCKETS))
+            pcm = self._decode(frames, n_frames, bk.pick_bucket(n, bk.DECODE_BUCKETS), pcm16=False)
             samples_per = self.model.config.mimi.samples_per_latent
             audio = pcm[0, 0, : n * samples_per].float().cpu().numpy()
             stages["decode"] = time.perf_counter() - t0
@@ -654,7 +804,7 @@ class GPURuntime:
         n = len(audio) // self.model.config.mimi.samples_per_latent
         if cfg.step_callback is not None:
             cfg.step_callback(n, max_steps)
-        return audio, ContinuationState(carry["cache"], capacity, used0 + n_tokens + n)
+        return audio, ContinuationState(own_cache(carry["cache"]), capacity, used0 + n_tokens + n)
 
     def stream_generate_session(self, tokens, cfg: GenerateConfig, cont: Optional[ContinuationState] = None):
         """Frame streaming with continuity for one chunk → ``(blocks,

@@ -10,15 +10,22 @@ becomes prefill + one segment of AR steps + one block decode.
 
 Exactness: the block decoder is sample-exact with the whole-sequence
 decoder, and the segments thread the AR carry (cache, frame, countdown,
-``done``, noise generator), so the frames are those of
-``GPURuntime.generate_audio`` for the same seed.
+``done`` and the request's noise, drawn once for all its steps), so the
+frames are those of ``GPURuntime.generate_audio`` for the same seed.
 
-Dispatch is the cost here (the host enqueues an AR step in a few
-milliseconds, longer than the card takes to run it), so unlike the
-reference, which dispatches segment k+1 before it fetches segment k, each
-segment's block is copied to pinned host memory and handed to the caller
-before the next segment is enqueued: the first block is never held back
-behind a second segment's launches.
+On the card each segment is two graphs (``runtime/graphs.py``, the
+reference's ``_stream_ar_segment`` and ``_stream_decode_segment``): the
+runtime's AR graph of the segment's steps (a tail segment, shorter than
+its size, has a key of its own), then one graph of the frame mask,
+``latent_to_mimi`` and ``mimi_stream.decode_block`` per segment size, over
+a static stream state zeroed at each stream's start. On the CPU the same
+bodies run eagerly over the same buffers.
+
+Dispatch is the cost here (the host reads ``n`` and ``done`` after each
+segment), so unlike the reference, which dispatches segment k+1 before it
+fetches segment k, each segment's block is copied to pinned host memory and
+handed to the caller before the next segment is enqueued: the first block
+is never held back behind a second segment's launches.
 """
 
 from __future__ import annotations
@@ -29,7 +36,8 @@ import numpy as np
 import torch
 
 from go_pocket_tts_tpu_torch.models import mimi_stream
-from go_pocket_tts_tpu_torch.runtime.generate import ContinuationState, GenerateConfig, HostCopy
+from go_pocket_tts_tpu_torch.runtime.generate import ContinuationState, GenerateConfig, HostCopy, own_cache
+from go_pocket_tts_tpu_torch.runtime.graphs import feed, write_back
 
 __all__ = ["stream_generate", "stream_generate_session"]
 
@@ -50,31 +58,19 @@ def _segment_loop(runtime, cfg: GenerateConfig, cache: Dict, max_steps: int, dec
     """Run the AR loop in adaptive segments over a prefilled ``cache``,
     yielding PCM blocks; generator-returns ``(cache, emitted_frames)`` so
     a session can carry the final KV cache (``yield from``)."""
-    model = runtime.model
-    mimi_cfg = model.config.mimi
-    samples_per = mimi_cfg.samples_per_latent
-    # Every segment is decoded at its full size, so the decoded frames may
-    # pass max_steps by up to one segment: the decoder's K/V capacity
-    # counts that segment too.
+    samples_per = runtime.model.config.mimi.samples_per_latent
     with runtime._compute():
-        state = mimi_stream.init_stream_state(
-            model.params["mimi"],
-            mimi_cfg,
-            1,
-            (frame_budget + MAX_SEGMENT_FRAMES) * mimi_cfg.steps_per_latent,
-            runtime.dtype,
-        )
-    carry, dispatched, emitted = None, 0, 0
+        state = _stream_state(runtime, frame_budget)
+        carry = runtime._new_carry(cfg, 1, max_steps)
+    dispatched, emitted = 0, 0
     seg = SEGMENT_FRAMES
     while dispatched < max_steps:
         steps = min(seg, max_steps - dispatched)
         with runtime._compute():
             frames, n, carry = runtime._ar_loop(cache, cfg, steps, decode_steps, seg, carry)
             cache = carry["cache"]
-            mask = (torch.arange(seg, device=frames.device) < n[:, None])[:, :, None]
-            latent = torch.where(mask, frames, torch.zeros((), dtype=frames.dtype, device=frames.device))
-            pcm, state = mimi_stream.decode_block(model.params["mimi"], mimi_cfg, state, model.latent_to_mimi(latent))
-            fetched = [HostCopy(t) for t in (pcm.float(), n, carry["done"])]
+            pcm, state = _decode_segment(runtime, state, frames, n)
+            fetched = [HostCopy(t) for t in (pcm, n, carry["done"])]
         dispatched += steps
         pcm_np, n_np, done_np = (h.numpy() for h in fetched)
         n = int(n_np[0])
@@ -87,6 +83,59 @@ def _segment_loop(runtime, cfg: GenerateConfig, cache: Dict, max_steps: int, dec
             break
         seg = min(seg * 2, MAX_SEGMENT_FRAMES, runtime.frame_bucket)
     return cache, emitted
+
+
+def _stream_state(runtime, frame_budget: int) -> Dict:
+    """A zero stream decoder state for one stream: the runtime's static one
+    of this capacity (zeroed) on the graph path. Every segment is decoded
+    at its full size, so the decoded frames may pass the budget by up to
+    one segment: the decoder's K/V capacity counts that segment too."""
+    mimi_cfg = runtime.model.config.mimi
+    steps = (frame_budget + MAX_SEGMENT_FRAMES) * mimi_cfg.steps_per_latent
+    if runtime._graphs is None:
+        return mimi_stream.init_stream_state(runtime.model.params["mimi"], mimi_cfg, 1, steps, runtime.dtype)
+    key = ("stream_state", steps)
+    if key not in runtime._buffers:
+        runtime._buffers[key] = mimi_stream.init_stream_state(
+            runtime.model.params["mimi"], mimi_cfg, 1, steps, runtime.dtype
+        )
+    state = runtime._buffers[key]
+    for leaf in state.values():
+        leaf.zero_()
+    return state
+
+
+def _stream_block(model, state: Dict, frames: torch.Tensor, n: torch.Tensor):
+    """Mask → fused latent→mimi → one stream decoder block: ``(float32 PCM
+    [B, 1, W·1920], new state)`` for the segment ``frames [B, W, L]`` of
+    which ``n`` are real."""
+    seg = frames.shape[1]
+    mask = (torch.arange(seg, device=frames.device) < n[:, None])[:, :, None]
+    latent = torch.where(mask, frames, torch.zeros((), dtype=frames.dtype, device=frames.device))
+    pcm, state = mimi_stream.decode_block(model.params["mimi"], model.config.mimi, state, model.latent_to_mimi(latent))
+    return pcm.float(), state
+
+
+def _decode_segment(runtime, state: Dict, frames: torch.Tensor, n: torch.Tensor):
+    """:func:`_stream_block` as the graph of its segment size over the
+    static ``state`` (updated in place); returns ``(PCM, state)``."""
+    if runtime._graphs is None:
+        return _stream_block(runtime.model, state, frames, n)
+    key = ("stream", *frames.shape[:2], state["kv_k"].shape[3], runtime.dtype)
+
+    def make():
+        model = runtime.model
+
+        def body(inputs):
+            pcm, new = _stream_block(model, inputs["state"], inputs["frames"], inputs["n"])
+            write_back(inputs["state"], new)
+            return pcm
+
+        return body, {"state": state, "frames": torch.empty_like(frames), "n": torch.empty_like(n)}
+
+    graph = runtime._graphs.get(key, make)
+    feed(graph.inputs, frames=frames, n=n)
+    return graph.run(), state
 
 
 def stream_generate_session(
@@ -129,4 +178,4 @@ def _stream_session_blocks(
             tokens, cfg, cont
         )
     cache, emitted = yield from _segment_loop(runtime, cfg, cache, max_steps, decode_steps, frame_budget)
-    holder["cont"] = ContinuationState(cache, capacity, used0 + n_tokens + emitted)
+    holder["cont"] = ContinuationState(own_cache(cache), capacity, used0 + n_tokens + emitted)

@@ -500,9 +500,11 @@ class Service:
     def prewarm(self, token_lengths=(10, 30, 50), voice_paths=()) -> None:
         """Run the common shape buckets once before serving traffic.
 
-        The port compiles nothing per shape, but a first request still
-        pays for building or loading the kernel libraries, the kernels'
-        first launches and the caching allocator's first blocks. Voices
+        A first request of a bucket pays for capturing the runtime's CUDA
+        graphs of that bucket (``runtime/graphs.py``), as the reference's
+        pays a compile, and the first request of a process for building
+        or loading the kernel libraries and the caching allocator's first
+        blocks. Voices
         take their own buckets, so pass the serving voices' files in
         ``voice_paths`` (``serve --prewarm`` passes every voice in the
         manifest). A runtime with a ``prewarm`` of its own (the continuous

@@ -1296,3 +1296,119 @@ def test_tiny_tp_batcher_kernels_match_plain(card, bits):
         assert g.shape == o.shape == w.shape == (8 * 1920,)
         assert np.sqrt(np.mean((g - w) ** 2)) < 1e-3
         assert np.sqrt(np.mean((o - w) ** 2)) < 1e-3
+
+
+# -- the per-bucket graphs (runtime/graphs.py) ------------------------------------
+
+# A tiny model whose heads are 64 wide, whose linears pass the int8 kernel's
+# gate and whose SEANet takes kernels 7, 2 and 8.
+GRAPH_ARCH = dataclasses.replace(
+    synthetic.tiny_arch(), d_model=128, num_heads=2, ffn_dim=256, seanet_channels=(32, 256, 128, 64)
+)
+
+
+def _replayed(got, want):
+    """Replay against the eager loop, float32: bit-equal, or within 1e-6 RMS
+    where a library picks another algorithm under capture."""
+    g, w = (torch.as_tensor(np.asarray(x) if isinstance(x, np.ndarray) else x).float().cpu() for x in (got, want))
+    assert g.shape == w.shape
+    assert torch.equal(g, w) or float(torch.sqrt(torch.mean((g - w) ** 2))) <= 1e-6
+
+
+@pytest.mark.parametrize("runner", ["single", "stream", "batcher"])
+def test_graph_replay_is_the_eager_loop(card, runner):
+    """One key of each runner replayed against its eager loop: the single
+    runtime's AR segment (16 steps and a tail of 4) and decode, the
+    streamer's AR segments and block decodes (4, 8, 16 frames and a tail),
+    the batcher's block (8 and 64 steps), stream decode and harvest decode
+    (1 and 8 lanes)."""
+    import chip_smoke
+
+    model = load_model_from_tensors(
+        synthetic.build_checkpoint(GRAPH_ARCH, seed=2), num_heads=GRAPH_ARCH.num_heads, device=card
+    )
+    if runner == "batcher":
+        from go_pocket_tts_tpu_torch.parallel import ContinuousBatcher
+
+        arms = []
+        for graphs_on in (True, False):
+            b = ContinuousBatcher(model, slots=8, prompt_capacity=32, max_frames=128, seed=1, steps_per_sync=8,
+                                  steps_per_sync_burst=64, quantize=True, kv_quantize=True, device=card)
+            if not graphs_on:
+                b._graphs = None
+            reqs = [([3 + i, 17, 41, 9], 20 + 7 * i) for i in range(8)]
+            arms.append(chip_smoke._drive_engine(b, reqs, 0.0))
+        for g, w in zip(*arms):
+            _replayed(g, w)
+        return
+    cfg = GenerateConfig(temperature=0.0, eos_threshold=1e9, max_steps=20 if runner == "single" else 31)
+    outs = []
+    for graphs_on in (True, False):
+        rt = GPURuntime(model, seed=1, frame_bucket=64, device=card)
+        if not graphs_on:
+            rt._graphs = None
+        if runner == "single":
+            outs.append([rt.generate_audio([3, 17, 41], cfg)])
+        else:
+            from go_pocket_tts_tpu_torch.runtime import stream_generate
+
+            outs.append(list(stream_generate(rt, [3, 17, 41], cfg)))
+        if graphs_on:
+            keys = rt._graphs.keys()
+            assert all(k[0] in ("ar", "decode", "stream") for k in keys) and rt._graphs.captures == len(keys)
+    assert len(outs[0]) == len(outs[1])
+    for g, w in zip(*outs):
+        _replayed(g, w)
+
+
+def test_graph_launch_counts_are_replays_times_the_tally(card):
+    """Kernel 1 captured once: the capture's count comes out, each replay
+    adds it, and the replayed output is the eager call's."""
+    from go_pocket_tts_tpu_torch.runtime import graphs
+
+    gen = torch.Generator(device=card).manual_seed(3)
+    q, k_new, v_new = (torch.randn((1, 16, 1, 64), generator=gen, device=card) for _ in range(3))
+    kc, vc = ((torch.randn((6, 1, 16, 320, 64), generator=gen, device=card) * 0.3) for _ in range(2))
+    cos, sin = (t.to(card) for t in build_rope_tables(8192, 64))
+    off = torch.tensor(77, dtype=torch.int32, device=card)
+    inputs = {"q": q, "k": k_new, "v": v_new, "kc": kc, "vc": vc, "off": off}
+
+    def body(inp):
+        return da.decode_attention_step(inp["q"], inp["k"], inp["kc"], inp["vc"], inp["v"], inp["off"], cos, sin, 2)[0]
+
+    want = body({k: v.clone() for k, v in inputs.items()})
+    kernels.reset_launches()
+    cache = graphs.GraphCache(card)
+    graph = cache.get("attention", lambda: (body, inputs))
+    for n in range(1, 6):
+        got = graph.run()
+        torch.cuda.synchronize()
+        assert da.decode_attention_step.launches == n
+    assert graph.tally[0] == (1, None) and cache.captures == 1 and len(cache) == 1
+    assert all(fn.launches == 0 for fn in kernels.WRAPPERS[1:])
+    assert torch.equal(got, want)
+    assert cache.pool_bytes() > 0
+
+
+def test_a_failing_capture_raises_with_no_eager_result(card):
+    """A body that reads the device on the host cannot be captured: the run
+    raises, keeps no graph and no output, and leaves the counts as they
+    were."""
+    from go_pocket_tts_tpu_torch.runtime import graphs
+
+    x = torch.ones(4, device=card)
+
+    def body(inp):
+        da.decode_attention_step.launches += 1  # as a wrapper counts a launch
+        if float(inp["x"].sum()) > 0:  # a host read
+            return inp["x"] * 2
+        return inp["x"]
+
+    kernels.reset_launches()
+    graph = graphs.GraphCache(card).get("bad", lambda: (body, {"x": x}))
+    with pytest.raises(RuntimeError):
+        graph.run()
+    assert graph.outputs is None and graph._graph is None
+    assert da.decode_attention_step.launches == 0
+    torch.cuda.synchronize()
+    assert torch.equal(x * 2, torch.full((4,), 2.0, device=card))  # the card still runs
