@@ -188,9 +188,26 @@ failure exits non-zero:
    of ``stream_generate``, medians; (c) the device's busy share of a
    24-token request under the profiler, each arm; (d) the graphs, capture
    seconds and pool bytes of every cache the phase filled.
+18. the rest of the reference's compiled programs as graphs (its launches
+   kept out of the kernel table), at ``real_arch()``: (a) each new graph's
+   replay against its eager counterpart, float32 at temperature 0 and
+   bfloat16 at 0.7, bit-equal: the single runtime's prefill (fresh, a
+   voice embedding, a voice state, a session's carried cache: the K/V
+   rows, the offset and the PCM) and the first streamed block; the 8-slot
+   int8-KV batcher driven by hand (admission at 1 and 8 lanes, stream
+   resets at 1 and 8, a snapshot, a session and a voice-state lane
+   prefilled into slots); ``dp_tp_mesh(2, 2)`` on this card with int8 and
+   (float32) int4 weights, both replicas driven by hand; (b) a
+   ``Service``'s single runtime with its prefill eager against replayed
+   (``stageprof``'s prefill, the first block of ``stream_generate``,
+   ``bench``'s TTFA), phase 12's mixed wave after ``prewarm`` with the
+   admission programs eager against replayed, and phase 16's mesh wave
+   cold, after ``prewarm`` and eagerly, alternated, medians; (c) the
+   graphs, capture seconds and pool bytes of every cache it filled.
 
-Phases 3, 5, 7 and 9 (and every later one but the meshes) run their AR
-loops and decodes as those graphs; the launch counts are the replays'.
+Phases 3, 5, 7 and 9 (and every later one) run their prefills or
+admissions, AR loops and decodes as those graphs, the mesh replicas on
+this card included; the launch counts are the replays'.
 
 Phase 2 also holds the SEANet kernels (bf16 on tensor cores) against
 their plain versions at 160 frames, bit-equal over two calls: kernels 2
@@ -4021,6 +4038,477 @@ def graphs_phase(fixtures, arch) -> None:
           f"{total['bytes'] / 2**20:.1f} MiB; {_memory()}  [{CARD}]")
 
 
+# -- phase 18: the prefills, admissions, snapshots, resets and mesh replicas ---
+
+
+def _voice_fields(arch, case: str) -> dict:
+    """A voice case's config fields at ``real_arch()``: an embedding of 12
+    rows or a model state of 20 frames, both from the seed."""
+    if case == "voice_embedding":
+        emb = (np.random.RandomState(SEED + 18).randn(1, 12, arch.d_model) * 0.02).astype(np.float32)
+        return {"voice_embedding": emb}
+    if case == "voice_state":
+        return {"voice_model_state": synthetic_voice_state(arch, 20, 20)}
+    return {}
+
+
+PREFILL_CASES = ("fresh", "voice_embedding", "voice_state", "session")
+
+
+def _prefill_case(rt, arch, case: str, tokens, temperature: float) -> list:
+    """One single-runtime case: its chunk's prefilled K/V rows below the
+    offset and the offset (copied), then the chunk's PCM (a session: its
+    second chunk, after the first)."""
+    from go_pocket_tts_tpu_torch.runtime import ContinuationState, GenerateConfig
+    from go_pocket_tts_tpu_torch.runtime.generate import own_cache
+
+    cfg = GenerateConfig(temperature=temperature, eos_threshold=1e9, max_steps=24, **_voice_fields(arch, case))
+    nxt = tokens[:7]
+    cont = rt.generate_audio_session(tokens, cfg)[1] if case == "session" else None
+    with rt._compute():
+        if case == "session":
+            copy = ContinuationState(own_cache(cont.cache), cont.capacity, cont.used_ub)
+            cache = rt._session_setup(nxt, cfg, copy)[0]
+        else:
+            cache = rt._setup(tokens, cfg)[0]
+        off = int(cache["offset"])
+        rows = [cache["k"][:, :, :, :off].clone(), cache["v"][:, :, :, :off].clone(), torch.tensor(off)]
+    pcm = rt.generate_audio_session(nxt, cfg, cont)[0] if case == "session" else rt.generate_audio(tokens, cfg)
+    return rows + [pcm]
+
+
+def _single_prefill_arms(model, arch, dtype, temperature: float):
+    """Every prefill case and the first streamed block, on a graph runtime
+    and an eager one of the same seed: ``(graph runtime, {what: [graph
+    outputs, eager outputs]})``."""
+    from go_pocket_tts_tpu_torch.runtime import GenerateConfig, GPURuntime, stream_generate
+
+    tokens = main_requests(arch)[1][0]
+    out, graph_rt = {}, None
+    for graphs_on in (True, False):
+        rt = GPURuntime(model, dtype=dtype, seed=SEED, device="cuda")
+        if graphs_on:
+            graph_rt = rt
+        else:
+            rt._graphs = None
+        for case in PREFILL_CASES:
+            out.setdefault(case, []).append(_prefill_case(rt, arch, case, tokens, temperature))
+        blocks = stream_generate(rt, tokens, GenerateConfig(temperature=temperature, eos_threshold=1e9, max_steps=24))
+        out.setdefault("first streamed block", []).append([next(blocks)])
+        for _ in blocks:
+            pass
+    captures = graph_rt._graphs.captures
+    for case in PREFILL_CASES:  # every bucket warm now: one replay a program, no capture
+        _prefill_case(graph_rt, arch, case, tokens, temperature)
+    if graph_rt._graphs.captures != captures:
+        fail(f"the single runtime captured {graph_rt._graphs.captures - captures} graphs for warmed buckets")
+    return graph_rt, out
+
+
+def _put(batcher, tokens, cfg, stream: bool = False, cont=None) -> None:
+    import queue
+    from concurrent.futures import Future
+
+    from go_pocket_tts_tpu_torch.parallel.batching import _Request
+
+    batcher._queue.put(_Request(list(tokens), cfg, Future(), stream=queue.Queue() if stream else None, cont=cont))
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [leaf for key in sorted(tree) for leaf in _leaves(tree[key])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for val in tree for leaf in _leaves(val)]
+    return [tree.clone()]
+
+
+def _engine_blocks(engine, n: int) -> list:
+    out = []
+    for _ in range(n):
+        windows, n_new, flags = engine._ar_block(8)
+        out += [t.clone() for t in (windows, n_new, flags)]
+        streaming = [s.request is not None and s.streaming for s in engine._slot_info]
+        if any(streaming):
+            out.append(engine._stream_decode(windows, n_new, streaming).clone())
+    return out
+
+
+def _drive_admissions(batcher, arch, temperature: float) -> list:
+    """The engine's admission programs by hand, in this thread: one streamed
+    request admitted alone (N = 1, a one-lane reset), two blocks, seven
+    more (two streamed, one with a voice embedding) as one burst padded to
+    every slot (an 8-lane reset), a block, a lane's snapshot, then a
+    session chunk from it and a voice-state request, each prefilled into
+    a freed slot, a block, the harvest decode at 1 and 8 lanes and the
+    final state. Every output and state leaf, copied."""
+    from go_pocket_tts_tpu_torch.runtime import GenerateConfig
+
+    reqs, _ = serving_requests(arch)
+    cfg = GenerateConfig(temperature=temperature, eos_threshold=1e9, max_steps=48)
+    voiced = GenerateConfig(temperature=temperature, eos_threshold=1e9, max_steps=48,
+                            **_voice_fields(arch, "voice_embedding"))
+    out = []
+    with torch.no_grad():
+        _put(batcher, reqs[0], cfg, stream=True)
+        batcher._admit()
+        out += _leaves(batcher._state) + _engine_blocks(batcher, 2)
+        for i, tokens in enumerate(reqs[1:8]):
+            _put(batcher, tokens, voiced if i == 3 else cfg, stream=i < 2)
+        batcher._admit()
+        out += _leaves(batcher._state) + _leaves(batcher._stream_state) + _engine_blocks(batcher, 1)
+        snap = batcher._snapshot(5)
+        snap.offset_host = int(snap.offset[0])
+        out += [snap.k.clone(), snap.v.clone(), snap.offset.clone()]
+        batcher._release_slots([5, 6])
+        _put(batcher, reqs[8], cfg, cont=snap)
+        _put(batcher, reqs[9], GenerateConfig(temperature=temperature, eos_threshold=1e9, max_steps=48,
+                                              **_voice_fields(arch, "voice_state")))
+        batcher._admit()
+        out += _leaves(batcher._state) + _engine_blocks(batcher, 1)
+        for lanes in ([3], list(range(batcher.slots))):
+            out.append(batcher._harvest_decode(torch.tensor(lanes), 128).clone())
+        out += _leaves(batcher._state) + [snap.k, snap.v, snap.offset]
+    torch.cuda.synchronize()
+    return out
+
+
+def _drive_mesh(batcher, arch, temperature: float) -> list:
+    """Every replica's programs by hand, in this thread: 8 requests admitted
+    over the replicas (the first streamed), three 8-step blocks with the
+    stream decode, the harvest decode of every lane, the last replica's
+    snapshot of a lane and, from it, a session chunk prefilled into the
+    first replica's freed slot, and a block."""
+    from go_pocket_tts_tpu_torch.runtime import GenerateConfig
+
+    reqs, _ = serving_requests(arch)
+    cfg = GenerateConfig(temperature=temperature, eos_threshold=1e9, max_steps=40)
+    engines = batcher._engines()
+    out = []
+    with torch.no_grad():
+        for i, tokens in enumerate(reqs[: batcher.slots]):
+            _put(batcher, tokens, cfg, stream=i == 0)
+        for engine in engines:
+            engine._admit()
+        for _ in range(3):
+            for engine in engines:
+                out += _engine_blocks(engine, 1)
+        for engine in engines:
+            out.append(engine._harvest_decode(torch.tensor(list(range(engine.slots))), 64).clone())
+        snap = engines[-1]._snapshot(engines[-1].slots - 1)
+        snap.offset_host = int(snap.offset[0])
+        engines[0]._release_slots([1])
+        _put(batcher, reqs[9], cfg, cont=snap)
+        engines[0]._admit()
+        out += [snap.k.clone(), snap.v.clone(), snap.offset.clone()] + _leaves(engines[0]._state)
+        out += _engine_blocks(engines[0], 1)
+    torch.cuda.synchronize()
+    return out
+
+
+def _serving_knobs() -> dict:
+    from go_pocket_tts_tpu_torch.config import Config, apply_serving_autotune
+
+    cfg = Config()
+    cfg.runtime.batch_slots = 8
+    apply_serving_autotune(cfg)
+    return dict(slots=8, prompt_capacity=cfg.runtime.batch_prompt_capacity, steps_per_sync=cfg.runtime.steps_per_sync,
+                steps_per_sync_burst=cfg.runtime.steps_per_sync_burst, kv_quantize=cfg.runtime.kv_quantize)
+
+
+def _batcher_arms(model, arch, drive, quantize, temperature: float, **kw):
+    """``drive`` on a graph batcher and on an eager one (every engine's
+    ``_graphs`` None): ``(graph batcher, [outputs, outputs])``."""
+    from go_pocket_tts_tpu_torch.parallel import ContinuousBatcher
+
+    out, graph_b = [], None
+    for graphs_on in (True, False):
+        b = ContinuousBatcher(model, max_frames=256, dtype=model.dtype, seed=SEED, quantize=quantize, device="cuda",
+                              **{**_serving_knobs(), **kw})
+        if graphs_on:
+            graph_b = b
+        else:
+            for engine in b._engines():
+                engine._graphs = None
+        out.append(drive(b, arch, temperature))
+    return graph_b, out
+
+
+def _bit_equal(got, want, what: str) -> None:
+    """A replay against its eager counterpart: bit-equal, NaN sentinels (a
+    lane's BOS frame) included."""
+    g, w = (torch.as_tensor(x).detach().cpu() for x in (got, want))
+    if g.shape != w.shape or g.dtype != w.dtype:
+        fail(f"{what}: replay {g.dtype} {tuple(g.shape)} != eager {w.dtype} {tuple(w.shape)}")
+    same = (g == w) | (torch.isnan(g) & torch.isnan(w)) if g.is_floating_point() else g == w
+    if not bool(same.all()):
+        diff = (g.double() - w.double()).abs().nan_to_num(float("inf"))
+        fail(f"{what}: replay differs from the eager run in {int((~same).sum())} of {g.numel()} values, max abs "
+             f"{float(diff.max()):.3e}")
+
+
+def _keys_of(cache, kinds) -> list:
+    """A cache's graphs of ``kinds``: admit:lanes x bucket, slot:bucket,
+    reset:lanes, else as :func:`_key_name`."""
+    names = {"admit": lambda k: f"admit:{k[1]}x{k[2]}", "slot": lambda k: f"slot:{k[1]}", "snapshot": lambda k: "snapshot",
+             "reset": lambda k: f"reset:{k[-1]}"}
+    return sorted({names.get(k[0], _key_name)(k) for k in cache.keys() if k[0] in kinds})
+
+
+def prefill_replays(arch) -> list:
+    """(a): every new graph's replay against its eager counterpart at
+    ``real_arch()``, float32 at temperature 0 and bfloat16 at 0.7; returns
+    the statistics of the caches it filled."""
+    from go_pocket_tts_tpu_torch.model_assets.quantize_export import build_quantized_checkpoint
+    from go_pocket_tts_tpu_torch.models.model import load_model_from_tensors
+    from go_pocket_tts_tpu_torch.parallel import dp_tp_mesh
+
+    caches = []
+    card = torch.device("cuda", torch.cuda.current_device())
+
+    for dtype, temperature in ((torch.float32, 0.0), (torch.bfloat16, 0.7)):
+        name = f"{dname(dtype)} T={temperature}"
+        _arch, model = build_model(dtype)
+        rt, outs = _single_prefill_arms(model, arch, dtype, temperature)
+        caches.append(_cache_stats(f"single {name}", rt._graphs))
+        for what, (got, want) in outs.items():
+            for i, (g, w) in enumerate(zip(got, want)):
+                _bit_equal(g, w, f"{name} {what} output {i}")
+        print(f"  single runtime {name}: the prefill's K/V rows and offset and the PCM, {', '.join(PREFILL_CASES)}, "
+              f"and the first streamed block: bit-equal; prefill graphs "
+              f"{sorted((k[2], k[3], k[4], k[6]) for k in rt._graphs.keys() if k[0] == 'prefill')} "
+              f"(bucket, voice rows, capacity, cache)  [{CARD}]")
+        del rt, outs
+        b, (got, want) = _batcher_arms(model, arch, _drive_admissions, True, temperature)
+        caches.append(_cache_stats(f"batcher {name} int8", b._graphs))
+        for i, (g, w) in enumerate(zip(got, want)):
+            _bit_equal(g, w, f"batcher {name} output {i}")
+        print(f"  8-slot int8-KV batcher {name}, int8 weights: {len(got)} outputs and state leaves (admission at 1 and 8 "
+              f"lanes, a voice embedding in the burst, stream resets at 1 and 8, a snapshot, a session and a "
+              f"voice-state lane prefilled into slots, blocks, harvests): bit-equal; graphs "
+              f"{_keys_of(b._graphs, ('admit', 'slot', 'snapshot', 'reset'))}  [{CARD}]")
+        del b, got, want
+        _release()
+        weights = (("int8", True, model),)
+        if dtype == torch.float32:
+            _, tensors = checkpoint()
+            model4 = load_model_from_tensors(build_quantized_checkpoint(tensors, 4, num_heads=arch.num_heads)[0],
+                                             num_heads=arch.num_heads, device="cuda")
+            weights += (("int4", False, model4),)
+        for label, quantize, m in weights:
+            b, (got, want) = _batcher_arms(m, arch, _drive_mesh, quantize, temperature, mesh=dp_tp_mesh(2, 2, devices=[card] * 4),
+                                           kv_quantize=False)
+            for i, s in enumerate(b.graph_stats()):
+                if s["eager_reason"] is not None or not s["graphs"]:
+                    fail(f"mesh replica {i} on one card did not capture: {s}")
+                caches.append(_cache_stats(f"mesh {name} {label} replica {i}", b._engines()[i]._graphs))
+            for i, (g, w) in enumerate(zip(got, want)):
+                _bit_equal(g, w, f"mesh {name} {label} output {i}")
+            print(f"  dp_tp_mesh(2, 2) on this card, {name}, {label} weights, float KV: {len(got)} outputs of both "
+                  f"replicas (admission, 8-step blocks with kernels 4, 5/6 at the tp shards, stream decode, harvest, "
+                  f"a snapshot gathered across replicas, a session lane): bit-equal; graphs of replica 0 "
+                  f"{_keys_of(b._engines()[0]._graphs, ('admit', 'slot', 'snapshot', 'reset', 'block', 'stream', 'harvest'))}"
+                  f"  [{CARD}]")
+            del b, got, want
+            _release()
+        del model
+        _release()
+    return caches
+
+
+def _eager_prefill(rt):
+    """A runtime whose prefill runs eagerly (and whose loops replay): the
+    state of the port before its prefill became a graph."""
+    prefill = rt._prefill
+
+    def eager(*args, **kw):
+        graphs, rt._graphs = rt._graphs, None
+        try:
+            return prefill(*args, **kw)
+        finally:
+            rt._graphs = graphs
+
+    return eager
+
+
+ADMISSION_PROGRAMS = ("_admission", "_slot_prefill", "_reset_streams", "_snapshot")
+
+
+def _eager_admissions(batcher, on: bool) -> None:
+    """With ``on``, every engine runs its admission programs eagerly (its
+    blocks and decodes still replay); off, as built."""
+    for engine in batcher._engines():
+        for name in ADMISSION_PROGRAMS:
+            if not on:
+                engine.__dict__.pop(name, None)
+                continue
+            program = getattr(type(engine), name).__get__(engine)
+
+            def eager(*args, _program=program, _engine=engine, **kw):
+                graphs, _engine._graphs = _engine._graphs, None
+                try:
+                    return _program(*args, **kw)
+                finally:
+                    _engine._graphs = graphs
+
+            setattr(engine, name, eager)
+
+
+def _wave(batcher, reqs, cfg, n_streams: int) -> dict:
+    """``reqs`` at once, the first ``n_streams`` streamed: each stream's
+    first block (ms) and the wave's wall (s)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gens = [batcher.submit_stream(tokens, cfg, timeout=600) for tokens in reqs[:n_streams]]
+    futs = [batcher.submit(tokens, cfg) for tokens in reqs[n_streams:]]
+    outs = _streams(gens, t0)
+    for f in futs:
+        f.result(timeout=600)
+    wall = time.perf_counter() - t0
+    return {"firsts": sorted(o["first"] * 1e3 for o in outs), "wall": wall}
+
+
+def prefill_walls(fixtures, arch) -> list:
+    """(b): the walls, the eager arm against the graph arm, alternated,
+    medians: a ``Service``'s single runtime with its prefill eager (its
+    loops replayed) against all graphs (``stageprof``'s prefill, the first
+    block of ``stream_generate``, ``bench``'s TTFA); phase 12's mixed wave
+    on the serving batcher after ``prewarm`` with its admission programs
+    eager against graphs; phase 16's mesh wave cold, after ``prewarm`` and
+    eagerly. Returns the caches' statistics."""
+    from go_pocket_tts_tpu_torch.bench.harness import run_bench
+    from go_pocket_tts_tpu_torch.bench.stageprof import profile_synthesis
+    from go_pocket_tts_tpu_torch.parallel import BatcherRuntime, ContinuousBatcher, dp_tp_mesh
+    from go_pocket_tts_tpu_torch.runtime import GenerateConfig, stream_generate
+    from go_pocket_tts_tpu_torch.text import prepare_chunks
+    from go_pocket_tts_tpu_torch.tts.service import Service
+
+    svc = Service.from_config(entry_config(*fixtures, batch_slots=1, temperature=0.7))
+    rt = svc.runtime
+    ids = prepare_chunks(TOOLS_TEXT, svc.tokenizer, 50)[0].token_ids
+    cfg = GenerateConfig(temperature=0.7, eos_threshold=1e9)
+    readings: dict = {"eager prefill": [], "graphs": []}
+
+    def run(arm: str) -> dict:
+        rt.__dict__.pop("_prefill", None)
+        if arm == "eager prefill":
+            rt._prefill = _eager_prefill(rt)
+        stats = run_bench(svc, TOOLS_TEXT, runs=1, include_cold=False)
+        prof = profile_synthesis(svc, TOOLS_TEXT)
+        with svc._lock:
+            t = time.perf_counter()
+            blocks = stream_generate(rt, ids, cfg)
+            next(blocks)
+            first = time.perf_counter() - t
+            for _ in blocks:
+                pass
+        return {"prefill": prof.stages["prefill"] * 1e3, "stream_ttfa": first * 1e3, "ttfa": stats.ttfa_p50 * 1e3,
+                "x": stats.runs[0].x_realtime}
+
+    for arm in readings:  # warm: the captures
+        run(arm)
+    for arm in ("eager prefill", "graphs", "graphs", "eager prefill") * 2:
+        readings[arm].append(run(arm))
+    rt.__dict__.pop("_prefill", None)
+    med = {arm: {k: statistics.median(r[k] for r in rs) for k in rs[0]} for arm, rs in readings.items()}
+    for key, what in (("prefill", "prefill (stageprof)"), ("stream_ttfa", "first streamed block (stream_generate)"),
+                      ("ttfa", "TTFA p50, one-shot chunk (bench)"), ("x", "x real time (bench)")):
+        runs = {arm: [f"{r[key]:.2f}" for r in rs] for arm, rs in readings.items()}
+        unit = "" if key == "x" else " ms"
+        print(f"  {what}: eager prefill median {med['eager prefill'][key]:.3f}{unit}, graphs median "
+              f"{med['graphs'][key]:.3f}{unit}; runs {runs}  [{CARD}]")
+    caches = [_cache_stats("service single bf16", rt._graphs)]
+    del svc, rt
+    _release()
+
+    _arch, model = build_model(torch.bfloat16)
+    reqs, wave_cfg = serving_requests(arch)
+    knobs = _serving_knobs()
+    brt = BatcherRuntime(model, dtype=torch.bfloat16, seed=SEED, quantize=True, device="cuda", **knobs)
+    try:
+        t = time.perf_counter()
+        brt.prewarm((12,))
+        cache = brt.batcher._graphs
+        warmed = set(cache.keys())
+        print(f"  BatcherRuntime.prewarm((12,)): {(time.perf_counter() - t) * 1e3:.1f} ms, {len(warmed)} graphs "
+              f"({_keys_of(cache, ('admit', 'slot', 'reset', 'snapshot'))} captured without running)  [{CARD}]")
+        waves: dict = {"eager admission": [], "graphs": []}
+        for i, arm in enumerate(("graphs", "eager admission", "eager admission", "graphs") * 2):
+            _eager_admissions(brt.batcher, arm != "graphs")
+            waves[arm].append(_wave(brt.batcher, reqs, wave_cfg, 8))
+            if i == 0:
+                new = [_key_name(k) for k in cache.keys() if k not in warmed]
+                print(f"  the first wave after prewarm captured {len(new)} graphs: {sorted(new)}")
+        late = [k for k in cache.keys() if k[0] in ("admit", "slot", "reset", "snapshot") and k not in warmed]
+        if late:
+            fail(f"the serving batcher captured admission graphs after prewarm: {late}")
+        _eager_admissions(brt.batcher, False)
+        for arm, ws in waves.items():
+            firsts = [statistics.median(w["firsts"]) for w in ws]
+            maxes = [w["firsts"][-1] for w in ws]
+            print(f"  phase 12's mixed wave (8 streamed + 8 plain, after prewarm), {arm}: streams' first block p50 "
+                  f"median {statistics.median(firsts):.1f} ms (runs {[round(f, 1) for f in firsts]}), max "
+                  f"{[round(m, 1) for m in maxes]} ms; wall {[round(w['wall'], 3) for w in ws]} s  [{CARD}]")
+        caches.append(_cache_stats("serving batcher bf16 int8", brt.batcher._graphs))
+    finally:
+        brt.close()
+    del brt
+    _release()
+
+    card = torch.device("cuda", torch.cuda.current_device())
+    mesh_cfg = GenerateConfig(temperature=0.7, eos_threshold=1e9, max_steps=40)
+    walls = {}
+    for arm in ("graphs", "eager", "graphs", "eager"):
+        b = ContinuousBatcher(model, max_frames=256, dtype=torch.bfloat16, seed=SEED, quantize=True, device="cuda",
+                              mesh=dp_tp_mesh(2, 2, devices=[card] * 4), **knobs)
+        if arm == "eager":
+            for engine in b._engines():
+                engine._graphs = None
+        b.start()
+        try:
+            cold = _wave(b, reqs[:8], mesh_cfg, 2)
+            if arm == "graphs":
+                b.prewarm((12,))
+            warm = _wave(b, reqs[:8], mesh_cfg, 2)
+            stats = b.graph_stats()
+        finally:
+            b.stop()
+        walls.setdefault(arm, []).append((cold, warm, stats))
+    for arm, rs in walls.items():
+        colds = [round(c["wall"], 3) for c, _w, _s in rs]
+        warms = [round(w["wall"], 3) for _c, w, _s in rs]
+        firsts = [round(w["firsts"][0], 1) for _c, w, _s in rs]
+        after = "after prewarm" if arm == "graphs" else "second wave"
+        print(f"  phase 16's mesh wave (dp_tp_mesh(2, 2) on this card, bf16, int8 weights and KV, 8 requests of 40 "
+              f"frames, 2 streamed), {arm}: cold {colds} s, {after} {warms} s, first block then {firsts} ms  [{CARD}]")
+    for i, s in enumerate(walls["graphs"][-1][2]):
+        print(f"  mesh replica {i} ({s['device']}): {s['graphs']} graphs, {s['captures']} captures in "
+              f"{s['capture_seconds']:.2f} s, pool {s['pool_bytes'] / 2**20:.1f} MiB (after stop: released)")
+    del model
+    _release()
+    return caches
+
+
+def prefill_graphs_phase(fixtures, arch) -> None:
+    """Phase 18: the prefill, admission, slot-prefill, snapshot, reset and
+    mesh replica graphs against their eager counterparts, then the walls
+    and what they cost."""
+    from go_pocket_tts_tpu_torch import kernels
+
+    _release()
+    caches = prefill_replays(arch)
+    caches += prefill_walls(fixtures, arch)
+    kernels.reset_launches()  # phase 18's launches stay out of the kernel table
+    total = {"graphs": 0, "captures": 0, "seconds": 0.0, "bytes": 0}
+    for what, n, captures, seconds, pool in caches:
+        total["graphs"] += n
+        total["captures"] += captures
+        total["seconds"] += seconds
+        total["bytes"] += pool
+        print(f"  {what}: {n} graphs, {captures} captures in {seconds:.2f} s, pool {pool / 2**20:.1f} MiB")
+    print(f"  phase 18: {total['graphs']} graphs captured in {total['seconds']:.2f} s, their pools "
+          f"{total['bytes'] / 2**20:.1f} MiB; {_memory()}  [{CARD}]")
+
+
 def main() -> int:
     global CARD
     if not torch.cuda.is_available():
@@ -4137,6 +4625,12 @@ def main() -> int:
     t = time.perf_counter()
     graphs_phase(fixtures, checkpoint()[0])
     print(f"  phase 17 took {time.perf_counter() - t:.1f} s  [{CARD}]")
+
+    print("phase 18: the prefills, admissions, snapshots, stream resets and mesh replicas as graphs (real_arch): "
+          "replay, walls, cost")
+    t = time.perf_counter()
+    prefill_graphs_phase(fixtures, checkpoint()[0])
+    print(f"  phase 18 took {time.perf_counter() - t:.1f} s  [{CARD}]")
 
     for name, row in rows.items():
         row["launches"] = counts.get(name, 0)

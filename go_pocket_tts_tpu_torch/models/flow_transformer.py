@@ -268,7 +268,10 @@ def transformer_forward_cached(
     later queries (their slots sit beyond the new offset and are overwritten
     by later writes). Returns ``(y, cache)``; the cache buffers are the
     input's, written in place, with a new offset tensor. A tensor-parallel
-    tree and cache run every T in plain PyTorch.
+    tree and cache run every T in plain PyTorch. ``valid_len`` may be a
+    device int32 scalar: no value on the device is read on the host, so a
+    CUDA graph captures the prefill (``GPURuntime._prefill``, the batcher's
+    slot prefill), on either path.
     """
     t = x.shape[1]
     offset = cache["offset"]

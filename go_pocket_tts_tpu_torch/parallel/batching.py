@@ -35,11 +35,16 @@ replaced, the KV caches, the frame buffer, the per-lane fields and the
 stream decoder's state are updated IN PLACE. On the card the engine's
 programs are captured CUDA graphs (``runtime/graphs.py``), the reference's
 jitted ones: one AR block graph per block size, its stream decode per
-block size, and the harvest decode per (padded lane count, decode
-bucket). Each writes every new state leaf back into the engine's state
-tensors, which so keep their addresses, and admissions write into them
-between blocks. All device work of the engine is issued from its thread
-on one stream, so each in-place write is ordered after every read that was
+block size, the harvest decode per (padded lane count, decode bucket),
+the burst admission (prefill and splice) per (padded lane count, prompt
+bucket), the hydrated or session lane's prefill and splice per prompt
+bucket, the lane snapshot (the slot a device index) and the stream
+decoder's lane reset per padded lane count. Each writes every new state
+leaf back into the engine's state tensors, which so keep their
+addresses, and admissions write into them between blocks; an
+admission's per-lane values reach the device as one packed copy. All
+device work of the engine is issued from its thread on one stream, so
+each in-place write is ordered after every read that was
 enqueued before it; everything the engine reads one iteration later
 (flags, PCM, counts) is copied to the host before the next graph runs, and
 a session snapshot is a copy. The LSD noise comes from a device
@@ -62,7 +67,13 @@ ordering argument above holds per replica. A session's snapshot gathers
 the heads back into one lane on the replica's rank 0, so it resumes on any
 replica.
 
-A mesh replica runs its programs eagerly: its tp ranks span devices.
+A mesh replica whose tp ranks all sit on its rank-0 device (every replica
+of a mesh on one card, every dp-only replica) captures its programs as the
+unsharded engine does, at its shards' shapes; one whose ranks span devices
+runs them eagerly, decided from the mesh at construction
+(``eager_reason``, :meth:`ContinuousBatcher.graph_stats`). Replicas enqueue
+each program under the process's capture lock, so one replica's capture
+never runs beside another's launches.
 ``pallas=False`` (or ``None`` with ``POCKETTTS_PALLAS=0``) runs every
 kernel's plain version on the card, as ``GPURuntime`` does. An idle engine
 waits for a request without taking it from the queue, so a burst is
@@ -73,6 +84,7 @@ request and puts it back at the end.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 import math
 import queue
@@ -107,7 +119,7 @@ from go_pocket_tts_tpu_torch.runtime.generate import (
     quantized_model,
     resolve_pallas,
 )
-from go_pocket_tts_tpu_torch.runtime.graphs import GraphCache, feed, write_back
+from go_pocket_tts_tpu_torch.runtime.graphs import GraphCache, exclusive, feed, write_back
 from go_pocket_tts_tpu_torch.text.prepare import estimate_max_frames
 from go_pocket_tts_tpu_torch.utils import buckets as bk
 
@@ -280,17 +292,16 @@ def _set_cache_lanes(cache: State, idx: torch.Tensor, lanes: State, offsets: tor
     """Write prefilled float K/V lanes (a cache ``[L, N, H, C, Dh]``, or its
     ranks' heads) into the stacked cache at lanes ``idx`` ``[N]``, in
     place, quantizing each row first when the cache is int8."""
-    cache["offset"][idx] = offsets
+    cache["offset"].index_copy_(0, idx, offsets)
     for part, lane in zip(_kv_parts(cache), _kv_parts(lanes)):
         at = idx.to(part["k"].device)
-        if "k_scale" in part:
-            for name in ("k", "v"):
+        for name in ("k", "v"):
+            if "k_scale" in part:
                 q, scale = quantize_kv_rows(lane[name])
-                part[name][:, at] = q
-                part[f"{name}_scale"][:, at] = scale
-        else:
-            part["k"][:, at] = lane["k"].to(part["k"].dtype)
-            part["v"][:, at] = lane["v"].to(part["v"].dtype)
+                part[name].index_copy_(1, at, q)
+                part[f"{name}_scale"].index_copy_(1, at, scale)
+            else:
+                part[name].index_copy_(1, at, lane[name].to(part[name].dtype))
 
 
 def _prefill_lanes(params, tcfg, embs: torch.Tensor, capacity: int) -> State:
@@ -310,25 +321,38 @@ def _prefill_lanes(params, tcfg, embs: torch.Tensor, capacity: int) -> State:
     return cache
 
 
-def _insert_lanes(state: State, slots: List[int], lanes: State, offsets, max_steps, eos_thresholds, frames_after_eos, sigmas) -> None:
+def _lane_values(slots, offsets, max_steps, eos_thresholds, frames_after_eos, sigmas) -> torch.Tensor:
+    """The per-lane values of an admission, host lists of N each, packed
+    into one host int32 ``[6, N]`` tensor so that they reach the device in
+    one copy: rows slot, offset, max_steps, frames_after_eos, then the
+    float32 eos_threshold and sigma as their bits."""
+    packed = np.stack([
+        np.asarray(slots, np.int32),
+        np.asarray(offsets, np.int32),
+        np.asarray(max_steps, np.int32),
+        np.asarray(frames_after_eos, np.int32),
+        np.asarray(eos_thresholds, np.float32).view(np.int32),
+        np.asarray(sigmas, np.float32).view(np.int32),
+    ])
+    return torch.from_numpy(packed)
+
+
+def _insert_lanes(state: State, values: torch.Tensor, lanes: State) -> None:
     """Splice N prefilled lanes into the batch state, in place (duplicate
-    slots carry identical data). The per-lane values are host lists."""
-    dev = state["frame"].device
-
-    def lane_values(values, dtype):
-        return torch.as_tensor(np.asarray(values), dtype=dtype).to(dev, non_blocking=True)
-
-    idx = lane_values(slots, torch.long)
-    _set_cache_lanes(state["cache"], idx, lanes, lane_values(offsets, torch.int32))
-    state["frame"][idx] = float("nan")
-    state["n_frames"][idx] = 0
-    state["countdown"][idx] = -1
-    state["done"][idx] = False
-    state["active"][idx] = True
-    state["max_steps"][idx] = lane_values(max_steps, torch.int32)
-    state["eos_threshold"][idx] = lane_values(eos_thresholds, torch.float32)
-    state["frames_after_eos"][idx] = lane_values(frames_after_eos, torch.int32)
-    state["sigma"][idx] = lane_values(sigmas, torch.float32)
+    slots carry identical data); ``values`` is :func:`_lane_values`' packed
+    tensor on the state's device."""
+    slot, offset, max_steps, frames_after_eos, eos, sigma = values
+    idx = slot.long()
+    _set_cache_lanes(state["cache"], idx, lanes, offset)
+    state["frame"].index_fill_(0, idx, float("nan"))
+    state["n_frames"].index_fill_(0, idx, 0)
+    state["countdown"].index_fill_(0, idx, -1)
+    state["done"].index_fill_(0, idx, False)
+    state["active"].index_fill_(0, idx, True)
+    state["max_steps"].index_copy_(0, idx, max_steps)
+    state["eos_threshold"].index_copy_(0, idx, eos.view(torch.float32))
+    state["frames_after_eos"].index_copy_(0, idx, frames_after_eos)
+    state["sigma"].index_copy_(0, idx, sigma.view(torch.float32))
 
 
 def _harvest_decode_pcm16(model: PocketTTSModel, frames: torch.Tensor, slots: torch.Tensor, n_frames: torch.Tensor, decode_frames: int) -> torch.Tensor:
@@ -386,22 +410,24 @@ class BatchContinuation:
     offset_host: Optional[int] = None
 
 
-def _snapshot_lane(cache: State, slot: int):
-    """A copy of one lane of the stacked KV cache (int8 rows dequantized
-    with their scales; a tensor-parallel cache's heads gathered onto its
-    rank 0) and of its offset. A copy, never a view: later blocks write the
-    stacked cache in place."""
-    lane = slice(slot, slot + 1)
+def _snapshot_lane(cache: State, slot: torch.Tensor):
+    """One lane of the stacked KV cache (int8 rows dequantized with their
+    scales; a tensor-parallel cache's heads gathered onto its rank 0) and
+    its offset, for the lane ``slot`` (a ``[1]`` index on the device, so
+    that every slot shares one graph, as the reference traces it). Fresh
+    tensors (a gather), never views: later blocks write the stacked cache
+    in place."""
     dev = cache["offset"].device
     ks, vs = [], []
     for part in _kv_parts(cache):
-        k, v = part["k"][:, lane], part["v"][:, lane]
+        at = slot.to(part["k"].device)
+        k, v = part["k"].index_select(1, at), part["v"].index_select(1, at)
         if "k_scale" in part:
-            k = k.float() * part["k_scale"][:, lane, ..., None]
-            v = v.float() * part["v_scale"][:, lane, ..., None]
+            k = k.float() * part["k_scale"].index_select(1, at)[..., None]
+            v = v.float() * part["v_scale"].index_select(1, at)[..., None]
         ks.append(k.to(dev))
         vs.append(v.to(dev))
-    return torch.cat(ks, dim=2), torch.cat(vs, dim=2), cache["offset"][lane].clone()
+    return torch.cat(ks, dim=2), torch.cat(vs, dim=2), cache["offset"].index_select(0, slot)
 
 
 # -- the host side: requests, slots, the engine loop -------------------------
@@ -438,6 +464,28 @@ class _SlotInfo:
     # between, its flags and PCM describe the previous occupant. The epoch
     # recorded with the block keeps a recycled slot from acting on them.
     epoch: int = 0
+
+
+def _program(method):
+    """An engine program: enqueued under the process's capture lock, so
+    that another engine's capture on the same card never runs beside it."""
+
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        with exclusive():
+            return method(self, *args, **kwargs)
+
+    return run
+
+
+def _spans_devices(device: torch.device, rank_devices) -> Optional[str]:
+    """Why an engine on ``device`` with tp ranks on ``rank_devices`` (None:
+    unsharded) must run eagerly, or None when its graphs can be captured:
+    a graph is captured on one device, so every rank must sit on the
+    engine's own."""
+    if rank_devices is None or all(torch.device(d) == torch.device(device) for d in rank_devices):
+        return None
+    return "its tp ranks span " + ", ".join(str(d) for d in rank_devices) + " (a graph is captured on one device)"
 
 
 class _Engine:
@@ -482,9 +530,18 @@ class _Engine:
             # each block program).
             self._time_cond = flm.fnet.precompute_time_cond(flow["flow_net"], 1)
             self._fused_ada = flm.fnet.precompute_fused_adaln(flow["flow_net"])
-        # The block, stream-decode and harvest-decode graphs, captured and
-        # replayed by the engine thread. A mesh replica runs them eagerly.
-        self._graphs: Optional[GraphCache] = GraphCache(device) if owner.mesh is None else None
+        # The engine's programs as graphs (block, stream decode, harvest
+        # decode, admission, slot prefill, snapshot, stream reset), captured
+        # and replayed by the engine thread: the unsharded engine's, and a
+        # mesh replica's whose ranks all sit on its rank-0 device. A replica
+        # whose ranks span devices runs them eagerly (decided here, from the
+        # mesh; ``eager_reason`` says why).
+        self.eager_reason = _spans_devices(device, self._rank_devices)
+        self._graphs: Optional[GraphCache] = GraphCache(device) if self.eager_reason is None else None
+        if self.eager_reason is not None:
+            log.info("batcher replica on %s runs eagerly: %s", device, self.eager_reason)
+        # The slot prefill's static lane (made on its first use).
+        self._lane: Optional[State] = None
 
     @staticmethod
     def _new_pool() -> ThreadPoolExecutor:
@@ -548,8 +605,7 @@ class _Engine:
         if self._pending_stream_resets:
             # One in-place reset of every stream lane admitted this burst,
             # after the stream decode enqueued before the admission.
-            idx = torch.as_tensor(self._pending_stream_resets).to(self.device, non_blocking=True)
-            self._stream_state = mimi_stream.reset_lanes(self._stream_state, idx)
+            self._reset_streams(self._pending_stream_resets)
             self._pending_stream_resets = []
 
     def _tokens(self, req: _Request) -> np.ndarray:
@@ -575,9 +631,7 @@ class _Engine:
         """Prefill N requests in one batched forward and splice them in. An
         embedding voice goes in front of the text and counts in the prompt
         bucket."""
-        flow = self.model.params["flow_lm"]
-        flow_cfg = self.model.config.flow_lm
-        d_model = flow["conditioner_embed"].shape[1]
+        d_model = self.model.params["flow_lm"]["conditioner_embed"].shape[1]
         prepped = []
         for slot, req in items:
             try:
@@ -614,17 +668,15 @@ class _Engine:
             embs = torch.cat(
                 [torch.nn.functional.pad(p[2], (0, 0, 0, bucket - p[2].shape[1])) for p in padded]
             )
-            lanes = _prefill_lanes(flow, flow_cfg.transformer, embs, self.capacity)
-            _insert_lanes(
-                self._state,
+            values = _lane_values(
                 [p[0] for p in padded],
-                lanes,
                 [p[3] for p in padded],
                 [p[5] for p in padded],
                 [p[1].cfg.eos_threshold for p in padded],
                 [p[1].cfg.frames_after_eos for p in padded],
                 [math.sqrt(max(float(p[1].cfg.temperature), 0.0)) for p in padded],
             )
+            self._admission(embs, values)
         except Exception as exc:  # noqa: BLE001
             for _slot, req, *_ in prepped:
                 _fail_request(req, exc)
@@ -639,8 +691,6 @@ class _Engine:
         if cfg.voice_embedding is not None:
             # A session's chunks arrive stripped (_strip_voice_if_carried).
             raise ValueError("voice embedding and model-state/session conditioning are mutually exclusive")
-        flow = self.model.params["flow_lm"]
-        flow_cfg = self.model.config.flow_lm
         tokens = self._tokens(req)
         max_steps = self._max_steps(cfg, len(tokens))
         prompt_len = len(tokens)
@@ -659,29 +709,23 @@ class _Engine:
             )
         if cfg.voice_model_state is not None:
             lane = ftr.kv_cache_from_voice_state(
-                flow_cfg.transformer, cfg.voice_model_state.modules, self.capacity, self.dtype, self.device
+                self.model.config.flow_lm.transformer, cfg.voice_model_state.modules, self.capacity, self.dtype,
+                self.device,
             )
         else:
-            # Copies: the prefill writes the cache it is given in place, and
-            # a continuation may be submitted again.
-            lane = {
-                "k": req.cont.k.to(self.device, self.dtype, copy=True),
-                "v": req.cont.v.to(self.device, self.dtype, copy=True),
-                "offset": req.cont.offset.to(self.device, copy=True).reshape(()),
-            }
-        if self._rank_devices is not None:
-            lane = ftr.shard_cache_heads(lane, self._rank_devices)
-        lane = flm.prompt(flow, flow_cfg, lane, self._embed(tokens, bucket), prompt_len)
-        _insert_lanes(
-            self._state,
+            # The continuation is copied (into the static lane, or by .to()
+            # below): the prefill writes the lane in place, and a
+            # continuation may be submitted again.
+            lane = {"k": req.cont.k, "v": req.cont.v, "offset": req.cont.offset.reshape(())}
+        values = _lane_values(
             [slot],
-            lane,
             [voice_frames + prompt_len],
             [max_steps],
             [cfg.eos_threshold],
             [cfg.frames_after_eos],
             [math.sqrt(max(float(cfg.temperature), 0.0))],
         )
+        self._slot_prefill(lane, self._embed(tokens, bucket), prompt_len, values)
         self._attach_request(slot, req)
 
     def _attach_request(self, slot: int, req: _Request) -> None:
@@ -692,6 +736,14 @@ class _Engine:
         info.streaming = req.stream is not None
         info.stream_parts = None
         if info.streaming:
+            self._new_stream_state()
+            self._pending_stream_resets.append(slot)
+            info.stream_parts = []
+
+    def _new_stream_state(self) -> None:
+        """The batched stream decoder's state, one lane per slot, made on
+        first use (by the engine, or by ``prewarm``'s captures)."""
+        with exclusive():
             if self._stream_state is None:
                 mimi_cfg = self.model.config.mimi
                 self._stream_state = mimi_stream.init_stream_state(
@@ -702,8 +754,6 @@ class _Engine:
                     dtype=self.dtype,
                     per_lane_offsets=True,
                 )
-            self._pending_stream_resets.append(slot)
-            info.stream_parts = []
 
     def _any_streaming(self) -> bool:
         return any(s.request is not None and s.streaming for s in self._slot_info)
@@ -721,8 +771,28 @@ class _Engine:
             info.stream_parts.append(block)
             info.request.stream.put(block)
 
+    def _snapshot_graph(self):
+        cache = self._state["cache"]
+
+        def make():
+            return (lambda inputs: _snapshot_lane(inputs["cache"], inputs["slot"])), {
+                "cache": cache,
+                "slot": torch.zeros((1,), dtype=torch.long, device=self.device),
+            }
+
+        return self._graphs.get(("snapshot", self.dtype, self.kv_quantize), make)
+
+    @_program
     def _snapshot(self, slot: int) -> BatchContinuation:
-        k, v, offset = _snapshot_lane(self._state["cache"], slot)
+        """A copy of lane ``slot``'s KV cache and offset, as the one graph of
+        every slot (its outputs are static: copied out at once)."""
+        at = torch.tensor([slot], dtype=torch.long)
+        if self._graphs is None:
+            k, v, offset = _snapshot_lane(self._state["cache"], at.to(self.device))
+            return BatchContinuation(k=k, v=v, offset=offset, capacity=self.capacity)
+        graph = self._snapshot_graph()
+        feed(graph.inputs, slot=at)
+        k, v, offset = (t.clone() for t in graph.run())
         return BatchContinuation(k=k, v=v, offset=offset, capacity=self.capacity)
 
     def _harvest(self, done, active, n_frames, epochs) -> None:
@@ -788,8 +858,9 @@ class _Engine:
         idx = torch.as_tensor(slots_, dtype=torch.long).to(self.device)
         self._state["active"][idx] = False
 
-    # -- the engine's programs: graphs, or eager on a mesh replica ---------
+    # -- the engine's programs: graphs, or eager on a replica across cards --
 
+    @_program
     def _ar_block(self, k: int):
         """One AR block of ``k`` steps → ``(windows, n_new, flags)``
         (:func:`_ar_block_steps`), as the graph of its block size, which
@@ -822,6 +893,7 @@ class _Engine:
         graph.inputs["noise"].normal_(generator=self._gen)
         return graph.run()
 
+    @_program
     def _stream_decode(self, windows: torch.Tensor, n_new: torch.Tensor, streaming: List[bool]) -> torch.Tensor:
         """:func:`_batched_stream_decode` of a block's frames for the
         streaming lanes, as the graph of its block size over the engine's
@@ -851,6 +923,7 @@ class _Engine:
         feed(graph.inputs, windows=windows, n_new=n_new, mask=mask)
         return graph.run()
 
+    @_program
     def _harvest_decode(self, slot_ids: torch.Tensor, bucket: int) -> torch.Tensor:
         """:func:`_harvest_decode_pcm16` of the lanes ``slot_ids`` (a host
         tensor, padded to 1 or every slot) at ``bucket`` frames, as the graph
@@ -873,6 +946,135 @@ class _Engine:
         graph = self._graphs.get(("harvest", self.dtype, len(slot_ids), bucket), make)
         feed(graph.inputs, slots=slot_ids)
         return graph.run()
+
+    def _admission_graph(self, n: int, bucket: int):
+        flow, tcfg = self.model.params["flow_lm"], self.model.config.flow_lm.transformer
+        capacity, d_model = self.capacity, flow["conditioner_embed"].shape[1]
+
+        def make():
+            def body(inputs):
+                _insert_lanes(inputs["state"], inputs["values"], _prefill_lanes(flow, tcfg, inputs["embs"], capacity))
+
+            return body, {
+                "state": self._state,
+                "embs": torch.zeros((n, bucket, d_model), dtype=self.dtype, device=self.device),
+                "values": torch.zeros((6, n), dtype=torch.int32, device=self.device),
+            }
+
+        return self._graphs.get(("admit", n, bucket, capacity, self.dtype, self.kv_quantize), make)
+
+    @_program
+    def _admission(self, embs: torch.Tensor, values: torch.Tensor) -> None:
+        """Prefill the burst ``embs [N, bucket, D]`` and splice its lanes
+        into the state (``values``: :func:`_lane_values`), as the graph of
+        (N, bucket, capacity, dtype, kv_quantize): the reference's
+        ``_prefill_lanes`` then ``_insert_lanes``."""
+        if self._graphs is None:
+            lanes = _prefill_lanes(self.model.params["flow_lm"], self.model.config.flow_lm.transformer, embs,
+                                   self.capacity)
+            _insert_lanes(self._state, values.to(self.device, non_blocking=True), lanes)
+            return
+        graph = self._admission_graph(*embs.shape[:2])
+        feed(graph.inputs, embs=embs, values=values)
+        graph.run()
+
+    def _slot_graph(self, bucket: int):
+        flow, flow_cfg = self.model.params["flow_lm"], self.model.config.flow_lm
+        if self._lane is None:
+            tcfg = flow_cfg.transformer
+            if self._rank_devices is not None:
+                self._lane = ftr.init_kv_cache_tp(tcfg, 1, self.capacity, self.dtype, self._rank_devices)
+            else:
+                self._lane = ftr.init_kv_cache(tcfg, 1, self.capacity, self.dtype, self.device)
+        d_model = flow["conditioner_embed"].shape[1]
+
+        def make():
+            def body(inputs):
+                prefilled = flm.prompt(flow, flow_cfg, inputs["lane"], inputs["emb"], inputs["valid"])
+                _insert_lanes(inputs["state"], inputs["values"], prefilled)
+
+            return body, {
+                "state": self._state,
+                "lane": self._lane,
+                "emb": torch.zeros((1, bucket, d_model), dtype=self.dtype, device=self.device),
+                "valid": torch.zeros((), dtype=torch.int32, device=self.device),
+                "values": torch.zeros((6, 1), dtype=torch.int32, device=self.device),
+            }
+
+        return self._graphs.get(("slot", bucket, self.capacity, self.dtype, self.kv_quantize), make)
+
+    @_program
+    def _slot_prefill(self, lane: State, emb: torch.Tensor, prompt_len: int, values: torch.Tensor) -> None:
+        """Prefill ``emb [1, bucket, D]`` after the hydrated ``lane`` (a
+        whole cache ``{k, v, offset}``, not written) and splice it into its
+        slot, as the graph of (bucket, capacity, dtype, kv_quantize) over
+        the engine's static lane (zero-made in the transformer's layout,
+        per rank under tensor parallelism), into which ``lane`` is copied:
+        the reference's ``_prefill`` then ``_insert_lane``."""
+        flow, flow_cfg = self.model.params["flow_lm"], self.model.config.flow_lm
+        if self._graphs is None:
+            own = {
+                "k": lane["k"].to(self.device, self.dtype, copy=True),
+                "v": lane["v"].to(self.device, self.dtype, copy=True),
+                "offset": lane["offset"].to(self.device, copy=True),
+            }
+            if self._rank_devices is not None:
+                own = ftr.shard_cache_heads(own, self._rank_devices)
+            own = flm.prompt(flow, flow_cfg, own, emb, prompt_len)
+            _insert_lanes(self._state, values.to(self.device, non_blocking=True), own)
+            return
+        graph = self._slot_graph(emb.shape[1])
+        parts = _kv_parts(self._lane)
+        for name in ("k", "v"):
+            for part, heads in zip(parts, lane[name].chunk(len(parts), dim=2)):
+                part[name].copy_(heads, non_blocking=True)
+        self._lane["offset"].copy_(lane["offset"], non_blocking=True)
+        feed(graph.inputs, emb=emb, values=values)
+        graph.inputs["valid"].fill_(prompt_len)
+        graph.run()
+
+    def _reset_graph(self, n: int):
+        state = self._stream_state
+
+        def make():
+            return (lambda inputs: mimi_stream.reset_lanes(inputs["state"], inputs["slots"])), {
+                "state": state,
+                "slots": torch.zeros((n,), dtype=torch.long, device=self.device),
+            }
+
+        return self._graphs.get(("reset", self.slots, self.dtype, n), make)
+
+    @_program
+    def _reset_streams(self, slots_: List[int]) -> None:
+        """Zero the stream decoder's lanes ``slots_`` in place, padded to 1
+        or every slot by repeating the first (zeroing is idempotent), as the
+        graph of that lane count: ``mimi_stream.reset_lanes``."""
+        ids = torch.tensor(slots_ + slots_[:1] * (self._pad_count(len(slots_)) - len(slots_)), dtype=torch.long)
+        if self._graphs is None:
+            self._stream_state = mimi_stream.reset_lanes(self._stream_state, ids.to(self.device, non_blocking=True))
+            return
+        graph = self._reset_graph(len(ids))
+        feed(graph.inputs, slots=ids)
+        graph.run()
+
+    @_program
+    def _capture_admissions(self) -> None:
+        """Capture, without running them, the admission graphs of every
+        prompt bucket that fits the engine's capacity at both lane counts,
+        the slot prefill's of every bucket, the snapshot's and the stream
+        resets': a first burst of a new prompt bucket then pays no capture
+        (a no-op without graphs; on the CPU it only makes the graphs)."""
+        if self._graphs is None:
+            return
+        self._new_stream_state()
+        graphs = [self._snapshot_graph()] + [self._reset_graph(n) for n in sorted({1, self.slots})]
+        for bucket in bk.PROMPT_BUCKETS:
+            if bucket + self.max_frames > self.capacity:
+                break
+            graphs += [self._admission_graph(n, bucket) for n in sorted({1, self.slots})]
+            graphs.append(self._slot_graph(bucket))
+        for graph in graphs:
+            graph.capture()
 
     def _loop(self) -> None:
         try:
@@ -1090,6 +1292,22 @@ class ContinuousBatcher(_Engine):
     def _engines(self) -> List[_Engine]:
         return self._replicas or [self]
 
+    def graph_stats(self) -> List[Dict]:
+        """Per engine (one, or one per dp replica): its device, its graphs,
+        captures, capture seconds and pool bytes, or why it runs eagerly."""
+        out = []
+        for engine in self._engines():
+            cache = engine._graphs
+            out.append({
+                "device": str(engine.device),
+                "graphs": None if cache is None else len(cache),
+                "captures": 0 if cache is None else cache.captures,
+                "capture_seconds": 0.0 if cache is None else cache.capture_seconds,
+                "pool_bytes": 0 if cache is None or engine.device.type != "cuda" else cache.pool_bytes(),
+                "eager_reason": engine.eager_reason,
+            })
+        return out
+
     # -- public API --------------------------------------------------------
 
     def _enqueue(self, req: _Request) -> None:
@@ -1215,15 +1433,22 @@ class ContinuousBatcher(_Engine):
     def prewarm(self, token_lengths=(10, 30, 50), timeout: float = 600.0) -> None:
         """Run the engine's admission and streaming waves once before serving.
 
-        A first wave pays for capturing the engine's graphs (the AR block of
-        each block size, the stream decode, the harvest decode of each lane
-        count and bucket it reaches), loading the kernel libraries, the
-        caching allocator's first blocks and the stream decoder's state:
-        a full-slot admission at each token length, a single admission, a
-        streamed single and a streamed full-slot wave. Sweeping the
+        First every engine captures, without running them, its admission
+        graphs of every prompt bucket that fits its capacity at both lane
+        counts, its slot prefill's of every bucket, its snapshot's and its
+        stream resets': a burst's prompt bucket is its largest prompt's, so
+        traffic alone would leave most of them to a first burst. Then a
+        first wave pays for capturing the rest (the AR block of each block
+        size, the stream decode, the harvest decode of each lane count and
+        bucket it reaches), loading the kernel libraries, the caching
+        allocator's first blocks: a full-slot admission at each token
+        length, a single admission, a streamed single and a streamed
+        full-slot wave. A later request of those buckets captures nothing. Sweeping the
         harvest-decode buckets as well (the reference's, against compile
         stalls) moved no first wave's latency on an H100
         (``scripts/torch_prewarm_ab.py``) and is not done."""
+        for engine in self._engines():
+            engine._capture_admissions()
         for n_tokens in token_lengths:
             cfg = GenerateConfig(temperature=0.0, eos_threshold=1e9, max_steps=estimate_max_frames(n_tokens))
             for f in [self.submit([0] * n_tokens, cfg) for _ in range(self.slots)]:

@@ -30,10 +30,14 @@ the audio and the carried cache are the while_loop's exactly. The loop
 takes and returns its carry (cache, frame, countdown, ``done`` and the
 request's noise), so the streaming path runs it in segments and a
 continuity session carries the cache into the next chunk; a session's
-cache is a copy, never the loop's buffers. The decode is a graph per
-decode bucket. On the CPU the same bodies run eagerly over the same
-buffers. The first request of a bucket pays a capture, as the
-reference's pays a compile.
+cache is a copy, never the loop's buffers. The prefill (the reference's
+``_embed_prefill``: embedding, voice concat and the transformer over the
+prompt) is a graph per (batch, token bucket, voice length, capacity,
+dtype, cache source) that writes the loop's static cache, so the loop
+copies no K/V; a hydrated voice or a session's cache is copied into it
+first. The decode is a graph per decode bucket. On the CPU the same bodies
+run eagerly over the same buffers. The first request of a bucket pays a
+capture, as the reference's pays a compile.
 
 A request's LSD noise is drawn once, ``[steps, B, L]`` from its own
 generator, and each graph reads its steps' rows from a static buffer: the
@@ -105,9 +109,9 @@ __all__ = [
 @dataclass
 class ContinuationState:
     """Cross-chunk prosody state: the FlowLM KV cache carried from one text
-    chunk into the next. Single use: the next chunk's prefill writes into
-    the cache buffers in place, so always pass the state the latest call
-    returned."""
+    chunk into the next. Single use: the next chunk's eager prefill (a
+    runtime without graphs) writes into the cache buffers in place, so
+    always pass the state the latest call returned."""
 
     cache: Dict
     capacity: int
@@ -256,6 +260,27 @@ def own_cache(cache: Dict) -> Dict:
     return {key: val.clone() for key, val in cache.items()}
 
 
+def _embed_prefill(
+    model: PocketTTSModel,
+    dtype: torch.dtype,
+    cache: Dict,
+    ids: torch.Tensor,
+    valid: Union[int, torch.Tensor],
+    voice_emb: Optional[torch.Tensor] = None,
+) -> Dict:
+    """Embed ``ids [B, P]`` (zero-padded), put ``voice_emb [B, V, D]`` in
+    front if given, and prefill ``cache`` in place; ``valid`` counts the
+    real rows, the voice's included (an int, or a device int32 scalar in a
+    graph). The body of the prefill graph and of the eager prefill."""
+    flow = model.params["flow_lm"]
+    emb = flm.text_embeddings(flow, ids).to(dtype)
+    if voice_emb is not None:
+        emb = torch.cat([voice_emb.to(dtype), emb], dim=1)
+    # Padded token slots embed row 0 of the LUT; they sit past the offset
+    # and are never visible.
+    return flm.prompt(flow, model.config.flow_lm, cache, emb, valid)
+
+
 def quantized_model(model: PocketTTSModel, quantize: Union[bool, int]) -> PocketTTSModel:
     """``model`` with every float linear weight-only quantized: int8 when
     ``quantize`` is True or 8, packed int4 when it is 4; unchanged when it
@@ -395,22 +420,55 @@ class GPURuntime:
         voice_emb: Optional[torch.Tensor] = None,
     ):
         """Embed ``tokens_padded`` (behind ``voice_emb``, if given) and
-        prefill them into ``cache`` (a hydrated voice or session cache,
-        written in place) or a new zero cache of ``capacity``."""
-        flow = self.model.params["flow_lm"]
-        flow_cfg = self.model.config.flow_lm
-        emb = flm.text_embeddings(flow, tokens_padded).to(self.dtype)
-        valid = n_tokens
+        prefill them into ``cache`` (a hydrated voice or session cache) or a
+        new zero cache of ``capacity``: the reference's ``_embed_prefill``.
+
+        As the graph of (batch, token bucket, voice length, capacity, dtype,
+        cache source), whose output is the AR loop's static cache of (batch,
+        capacity): a given cache is copied into it, and the loop then feeds
+        nothing. Without graphs, eagerly into ``cache`` (written in place)
+        or a new one."""
+        batch, bucket = tokens_padded.shape
+        voice_len = 0 if voice_emb is None else voice_emb.shape[1]
+        valid = n_tokens + voice_len
+        if self._graphs is None:
+            if cache is None:
+                cache = ftr.init_kv_cache(
+                    self.model.config.flow_lm.transformer, batch, capacity, self.dtype, self.device
+                )
+            return _embed_prefill(self.model, self.dtype, cache, tokens_padded, valid, voice_emb)
+        fresh = cache is None
+        static = self._cache_buffers(batch, capacity)
+        key = ("prefill", batch, bucket, voice_len, capacity, self.dtype, "fresh" if fresh else "given")
+
+        def make():
+            model, dtype = self.model, self.dtype
+            inputs = {
+                **static,
+                "ids": torch.empty_like(tokens_padded),
+                "valid": torch.zeros((), dtype=torch.int32, device=self.device),
+                "voice": None if voice_emb is None else torch.empty_like(voice_emb),
+            }
+
+            def body(inputs):
+                cache = {"k": inputs["k"], "v": inputs["v"], "offset": inputs["offset"]}
+                if fresh:
+                    for leaf in cache.values():
+                        leaf.zero_()
+                new = _embed_prefill(model, dtype, cache, inputs["ids"], inputs["valid"], inputs["voice"])
+                inputs["offset"].copy_(new["offset"])
+
+            return body, inputs
+
+        graph = self._graphs.get(key, make)
+        if not fresh:
+            feed(graph.inputs, k=cache["k"], v=cache["v"], offset=cache["offset"])
+        feed(graph.inputs, ids=tokens_padded)
         if voice_emb is not None:
-            emb = torch.cat([voice_emb.to(self.dtype), emb], dim=1)
-            valid += voice_emb.shape[1]
-        if cache is None:
-            cache = ftr.init_kv_cache(
-                flow_cfg.transformer, tokens_padded.shape[0], capacity, self.dtype, self.device
-            )
-        # Padded token slots embed row 0 of the LUT; they sit past the
-        # offset and are never visible.
-        return flm.prompt(flow, flow_cfg, cache, emb, valid)
+            feed(graph.inputs, voice=voice_emb)
+        graph.inputs["valid"].fill_(valid)
+        graph.run()
+        return dict(static)
 
     def _new_carry(self, cfg: GenerateConfig, batch: int, steps: int) -> Dict:
         """The carry of a new request, from the BOS frame: no EOS yet, not
@@ -510,27 +568,38 @@ class GPURuntime:
 
         return body, {**s, "noise": noise}
 
+    def _group(self, key: tuple, make: Callable[[], Dict], fresh: bool = False) -> Dict[str, torch.Tensor]:
+        """The runtime's static buffers of ``key`` (made on first use), or
+        new ones for one call with ``fresh``."""
+        if fresh:
+            return make()
+        if key not in self._buffers:
+            self._buffers[key] = make()
+        return self._buffers[key]
+
+    def _cache_buffers(self, batch: int, capacity: int, fresh: bool = False) -> Dict[str, torch.Tensor]:
+        """The static KV cache of (batch, capacity): the prefill graph's
+        output and the AR loop's carried input."""
+        tcfg = self.model.config.flow_lm.transformer
+        return self._group(
+            ("cache", batch, capacity),
+            lambda: ftr.init_kv_cache(tcfg, batch, capacity, self.dtype, self.device),
+            fresh,
+        )
+
     def _loop_buffers(self, batch: int, capacity: int, width: int, fresh: bool = False) -> Dict[str, torch.Tensor]:
         """The AR loop's static buffers: the cache's of (batch, capacity),
         the frames' of (batch, width) and the rest of (batch); with
         ``fresh``, new ones for one call."""
-        tcfg = self.model.config.flow_lm.transformer
         latent = self.model.params["flow_lm"]["bos_emb"].shape[0]
         dev, dtype = self.device, self.dtype
-
-        def group(key, make):
-            if fresh:
-                return make()
-            if key not in self._buffers:
-                self._buffers[key] = make()
-            return self._buffers[key]
-
-        cache = group(("cache", batch, capacity), lambda: ftr.init_kv_cache(tcfg, batch, capacity, dtype, dev))
-        frames = group(
+        cache = self._cache_buffers(batch, capacity, fresh)
+        frames = self._group(
             ("frames", batch, width),
             lambda: {"frames": torch.zeros((batch, width, latent), dtype=dtype, device=dev)},
+            fresh,
         )
-        loop = group(
+        loop = self._group(
             ("loop", batch),
             lambda: {
                 "frame": torch.zeros((batch, 1, latent), dtype=dtype, device=dev),
@@ -542,6 +611,7 @@ class GPURuntime:
                 "eos_threshold": torch.zeros((), dtype=torch.float32, device=dev),
                 "frames_after_eos": torch.zeros((), dtype=torch.int32, device=dev),
             },
+            fresh,
         )
         return {**cache, **frames, **loop}
 

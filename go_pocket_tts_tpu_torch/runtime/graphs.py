@@ -27,7 +27,10 @@ outside the graph. Captures run one at a time in a process, in the
 ``thread_local`` capture mode, in the thread that replays the graph, with
 the cyclic garbage collector paused; a graph is freed with its cache (no
 reference cycle) or by :meth:`GraphCache.release`, never inside a
-capture. A failed capture or replay raises: nothing carries on eagerly.
+capture. Threads that enqueue beside another's captures (a batcher's
+engine replicas on one card) hold the same lock around each program
+(:func:`exclusive`), so no capture sees their launches. A failed capture
+or replay raises: nothing carries on eagerly.
 
 On the CPU the body runs eagerly over the same static buffers, and its
 outputs are copied into the first run's, so the buffer handling (feeding,
@@ -53,7 +56,7 @@ import torch
 
 from go_pocket_tts_tpu_torch import kernels
 
-__all__ = ["Graph", "GraphCache", "accounted", "feed", "write_back"]
+__all__ = ["Graph", "GraphCache", "accounted", "exclusive", "feed", "write_back"]
 
 # CUDA allows one stream capture at a time in a process, and
 # torch.cuda.graph hands every capture without a stream the same one.
@@ -62,6 +65,14 @@ __all__ = ["Graph", "GraphCache", "accounted", "feed", "write_back"]
 _CAPTURE_LOCK = threading.RLock()
 
 Counts = List[Tuple[int, Optional[Dict]]]
+
+
+def exclusive() -> threading.RLock:
+    """The process's capture lock, for a thread that enqueues device work
+    beside other threads' captures (a batcher's engine replicas): while it
+    is held no capture runs, so none is invalidated or miscounted by this
+    thread's launches (:func:`accounted` restores the wrappers' counts)."""
+    return _CAPTURE_LOCK
 
 
 def _counts(wrappers) -> Counts:
@@ -174,6 +185,17 @@ class Graph:
         self.outputs = None
         self.tally: Optional[Counts] = None
         self._graph: Optional[torch.cuda.CUDAGraph] = None
+
+    def capture(self) -> None:
+        """Capture the graph now, without running it (a no-op on the CPU
+        or once captured): its warm-up runs on copies of the inputs, so
+        the inputs are left as they are."""
+        if self.device.type != "cuda" or self._graph is not None:
+            return
+        cache = self._cache()
+        if cache is None:
+            raise RuntimeError(f"graph {self.key}: its cache was released")
+        cache._capture(self)
 
     def run(self):
         """Replay the graph (capturing it first on its key's first use); on

@@ -501,16 +501,20 @@ class Service:
         """Run the common shape buckets once before serving traffic.
 
         A first request of a bucket pays for capturing the runtime's CUDA
-        graphs of that bucket (``runtime/graphs.py``), as the reference's
-        pays a compile, and the first request of a process for building
-        or loading the kernel libraries and the caching allocator's first
-        blocks. Voices
-        take their own buckets, so pass the serving voices' files in
-        ``voice_paths`` (``serve --prewarm`` passes every voice in the
-        manifest). A runtime with a ``prewarm`` of its own (the continuous
-        batcher) runs its own traffic shapes (both admission counts, the
-        stream decode, every harvest-decode bucket), then one plain session
-        of two chunks.
+        graphs of that bucket (``runtime/graphs.py``: the prefill of its
+        token bucket and capacity, the AR segments, the decode), as the
+        reference's pays a compile, and the first request of a process for
+        building or loading the kernel libraries and the caching
+        allocator's first blocks; after this, a request of a warmed bucket
+        captures nothing. Sessions capture their own prefill (a given
+        cache) and capacities, so one plain and one streamed session of two
+        chunks run too. Voices take their own buckets, so pass the serving
+        voices' files in ``voice_paths`` (``serve --prewarm`` passes every
+        voice in the manifest). A runtime with a ``prewarm`` of its own (the
+        continuous batcher) runs its own traffic shapes (the admission at
+        both lane counts, the AR blocks, the stream decode and its lane
+        reset, the harvest decodes it reaches), then one plain session of
+        two chunks (the slot prefill and the lane snapshot).
         """
         own = getattr(self.runtime, "prewarm", None)
         if own is not None:

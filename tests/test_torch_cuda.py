@@ -1355,7 +1355,7 @@ def test_graph_replay_is_the_eager_loop(card, runner):
             outs.append(list(stream_generate(rt, [3, 17, 41], cfg)))
         if graphs_on:
             keys = rt._graphs.keys()
-            assert all(k[0] in ("ar", "decode", "stream") for k in keys) and rt._graphs.captures == len(keys)
+            assert all(k[0] in ("prefill", "ar", "decode", "stream") for k in keys) and rt._graphs.captures == len(keys)
     assert len(outs[0]) == len(outs[1])
     for g, w in zip(*outs):
         _replayed(g, w)
@@ -1412,3 +1412,83 @@ def test_a_failing_capture_raises_with_no_eager_result(card):
     assert da.decode_attention_step.launches == 0
     torch.cuda.synchronize()
     assert torch.equal(x * 2, torch.full((4,), 2.0, device=card))  # the card still runs
+
+
+# -- the prefill, admission, snapshot, reset and mesh replica graphs -------------
+
+
+@pytest.mark.parametrize("runner", ["single", "stream", "session", "batcher", "mesh"])
+def test_prefill_graph_replay_is_the_eager_prefill(card, runner):
+    """The prefill graphs replayed against their eager counterparts, float32,
+    bit-equal: the single runtime's prefill (fresh, both voice kinds), the
+    streamer's first block, a session's carried prefill, the batcher's
+    admissions, slot prefills, snapshot and stream resets (int8 weights
+    and KV), and a dp=2 x tp=2 mesh's replicas on this card."""
+    import chip_smoke
+
+    arch = GRAPH_ARCH
+    model = load_model_from_tensors(synthetic.build_checkpoint(arch, seed=2), num_heads=arch.num_heads, device=card)
+    if runner in ("batcher", "mesh"):
+        from go_pocket_tts_tpu_torch.parallel import dp_tp_mesh
+
+        kw = {"mesh": dp_tp_mesh(2, 2, devices=[card] * 4), "kv_quantize": False} if runner == "mesh" else {}
+        drive = chip_smoke._drive_mesh if runner == "mesh" else chip_smoke._drive_admissions
+        batcher, (got, want) = chip_smoke._batcher_arms(model, arch, drive, True, 0.0, **kw)
+        kinds = {k[0] for engine in batcher._engines() for k in engine._graphs.keys()}
+        assert {"admit", "slot", "snapshot", "reset"} <= kinds
+    else:
+        if runner == "stream":
+            got, want = chip_smoke._single_prefill_arms(model, arch, torch.float32, 0.0)[1]["first streamed block"]
+        else:
+            cases = ("session",) if runner == "session" else ("fresh", "voice_embedding", "voice_state")
+            arms = []
+            for graphs_on in (True, False):
+                rt = GPURuntime(model, seed=1, device=card)
+                if not graphs_on:
+                    rt._graphs = None
+                tokens = [3 + i % 50 for i in range(24)]
+                arms.append([x for case in cases for x in chip_smoke._prefill_case(rt, arch, case, tokens, 0.0)])
+            got, want = arms
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        chip_smoke._bit_equal(g, w, f"{runner} output {i}")
+
+
+def test_a_capture_while_another_engine_replays(card):
+    """dp=2 on one card: each replica's engine thread captures the graphs of
+    new buckets while the other replays or admits; every request is served,
+    within 1e-4 RMS of the eager replicas', and both replicas captured."""
+    from go_pocket_tts_tpu_torch.parallel import ContinuousBatcher, dp_mesh
+
+    model = load_model_from_tensors(
+        synthetic.build_checkpoint(GRAPH_ARCH, seed=2), num_heads=GRAPH_ARCH.num_heads, device=card
+    )
+    # Prompt buckets 16, 32 and 64 and several frame counts: new admission,
+    # block and harvest keys arrive while the other replica runs.
+    reqs = [([3 + i % 50] * n, steps) for i, (n, steps) in enumerate(
+        [(5, 16), (20, 24), (40, 9), (5, 33), (20, 16), (40, 40), (7, 17), (30, 8)] * 2)]
+    outs = []
+    for graphs_on in (True, False):
+        b = ContinuousBatcher(model, slots=4, prompt_capacity=64, max_frames=64, seed=1, steps_per_sync=8,
+                              quantize=True, kv_quantize=True, device=card, mesh=dp_mesh(2, devices=[card] * 2))
+        if not graphs_on:
+            for engine in b._engines():
+                engine._graphs = None
+        b.start()
+        try:
+            futs = []
+            for tokens, steps in reqs:
+                cfg = GenerateConfig(temperature=0.0, eos_threshold=1e9, max_steps=steps)
+                futs.append(b.submit(tokens, cfg))
+            streams = [b.submit_stream(tokens, GenerateConfig(temperature=0.0, eos_threshold=1e9, max_steps=12))
+                       for tokens, _ in reqs[:2]]
+            got = [f.result(timeout=300) for f in futs] + [np.concatenate(list(s)) for s in streams]
+            stats = b.graph_stats()
+        finally:
+            b.stop()
+        outs.append(got)
+        if graphs_on:
+            assert all(s["eager_reason"] is None and s["captures"] > 0 for s in stats), stats
+    for g, w in zip(*outs):
+        assert g.shape == w.shape
+        assert np.sqrt(np.mean((g.astype(np.float64) - w) ** 2)) < 1e-4

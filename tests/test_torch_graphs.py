@@ -91,7 +91,7 @@ def test_single_graphs_match_the_reference(models):
     want = TPURuntime(jm, dtype=jnp.float32, seed=1, frame_bucket=64).generate_audio(TOKENS, JConfig(**kw))
     rt = _runtime(tm, True)
     got = rt.generate_audio(TOKENS, GenerateConfig(**kw))
-    assert len(rt._graphs) == 3  # AR 4 steps, AR 2-step tail, decode
+    assert len(rt._graphs) == 4  # prefill, AR 4 steps, AR 2-step tail, decode
     np.testing.assert_allclose(got, np.asarray(want), atol=ATOL, rtol=RTOL)
 
 
@@ -236,7 +236,7 @@ def test_batcher_graphs_are_the_eager_engine(models, quantize):
     for i, (g, w) in enumerate(zip(got, want)):
         assert torch.equal(g, w), i
     keys = graphed._graphs.keys()
-    assert {k[0] for k in keys} == {"block", "stream", "harvest"}
+    assert {k[0] for k in keys} == {"block", "stream", "harvest", "admit", "reset"}
     assert sorted(k[2] for k in keys if k[0] == "harvest") == [1, 2]
     # The harvest decode is the eager function over the engine's state.
     frames, n_frames = graphed._state["frames"], graphed._state["n_frames"]
@@ -261,7 +261,7 @@ def test_batcher_graphs_match_the_reference(models):
     want, _ = serve(JBatcher(jm, **common), JConfig)
     graphed = ContinuousBatcher(tm, device="cpu", **common)
     got, keys = serve(graphed, GenerateConfig)
-    assert {k[0] for k in keys} == {"block", "harvest"}
+    assert {k[0] for k in keys} == {"block", "harvest", "admit"}
     assert len(graphed._graphs) == 0  # stop() released them
     for (_, n), g, w in zip(reqs, got, want):
         assert len(g) == len(w) == n * 1920
