@@ -1,0 +1,8 @@
+"""``device_idle_pct.batch``: the share of the traced slice in which no
+device operation ran, in %."""
+
+from pbench import derive
+
+
+def read(run):
+    return derive.idle_pct(run)
