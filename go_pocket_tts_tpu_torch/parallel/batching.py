@@ -96,6 +96,7 @@ from typing import Dict, List, Optional, Union
 import numpy as np
 import torch
 
+from go_pocket_tts_tpu_torch import tracing
 from go_pocket_tts_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from go_pocket_tts_tpu_torch.models import flow_lm as flm
 from go_pocket_tts_tpu_torch.models import flow_transformer as ftr
@@ -451,6 +452,10 @@ class _Request:
     cont: Optional[BatchContinuation] = None
     keep_state: bool = False
     state_out: Optional[BatchContinuation] = None
+    # The request's id (``tracing.py``), always set; while tracing is on, the
+    # time ``_enqueue`` queued it, where its ``queue`` span starts.
+    rid: int = dataclasses.field(default_factory=tracing.next_request_id)
+    enqueued: Optional[int] = None
 
 
 @dataclasses.dataclass
@@ -502,8 +507,10 @@ class _Engine:
         device: torch.device,
         seed: Optional[int],
         state: State,
+        index: int = 0,
     ) -> None:
         self._owner = owner
+        self._index = index  # the engine's index among its batcher's, on its spans
         self.model, self.slots, self.device, self._state = model, slots, device, state
         self.dtype, self.kv_quantize, self.kernels = owner.dtype, owner.kv_quantize, owner.kernels
         self.steps_per_sync, self.steps_per_sync_burst = owner.steps_per_sync, owner.steps_per_sync_burst
@@ -586,27 +593,29 @@ class _Engine:
                 req = self._queue.get_nowait()
             except queue.Empty:
                 break
+            tracing.record("queue", req.enqueued, request=req.rid, engine=self._index)
             pending.append((free.pop(0), req))
         if not pending:
             return
-        # A voice model state or a carried session hydrates an existing KV
-        # cache, one lane at a time; the rest prefill together.
-        batchable = []
-        for slot, req in pending:
-            if req.cfg.voice_model_state is not None or req.cont is not None:
-                try:
-                    self._prefill_into_slot(slot, req)
-                except Exception as exc:  # noqa: BLE001
-                    _fail_request(req, exc)
-            else:
-                batchable.append((slot, req))
-        if batchable:
-            self._admit_batch(batchable)
-        if self._pending_stream_resets:
-            # One in-place reset of every stream lane admitted this burst,
-            # after the stream decode enqueued before the admission.
-            self._reset_streams(self._pending_stream_resets)
-            self._pending_stream_resets = []
+        with tracing.span("admit", engine=self._index):
+            # A voice model state or a carried session hydrates an existing KV
+            # cache, one lane at a time; the rest prefill together.
+            batchable = []
+            for slot, req in pending:
+                if req.cfg.voice_model_state is not None or req.cont is not None:
+                    try:
+                        self._prefill_into_slot(slot, req)
+                    except Exception as exc:  # noqa: BLE001
+                        _fail_request(req, exc)
+                else:
+                    batchable.append((slot, req))
+            if batchable:
+                self._admit_batch(batchable)
+            if self._pending_stream_resets:
+                # One in-place reset of every stream lane admitted this burst,
+                # after the stream decode enqueued before the admission.
+                self._reset_streams(self._pending_stream_resets)
+                self._pending_stream_resets = []
 
     def _tokens(self, req: _Request) -> np.ndarray:
         tokens = np.asarray(req.tokens, np.int64)
@@ -625,7 +634,9 @@ class _Engine:
         ids = np.zeros((1, width), np.int64)
         ids[0, : len(tokens)] = tokens
         flow = self.model.params["flow_lm"]
-        return flm.text_embeddings(flow, torch.from_numpy(ids).to(self.device)).to(self.dtype)
+        with tracing.span("wait"):  # a copy from pageable memory: waits for the stream
+            ids_dev = torch.from_numpy(ids).to(self.device)
+        return flm.text_embeddings(flow, ids_dev).to(self.dtype)
 
     def _admit_batch(self, items) -> None:
         """Prefill N requests in one batched forward and splice them in. An
@@ -633,50 +644,55 @@ class _Engine:
         bucket."""
         d_model = self.model.params["flow_lm"]["conditioner_embed"].shape[1]
         prepped = []
-        for slot, req in items:
-            try:
-                cfg = req.cfg
-                tokens = self._tokens(req)
-                max_steps = self._max_steps(cfg, len(tokens))
-                voice = None
-                if cfg.voice_embedding is not None:
-                    voice = torch.as_tensor(np.asarray(cfg.voice_embedding, np.float32)).to(self.device, self.dtype)
-                    if voice.ndim != 3 or voice.shape[0] != 1 or voice.shape[2] != d_model:
-                        raise ValueError(f"voice embedding shape {tuple(voice.shape)}, want [1, T, {d_model}]")
-                voice_len = 0 if voice is None else voice.shape[1]
-                prompt_len = voice_len + len(tokens)
-                bucket = bk.pick_bucket(prompt_len, bk.PROMPT_BUCKETS)
-                if bucket + self.max_frames > self.capacity:
-                    raise ValueError(
-                        f"prompt ({prompt_len} tokens) exceeds batcher capacity "
-                        f"{self.capacity - self.max_frames}; raise prompt_capacity"
-                    )
-                emb = self._embed(tokens, bucket - voice_len)
-                if voice is not None:
-                    emb = torch.cat([voice, emb], dim=1)
-                prepped.append((slot, req, emb, prompt_len, bucket, max_steps))
-            except Exception as exc:  # noqa: BLE001
-                _fail_request(req, exc)
+        with tracing.span("prepare"):
+            for slot, req in items:
+                try:
+                    cfg = req.cfg
+                    tokens = self._tokens(req)
+                    max_steps = self._max_steps(cfg, len(tokens))
+                    voice = None
+                    if cfg.voice_embedding is not None:
+                        with tracing.span("wait"):
+                            voice = torch.as_tensor(np.asarray(cfg.voice_embedding, np.float32)).to(
+                                self.device, self.dtype
+                            )
+                        if voice.ndim != 3 or voice.shape[0] != 1 or voice.shape[2] != d_model:
+                            raise ValueError(f"voice embedding shape {tuple(voice.shape)}, want [1, T, {d_model}]")
+                    voice_len = 0 if voice is None else voice.shape[1]
+                    prompt_len = voice_len + len(tokens)
+                    bucket = bk.pick_bucket(prompt_len, bk.PROMPT_BUCKETS)
+                    if bucket + self.max_frames > self.capacity:
+                        raise ValueError(
+                            f"prompt ({prompt_len} tokens) exceeds batcher capacity "
+                            f"{self.capacity - self.max_frames}; raise prompt_capacity"
+                        )
+                    emb = self._embed(tokens, bucket - voice_len)
+                    if voice is not None:
+                        emb = torch.cat([voice, emb], dim=1)
+                    prepped.append((slot, req, emb, prompt_len, bucket, max_steps))
+                except Exception as exc:  # noqa: BLE001
+                    _fail_request(req, exc)
         if not prepped:
             return
 
         try:
-            # Every lane pads to the largest bucket present; the burst pads to
-            # 1 or the full slot count by repeating its first entry.
-            bucket = max(p[4] for p in prepped)
-            padded = prepped + [prepped[0]] * (self._pad_count(len(prepped)) - len(prepped))
-            embs = torch.cat(
-                [torch.nn.functional.pad(p[2], (0, 0, 0, bucket - p[2].shape[1])) for p in padded]
-            )
-            values = _lane_values(
-                [p[0] for p in padded],
-                [p[3] for p in padded],
-                [p[5] for p in padded],
-                [p[1].cfg.eos_threshold for p in padded],
-                [p[1].cfg.frames_after_eos for p in padded],
-                [math.sqrt(max(float(p[1].cfg.temperature), 0.0)) for p in padded],
-            )
-            self._admission(embs, values)
+            with tracing.span("enqueue"):
+                # Every lane pads to the largest bucket present; the burst pads
+                # to 1 or the full slot count by repeating its first entry.
+                bucket = max(p[4] for p in prepped)
+                padded = prepped + [prepped[0]] * (self._pad_count(len(prepped)) - len(prepped))
+                embs = torch.cat(
+                    [torch.nn.functional.pad(p[2], (0, 0, 0, bucket - p[2].shape[1])) for p in padded]
+                )
+                values = _lane_values(
+                    [p[0] for p in padded],
+                    [p[3] for p in padded],
+                    [p[5] for p in padded],
+                    [p[1].cfg.eos_threshold for p in padded],
+                    [p[1].cfg.frames_after_eos for p in padded],
+                    [math.sqrt(max(float(p[1].cfg.temperature), 0.0)) for p in padded],
+                )
+                self._admission(embs, values)
         except Exception as exc:  # noqa: BLE001
             for _slot, req, *_ in prepped:
                 _fail_request(req, exc)
@@ -708,10 +724,11 @@ class _Engine:
                 f"exceeds batcher KV capacity {self.capacity}; raise prompt_capacity"
             )
         if cfg.voice_model_state is not None:
-            lane = ftr.kv_cache_from_voice_state(
-                self.model.config.flow_lm.transformer, cfg.voice_model_state.modules, self.capacity, self.dtype,
-                self.device,
-            )
+            with tracing.span("wait"):  # the state's host arrays, copied from pageable memory
+                lane = ftr.kv_cache_from_voice_state(
+                    self.model.config.flow_lm.transformer, cfg.voice_model_state.modules, self.capacity, self.dtype,
+                    self.device,
+                )
         else:
             # The continuation is copied (into the static lane, or by .to()
             # below): the prefill writes the lane in place, and a
@@ -788,7 +805,9 @@ class _Engine:
         every slot (its outputs are static: copied out at once)."""
         at = torch.tensor([slot], dtype=torch.long)
         if self._graphs is None:
-            k, v, offset = _snapshot_lane(self._state["cache"], at.to(self.device))
+            with tracing.span("wait"):
+                at = at.to(self.device)
+            k, v, offset = _snapshot_lane(self._state["cache"], at)
             return BatchContinuation(k=k, v=v, offset=offset, capacity=self.capacity)
         graph = self._snapshot_graph()
         feed(graph.inputs, slot=at)
@@ -855,7 +874,8 @@ class _Engine:
             info.request = None
             info.streaming = False
             info.stream_parts = None
-        idx = torch.as_tensor(slots_, dtype=torch.long).to(self.device)
+        with tracing.span("wait"):  # a copy from pageable memory: waits for the stream
+            idx = torch.as_tensor(slots_, dtype=torch.long).to(self.device)
         self._state["active"][idx] = False
 
     # -- the engine's programs: graphs, or eager on a replica across cards --
@@ -930,9 +950,9 @@ class _Engine:
         of (lane count, bucket) with the ids in a static buffer → int16 PCM
         (static)."""
         if self._graphs is None:
-            return _harvest_decode_pcm16(
-                self.model, self._state["frames"], slot_ids.to(self.device), self._state["n_frames"], bucket
-            )
+            with tracing.span("wait"):
+                slot_ids = slot_ids.to(self.device)
+            return _harvest_decode_pcm16(self.model, self._state["frames"], slot_ids, self._state["n_frames"], bucket)
 
         model = self.model
 
@@ -1126,17 +1146,25 @@ class _Engine:
         """Read a block's outputs (their copies were enqueued with it, one
         iteration ago, so the wait overlaps the next block): emit the
         streamed PCM, then harvest the lanes it finished."""
-        flags = blk["flags"].numpy()
+        with tracing.span("wait", engine=self._index):
+            flags = blk["flags"].numpy()
+            if blk["pcm"] is not None:
+                pcm, n_new = blk["pcm"].numpy(), blk["n_new"].numpy()
         if blk["pcm"] is not None:
-            self._emit_streams(blk["pcm"].numpy(), blk["n_new"].numpy(), blk["epochs"])
-        self._harvest(flags[0].astype(bool), flags[1].astype(bool), flags[2], blk["epochs"])
+            with tracing.span("emit", engine=self._index):
+                self._emit_streams(pcm, n_new, blk["epochs"])
+        with tracing.span("harvest", engine=self._index):
+            self._harvest(flags[0].astype(bool), flags[1].astype(bool), flags[2], blk["epochs"])
 
     def _loop_inner(self) -> None:
         k_lo = self.steps_per_sync
         k_hi = self.steps_per_sync_burst or k_lo
         pending = None  # the previous block's outputs, not read yet
+        # The loop's spans (reap, idle, block, admit, wait, emit, harvest)
+        # follow one another on this thread without overlapping.
         while not self._stop.is_set():
-            self._reap_cancelled()
+            with tracing.span("reap", engine=self._index):
+                self._reap_cancelled()
             if all(s.request is None for s in self._slot_info):
                 # Nothing attached: a pending block has no reader. Admit
                 # synchronously, or wait for a request.
@@ -1145,7 +1173,7 @@ class _Engine:
                 if all(s.request is None for s in self._slot_info):
                     # Wait without taking from the queue: the request that
                     # wakes the engine keeps its place in the burst.
-                    with self._arrival:
+                    with tracing.span("idle", engine=self._index), self._arrival:
                         if self._queue.empty():
                             self._arrival.wait(timeout=0.05)
                     continue
@@ -1155,11 +1183,14 @@ class _Engine:
             streaming = [s.request is not None and s.streaming for s in self._slot_info]
             k = k_lo if any(streaming) else k_hi
             self._last_block_k = k
-            windows, n_new, flags = self._ar_block(k)
-            pcm = n_new_host = None
-            if any(streaming):
-                pcm, n_new_host = HostCopy(self._stream_decode(windows, n_new, streaming)), HostCopy(n_new)
-            flags = HostCopy(flags)
+            with tracing.span("block", engine=self._index) as sp:
+                windows, n_new, flags = self._ar_block(k)
+                pcm = n_new_host = None
+                if any(streaming):
+                    pcm, n_new_host = HostCopy(self._stream_decode(windows, n_new, streaming)), HostCopy(n_new)
+                flags = HostCopy(flags)
+            if sp is not None:
+                sp.set(k=k, attached=sum(s.request is not None for s in self._slot_info))
             # Admission after the block is enqueued: the host prepares it
             # while the device runs the block, and admitted lanes join from
             # the next block on.
@@ -1286,6 +1317,7 @@ class ContinuousBatcher(_Engine):
                 mesh.devices[i][0],
                 None if seed is None else seed + i,
                 part,
+                index=i,
             )
             self._replicas.append(replica)
 
@@ -1311,6 +1343,7 @@ class ContinuousBatcher(_Engine):
     # -- public API --------------------------------------------------------
 
     def _enqueue(self, req: _Request) -> None:
+        req.enqueued = tracing.now()
         self._queue.put(req)
         with self._arrival:
             self._arrival.notify_all()

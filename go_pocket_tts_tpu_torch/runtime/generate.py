@@ -78,6 +78,7 @@ from typing import Callable, Dict, Iterator, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from go_pocket_tts_tpu_torch import tracing
 from go_pocket_tts_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from go_pocket_tts_tpu_torch.models import flow_lm as flm
 from go_pocket_tts_tpu_torch.models import flow_transformer as ftr
@@ -539,9 +540,12 @@ class GPURuntime:
                 graph = self._graphs.get(key, lambda: self._ar_graph(s, n, time_cond, decode_steps))
                 graph.inputs["noise"].copy_(noise)
                 graph.run()
-            if start + n < n_steps and bool(s["done"].all()):
-                ran = start + n
-                break
+            if start + n < n_steps:
+                with tracing.span("wait"):
+                    all_done = bool(s["done"].all())
+                if all_done:
+                    ran = start + n
+                    break
         # The reference's loop stops at the step on which every lane is
         # done: it runs as many steps as the longest lane has frames. Steps
         # past that wrote K/V rows beyond this offset, which are never read.
@@ -642,9 +646,10 @@ class GPURuntime:
     # -- voice conditioning and bucketing ---------------------------------
 
     def _hydrate_voice_cache(self, state: VoiceModelState, capacity: int) -> Dict:
-        return ftr.kv_cache_from_voice_state(
-            self.model.config.flow_lm.transformer, state.modules, capacity, self.dtype, self.device
-        )
+        with tracing.span("wait"):  # the state's host arrays, copied from pageable memory
+            return ftr.kv_cache_from_voice_state(
+                self.model.config.flow_lm.transformer, state.modules, capacity, self.dtype, self.device
+            )
 
     def _voice(self, cfg: GenerateConfig):
         """(voice embedding on the device or None, its length, the voice
@@ -653,7 +658,9 @@ class GPURuntime:
             raise ValueError("generate: voice embedding and voice model state are mutually exclusive")
         voice_emb, voice_len = None, 0
         if cfg.voice_embedding is not None:
-            voice_emb = torch.as_tensor(np.asarray(cfg.voice_embedding, np.float32), device=self.device).to(self.dtype)
+            with tracing.span("wait"):  # a copy from pageable memory
+                voice_emb = torch.as_tensor(np.asarray(cfg.voice_embedding, np.float32), device=self.device)
+            voice_emb = voice_emb.to(self.dtype)
             d_model = self.model.params["flow_lm"]["conditioner_embed"].shape[1]
             if voice_emb.ndim != 3 or voice_emb.shape[2] != d_model:
                 raise ValueError(
@@ -681,7 +688,8 @@ class GPURuntime:
         token_bucket = bk.pick_bucket(len(tok_np), bk.PROMPT_BUCKETS)
         padded = np.zeros((1, token_bucket), np.int64)
         padded[0, : len(tok_np)] = tok_np
-        ids = torch.from_numpy(padded).to(self.device)
+        with tracing.span("wait"):  # a copy from pageable memory: waits for the stream
+            ids = torch.from_numpy(padded).to(self.device)
         return tok_np, max_steps, max(cfg.lsd_decode_steps, 1), frame_bucket, token_bucket, ids
 
     def _setup(self, tokens, cfg: GenerateConfig):
@@ -699,16 +707,21 @@ class GPURuntime:
         cache = self._prefill(ids, len(tok_np), capacity, voice_cache, voice_emb)
         return cache, max_steps, decode_steps, frame_bucket, len(tok_np)
 
-    def _pcm(self, frames, n_frames, max_steps: int, frame_bucket: int) -> Callable[[], np.ndarray]:
+    def _pcm(self, frames, n_frames, max_steps: int, frame_bucket: int,
+             root: Optional[tracing.Span] = None) -> Callable[[], np.ndarray]:
         """Enqueue the decode and the int16 PCM's copy into pinned host
-        memory, without blocking; the returned resolver waits for the copy
-        and trims lane 0 to its frames (float32 PCM)."""
-        pcm = HostCopy(self._decode_pcm16(frames, n_frames, min(bk.round_up(max_steps, 32), frame_bucket))[0, 0])
-        n = HostCopy(n_frames[:1])
+        memory, without blocking (a ``decode`` span under the request's
+        ``root``); the returned resolver waits for the copy (a ``wait``
+        span) and trims lane 0 to its frames (float32 PCM)."""
+        with tracing.span("decode", parent=root):
+            pcm = HostCopy(self._decode_pcm16(frames, n_frames, min(bk.round_up(max_steps, 32), frame_bucket))[0, 0])
+            n = HostCopy(n_frames[:1])
         samples_per = self.model.config.mimi.samples_per_latent
 
         def resolve() -> np.ndarray:
-            return pcm.numpy()[: int(n.numpy()[0]) * samples_per].astype(np.float32) / 32767.0
+            with tracing.span("wait", parent=root):
+                pcm_np, n_np = pcm.numpy(), n.numpy()
+            return pcm_np[: int(n_np[0]) * samples_per].astype(np.float32) / 32767.0
 
         return resolve
 
@@ -731,17 +744,29 @@ class GPURuntime:
         ``SYNC_EVERY`` steps and the decode still in flight.
         """
         t0 = time.perf_counter()
-        with self._compute():
-            cache, max_steps, decode_steps, frame_bucket, n_tokens = self._setup(tokens, cfg)
-            frames, n_frames, _ = self._ar_loop(cache, cfg, max_steps, decode_steps, frame_bucket)
-            pcm = self._pcm(frames, n_frames, max_steps, frame_bucket)
+        root = tracing.begin("request", request=tracing.next_request_id())
+        try:
+            with self._compute():
+                with tracing.span("setup", parent=root):
+                    cache, max_steps, decode_steps, frame_bucket, n_tokens = self._setup(tokens, cfg)
+                with tracing.span("ar", parent=root):
+                    frames, n_frames, _ = self._ar_loop(cache, cfg, max_steps, decode_steps, frame_bucket)
+                pcm = self._pcm(frames, n_frames, max_steps, frame_bucket, root)
+        except BaseException:
+            if root is not None:
+                root.finish()
+            raise
         samples_per = self.model.config.mimi.samples_per_latent
 
         def resolve() -> np.ndarray:
-            audio = pcm()
-            n = len(audio) // samples_per
-            if cfg.step_callback is not None:
-                cfg.step_callback(n, max_steps)
+            try:
+                audio = pcm()
+                n = len(audio) // samples_per
+                if cfg.step_callback is not None:
+                    cfg.step_callback(n, max_steps)
+            finally:
+                if root is not None:
+                    root.finish()
             log.debug(
                 "generation complete: tokens=%d frames=%d total=%.1fms",
                 n_tokens,
@@ -865,16 +890,23 @@ class GPURuntime:
         next chunk: its text is appended to the live cache after the
         previous chunk's frames, so prosody flows across the boundary. A
         chunk that does not fit the session's ceiling resets the session."""
-        with self._compute():
-            cache, capacity, used0, max_steps, decode_steps, frame_bucket, n_tokens = self._session_setup(
-                tokens, cfg, cont
-            )
-            frames, n_frames, carry = self._ar_loop(cache, cfg, max_steps, decode_steps, frame_bucket)
-            audio = self._pcm(frames, n_frames, max_steps, frame_bucket)()
-        n = len(audio) // self.model.config.mimi.samples_per_latent
-        if cfg.step_callback is not None:
-            cfg.step_callback(n, max_steps)
-        return audio, ContinuationState(own_cache(carry["cache"]), capacity, used0 + n_tokens + n)
+        root = tracing.begin("request", request=tracing.next_request_id())
+        try:
+            with self._compute():
+                with tracing.span("setup", parent=root):
+                    cache, capacity, used0, max_steps, decode_steps, frame_bucket, n_tokens = self._session_setup(
+                        tokens, cfg, cont
+                    )
+                with tracing.span("ar", parent=root):
+                    frames, n_frames, carry = self._ar_loop(cache, cfg, max_steps, decode_steps, frame_bucket)
+                audio = self._pcm(frames, n_frames, max_steps, frame_bucket, root)()
+            n = len(audio) // self.model.config.mimi.samples_per_latent
+            if cfg.step_callback is not None:
+                cfg.step_callback(n, max_steps)
+            return audio, ContinuationState(own_cache(carry["cache"]), capacity, used0 + n_tokens + n)
+        finally:
+            if root is not None:
+                root.finish()
 
     def stream_generate_session(self, tokens, cfg: GenerateConfig, cont: Optional[ContinuationState] = None):
         """Frame streaming with continuity for one chunk → ``(blocks,

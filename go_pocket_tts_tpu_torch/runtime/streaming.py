@@ -35,6 +35,7 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from go_pocket_tts_tpu_torch import tracing
 from go_pocket_tts_tpu_torch.models import mimi_stream
 from go_pocket_tts_tpu_torch.runtime.generate import ContinuationState, GenerateConfig, HostCopy, own_cache
 from go_pocket_tts_tpu_torch.runtime.graphs import feed, write_back
@@ -49,36 +50,54 @@ def stream_generate(runtime, tokens, cfg: GenerateConfig) -> Iterator[np.ndarray
     """Yield float32 PCM blocks for one chunk. ``runtime`` is a
     :class:`runtime.GPURuntime`; validation, voice conditioning and
     bucketing are those of its ``generate_audio``."""
-    with runtime._compute():
-        cache, max_steps, decode_steps, frame_bucket, _ = runtime._setup(tokens, cfg)
-    yield from _segment_loop(runtime, cfg, cache, max_steps, decode_steps, frame_bucket)
+    root = tracing.begin("request", request=tracing.next_request_id())
+    try:
+        with tracing.span("setup", parent=root), runtime._compute():
+            cache, max_steps, decode_steps, frame_bucket, _ = runtime._setup(tokens, cfg)
+            start = _stream_start(runtime, cfg, max_steps, frame_bucket)
+        yield from _segment_loop(runtime, cfg, cache, max_steps, decode_steps, start, root)
+    finally:
+        if root is not None:
+            root.finish()
 
 
-def _segment_loop(runtime, cfg: GenerateConfig, cache: Dict, max_steps: int, decode_steps: int, frame_budget: int):
-    """Run the AR loop in adaptive segments over a prefilled ``cache``,
-    yielding PCM blocks; generator-returns ``(cache, emitted_frames)`` so
-    a session can carry the final KV cache (``yield from``)."""
+def _stream_start(runtime, cfg: GenerateConfig, max_steps: int, frame_budget: int):
+    """A new stream's decoder state and AR carry."""
+    return _stream_state(runtime, frame_budget), runtime._new_carry(cfg, 1, max_steps)
+
+
+def _segment_loop(runtime, cfg: GenerateConfig, cache: Dict, max_steps: int, decode_steps: int, start,
+                  root: Optional[tracing.Span]):
+    """Run the AR loop in adaptive segments over a prefilled ``cache``
+    from ``start`` (:func:`_stream_start`), yielding PCM blocks;
+    generator-returns ``(cache, emitted_frames)`` so a session can carry
+    the final KV cache (``yield from``). Each segment is an ``enqueue``, a
+    ``wait`` and an ``emit`` span under the request's ``root``; the time the
+    generator sits at ``yield`` is the caller's and has none."""
     samples_per = runtime.model.config.mimi.samples_per_latent
-    with runtime._compute():
-        state = _stream_state(runtime, frame_budget)
-        carry = runtime._new_carry(cfg, 1, max_steps)
+    state, carry = start
     dispatched, emitted = 0, 0
     seg = SEGMENT_FRAMES
     while dispatched < max_steps:
         steps = min(seg, max_steps - dispatched)
-        with runtime._compute():
+        with tracing.span("enqueue", parent=root) as sp, runtime._compute():
             frames, n, carry = runtime._ar_loop(cache, cfg, steps, decode_steps, seg, carry)
             cache = carry["cache"]
             pcm, state = _decode_segment(runtime, state, frames, n)
             fetched = [HostCopy(t) for t in (pcm, n, carry["done"])]
         dispatched += steps
-        pcm_np, n_np, done_np = (h.numpy() for h in fetched)
+        with tracing.span("wait", parent=root):
+            pcm_np, n_np, done_np = (h.numpy() for h in fetched)
         n = int(n_np[0])
+        if sp is not None:
+            sp.set(frames=n)
         if n > 0:
             emitted += n
-            if cfg.step_callback is not None:
-                cfg.step_callback(emitted, max_steps)
-            yield pcm_np[0, 0, : n * samples_per].astype(np.float32)
+            with tracing.span("emit", parent=root):
+                if cfg.step_callback is not None:
+                    cfg.step_callback(emitted, max_steps)
+                block = pcm_np[0, 0, : n * samples_per].astype(np.float32)
+            yield block
         if bool(done_np[0]) or n == 0:
             break
         seg = min(seg * 2, MAX_SEGMENT_FRAMES, runtime.frame_bucket)
@@ -173,9 +192,15 @@ def _stream_session_blocks(
 ) -> Iterator[np.ndarray]:
     """Session variant of :func:`stream_generate`; its setup is
     ``GPURuntime._session_setup``, the plain session's."""
-    with runtime._compute():
-        cache, capacity, used0, max_steps, decode_steps, frame_budget, n_tokens = runtime._session_setup(
-            tokens, cfg, cont
-        )
-    cache, emitted = yield from _segment_loop(runtime, cfg, cache, max_steps, decode_steps, frame_budget)
-    holder["cont"] = ContinuationState(own_cache(cache), capacity, used0 + n_tokens + emitted)
+    root = tracing.begin("request", request=tracing.next_request_id())
+    try:
+        with tracing.span("setup", parent=root), runtime._compute():
+            cache, capacity, used0, max_steps, decode_steps, frame_budget, n_tokens = runtime._session_setup(
+                tokens, cfg, cont
+            )
+            start = _stream_start(runtime, cfg, max_steps, frame_budget)
+        cache, emitted = yield from _segment_loop(runtime, cfg, cache, max_steps, decode_steps, start, root)
+        holder["cont"] = ContinuationState(own_cache(cache), capacity, used0 + n_tokens + emitted)
+    finally:
+        if root is not None:
+            root.finish()
