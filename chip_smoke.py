@@ -21,11 +21,17 @@ failure exits non-zero:
    (both also in their fused form, with the bias added in x's dtype, and
    bit-equal over two calls; each beside PyTorch's int8 / int4
    weight-only matmul where this torch has a CUDA kernel for it and a
-   matmul on the dequantized weight, the int4 one beside the int8 one);
+   matmul on the dequantized weight, the int4 one beside the int8 one),
+   and the fused LayerNorm at the AR step's, a prefill's and the harvest
+   decode's Mimi transformer's shapes (with the adaLN modulate at the
+   flowNet's; the Mimi one a transposed view), within one bf16 step of the
+   eager chain, beside ``torch.nn.functional.layer_norm``;
 3. the single-utterance path: ``real_arch()`` weights from a fixed seed,
    bfloat16 on the card, ``GPURuntime.generate_audio`` on three requests (a
    warm-up request first), then one ``PocketTTSModel.mimi_decode`` of a
-   latent whose length takes the decoder's fallback tail;
+   latent whose length takes the decoder's fallback tail; then the fused
+   LayerNorm's launches of one eager request, counted apart for the
+   prefill, the AR steps (20 a step) and the decodes;
 4. float32: that runtime with the kernels against the same runtime with
    every kernel replaced by its plain version, held to an RMS tolerance;
 5. batched serving: ``ContinuousBatcher`` at 8 slots with int8 weights and
@@ -1023,6 +1029,153 @@ def check_int4_matmul(rows: dict) -> None:
                     rows["int4_matmul"][f"ms_m{m}"] = ms
 
 
+# The fused LayerNorm at the main paths' shapes: (x's shape, affine,
+# modulate, transposed). The AR step's transformer and output norms (1 and 8
+# rows of 1024), its flowNet norms with their modulate (1 and 8 rows of
+# 512), a 50-token prefill, the batcher's admission of 8 lanes at prompt
+# capacity 128, and the harvest decode's Mimi transformer (8 lanes x 256
+# frames x 16 steps a frame, 512 wide, a transposed view).
+LN_SHAPES = {
+    "1x1024": ((1, 1, 1024), True, False, False),
+    "8x1024": ((8, 1, 1024), True, False, False),
+    "1x512 modulate": ((1, 512), True, True, False),
+    "8x512 modulate": ((8, 512), True, True, False),
+    "prefill 50x1024": ((1, 50, 1024), True, False, False),
+    "admission 8x128x1024": ((8, 128, 1024), True, False, False),
+    "mimi 8x4096x512 transposed": ((8, 4096, 512), True, False, True),
+}
+
+
+def _ln_inputs(gen, shape, affine, mod, transposed, dtype):
+    d = shape[-1]
+
+    def rnd(*s, scale=1.0, shift=0.0):
+        return (torch.randn(s, generator=gen, device="cuda") * scale + shift).to(dtype)
+
+    x = rnd(*shape[:-2], d, shape[-2], scale=2.0, shift=0.5).transpose(-1, -2) if transposed else rnd(
+        *shape, scale=2.0, shift=0.5)
+    w = rnd(d, scale=0.5, shift=1.0) if affine else None
+    b = rnd(d, scale=0.1) if affine else None
+    shift = scale = None
+    if mod:
+        ada = rnd(*shape[:-1], 3 * d, scale=0.3)
+        shift, scale = ada[..., :d], ada[..., 2 * d:]
+    return x, w, b, shift, scale
+
+
+def _ln_err(got, want, dtype, what, x, w, b, shift=None, scale=None) -> float:
+    """Max abs difference; fails beyond ``TOLERANCES["layer_norm"]`` in
+    float32, and in bf16 beyond one bf16 step of the largest value the
+    eager chain sums or rounds on its way (the normalised value times the
+    weight, the bias, the norm, its product with ``1 + scale``, the
+    shift)."""
+    from go_pocket_tts_tpu_torch.kernels import layer_norm as lnk
+    from go_pocket_tts_tpu_torch.ops import TOLERANCES
+
+    torch.cuda.synchronize()
+    g, want = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        fail(f"{what}: non-finite kernel output")
+    err = (g - want).abs()
+    if dtype == torch.float32:
+        atol, rtol = TOLERANCES["layer_norm"]
+        allowed = atol + rtol * want.abs()
+    else:
+        ref = torch.maximum(want.abs(), lnk.layer_norm_plain(x.float(), None if w is None else w.float()).abs())
+        if b is not None:
+            ref = torch.maximum(ref, b.float().abs())
+        if shift is not None:
+            h = lnk.layer_norm_plain(x, w, b).float()
+            ref = torch.maximum(torch.maximum(ref, (h * (1 + scale.float())).abs()), shift.float().abs())
+        allowed = torch.exp2(torch.floor(torch.log2(ref.clamp_min(2.0 ** -126))) - 7)
+    excess = (err - allowed).max().item()
+    if excess > 0:
+        fail(f"{what}: max abs err {err.max().item():.3e} beyond the allowance by {excess:.3e}")
+    return err.max().item()
+
+
+def check_layer_norm(rows: dict) -> None:
+    """The fused LayerNorm against its plain version (the eager chain) at
+    the main paths' shapes, float32 and bf16, and bit-equal over two calls;
+    device times by graph replay beside the bound from bytes, the eager
+    chain and ``torch.nn.functional.layer_norm`` (a yardstick the port never
+    calls; without the modulate)."""
+    from go_pocket_tts_tpu_torch.kernels import layer_norm as lnk
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    times = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, (shape, affine, mod, transposed) in LN_SHAPES.items():
+            x, w, b, shift, scale = _ln_inputs(gen, shape, affine, mod, transposed, dtype)
+            eps = 1e-6 if mod else 1e-5
+            got = lnk.layer_norm(x, w, b, eps, shift, scale)
+            want = lnk.layer_norm_plain(x, w, b, eps, shift, scale)
+            what = f"layer_norm {dname(dtype)} {name}"
+            err = _ln_err(got, want, dtype, what, x, w, b, shift, scale)
+            if not torch.equal(got, lnk.layer_norm(x, w, b, eps, shift, scale)):
+                fail(f"{what}: two calls differ")
+            exact = (got == want).float().mean().item()
+            ms = device_ms(lambda: lnk.layer_norm(x, w, b, eps, shift, scale))
+            call_ms = eager_ms(lambda: lnk.layer_norm(x, w, b, eps, shift, scale))
+            plain_ms = device_ms(lambda: lnk.layer_norm_plain(x, w, b, eps, shift, scale))
+            lib_ms = device_ms(lambda: torch.nn.functional.layer_norm(x, (shape[-1],), w, b, eps))
+            es = x.element_size()
+            n = x.numel()
+            bytes_moved = 2 * n * es + (2 * shape[-1] * es if affine else 0) + (2 * n * es if mod else 0)
+            b_ms, b_by = bound(bytes_moved, 10.0 * n, dtype)
+            print(
+                f"  {what}: max_abs_err {err:.3e} ({exact * 100:.2f}% bit-equal)  kernel {ms:.5f} ms (eager call "
+                f"{call_ms:.4f} ms)  plain {plain_ms:.5f} ms  F.layer_norm {lib_ms:.5f} ms  bound {b_ms:.6f} ms "
+                f"({b_by})  [{CARD}]"
+            )
+            times[f"{dname(dtype)} {name}"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                                               "bound_ms": b_ms, "max_abs_err": err, "bit_equal": exact}
+            if dtype == torch.bfloat16 and name == "1x1024":
+                rows["layer_norm"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                          library_ms=lib_ms)
+    rows["layer_norm"]["shapes"] = times
+
+
+def norm_launches_per_step(model, arch) -> None:
+    """The fused norm's launches in the single runtime (bf16, eager, one
+    greedy 24-token request), counted apart for the prefill, the AR steps
+    and the decodes; AR steps are kernel 1's launches over the layers."""
+    from go_pocket_tts_tpu_torch import kernels
+    from go_pocket_tts_tpu_torch.kernels import decode_attention as da
+    from go_pocket_tts_tpu_torch.kernels import layer_norm as lnk
+    from go_pocket_tts_tpu_torch.models import flow_lm as flm
+    from go_pocket_tts_tpu_torch.runtime import GenerateConfig, GPURuntime
+
+    seen = {"prefill": [0, 0], "ar": [0, 0]}
+
+    def counted(part, fn):
+        def run(*args, **kw):
+            n0, a0 = lnk.layer_norm.launches, da.decode_attention_step.launches
+            out = fn(*args, **kw)
+            seen[part][0] += lnk.layer_norm.launches - n0
+            seen[part][1] += da.decode_attention_step.launches - a0
+            return out
+
+        return run
+
+    saved = (flm.prompt, flm.ar_core)
+    flm.prompt, flm.ar_core = counted("prefill", flm.prompt), counted("ar", flm.ar_core)
+    try:
+        rt = GPURuntime(model, dtype=torch.bfloat16, seed=SEED, device="cuda")
+        rt._graphs = None
+        kernels.reset_launches()
+        rt.generate_audio(main_requests(arch)[1][0], GenerateConfig(temperature=0.0, eos_threshold=1e9))
+    finally:
+        flm.prompt, flm.ar_core = saved
+    steps = seen["ar"][1] / arch.num_layers
+    decode = lnk.layer_norm.launches - seen["prefill"][0] - seen["ar"][0]
+    per_step = seen["ar"][0] / steps
+    print(f"  layer_norm launches: prefill {seen['prefill'][0]}, AR {seen['ar'][0]} over {steps:.0f} steps "
+          f"({per_step:.2f} a step), decodes {decode}")
+    if per_step != 2 * arch.num_layers + 1 + arch.flow_depth + 1:
+        fail(f"layer_norm: {per_step} launches an AR step")
+
+
 # -- phases 3 to 8: the main paths -------------------------------------------
 
 
@@ -1115,7 +1268,7 @@ def main_path(model, arch, counts: dict) -> None:
         fail(f"fallback decode: pcm {tuple(pcm.shape)} or not finite")
     read_launches(
         "the single-utterance path",
-        ("decode_attention_step", "fused_up2_res", "fused_seanet_up_tail", "fused_seanet_tail"),
+        ("decode_attention_step", "fused_up2_res", "fused_seanet_up_tail", "fused_seanet_tail", "layer_norm"),
         counts,
     )
 
@@ -1172,7 +1325,7 @@ def batched_serving(model, arch, counts: dict) -> float:
         )
         batcher.start()
         try:
-            must = (attention, "quantized_matmul", "fused_up2_res", "fused_seanet_up_tail")
+            must = (attention, "quantized_matmul", "fused_up2_res", "fused_seanet_up_tail", "layer_norm")
             x_real = serve_requests(batcher, reqs, cfg, what, must, counts)
         finally:
             batcher.stop()
@@ -1188,6 +1341,7 @@ def plain_versions():
     from go_pocket_tts_tpu_torch.kernels import batched_decode_attention as bda
     from go_pocket_tts_tpu_torch.kernels import decode_attention as da
     from go_pocket_tts_tpu_torch.kernels import int4_matmul as i4mm
+    from go_pocket_tts_tpu_torch.kernels import layer_norm as lnk
     from go_pocket_tts_tpu_torch.kernels import quantized_matmul as qmm
     from go_pocket_tts_tpu_torch.kernels import seanet_tail as st
 
@@ -1203,6 +1357,7 @@ def plain_versions():
         (st, "fused_up2_res", st.fused_up2_res_plain),
         (st, "fused_up2_up3_tail", st.fused_up2_up3_tail_plain),
         (st, "fused_up2_up3_tail_stream", st.fused_up2_up3_tail_stream_plain),
+        (lnk, "layer_norm", lnk.layer_norm_plain),
     ]
     originals = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in saved]
     for mod, attr, plain in saved:
@@ -4549,12 +4704,14 @@ def main() -> int:
     check_quantized_matmul(rows)
     check_int4_matmul(rows)
     check_up2(rows)
+    check_layer_norm(rows)
 
     t = time.perf_counter()
     arch, model = build_model(torch.bfloat16)
     print(f"  real_arch bf16 weights built and loaded in {time.perf_counter() - t:.1f} s")
     print("phase 3: single-utterance path (real_arch, bfloat16)")
     main_path(model, arch, counts)
+    norm_launches_per_step(model, arch)
 
     print("phase 4: float32 path, kernels against plain versions")
     arch, model32 = build_model(torch.float32)

@@ -13,6 +13,7 @@ quantized_matmul.quantized_matmul                  quantized_matmul.py: quantize
 int4_matmul.int4_matmul                            int4_matmul.py: int4_matmul
 seanet_tail.fused_up2_res                          seanet_tail.py: fused_up2_res
 seanet_tail.fused_up2_up3_tail (and its stream)    seanet_tail.py: fused_up2_up3_tail
+layer_norm.layer_norm                              none (``ops/norms.py``: layer_norm, modulate)
 =================================================  ===========================================
 
 Each wrapper runs its plain PyTorch version for CPU tensors and launches its
@@ -26,13 +27,18 @@ Kernels 1 and 4 share ``csrc/split_kv_attention.cuh`` and
 and ``split_k.matmul_plan``; the four SEANet kernels (2, 3, 7, 8) in
 bfloat16 share ``csrc/seanet_mma.cuh`` (implicit-GEMM convolutions on
 ``mma.sync``; kernels 2, 3 and 8 its up3-tail stages), and every
-tensor-core kernel the helpers of ``csrc/mma_sync.cuh``.
+tensor-core kernel the helpers of ``csrc/mma_sync.cuh``. The fused
+LayerNorm (with the adaLN modulate as an optional epilogue) replaces no TPU
+kernel: XLA fused the JAX package's norm, and the port ran it as ~14 eager
+kernels a call.
 
 No wrapper falls back on its own. A runtime built with ``pallas=False``
 (``--runtime-pallas off``) keeps every call off the wrappers instead: the
 transformer and Mimi configs' ``use_kernels`` flags send kernels 1, 2, 3,
-4, 7 and 8's call sites to the plain versions, and the quantized linears'
-backends (``models/params.py``) kernels 5 and 6's; so no launch count moves.
+4, 7 and 8's call sites and the layer norms' (the transformer's flag also
+covers the FlowLM's output norm and the flowNet) to the plain versions, and
+the quantized linears' backends (``models/params.py``) kernels 5 and 6's;
+so no launch count moves.
 Under a tensor-parallel mesh kernels 4, 5 and 6 run on each rank's shard
 (``H/tp`` heads, ``N/tp`` columns or ``K/tp`` rows).
 """
@@ -41,6 +47,7 @@ from go_pocket_tts_tpu_torch.kernels import (
     batched_decode_attention,
     decode_attention,
     int4_matmul,
+    layer_norm,
     quantized_matmul,
     seanet_tail,
 )
@@ -55,6 +62,7 @@ WRAPPERS = (
     int4_matmul.int4_matmul,
     seanet_tail.fused_up2_res,
     seanet_tail.fused_up2_up3_tail,
+    layer_norm.layer_norm,
 )
 
 # Per wrapper (same order): its CUDA source, the TPU kernel it replaces and
@@ -105,6 +113,12 @@ META = (
         "replaces": "go_pocket_tts_tpu/ops/pallas/seanet_tail.py:569",
         "units": "bf16 on tensor cores (mma.sync m16n8k16), float32 on CUDA cores",
     },
+    {
+        # No Pallas kernel: the JAX package's norm, which XLA fuses.
+        "source": "go_pocket_tts_tpu_torch/csrc/layer_norm.cu",
+        "replaces": "go_pocket_tts_tpu/ops/norms.py:27",
+        "units": "CUDA cores (float32 arithmetic)",
+    },
 )
 
 
@@ -121,6 +135,7 @@ __all__ = [
     "batched_decode_attention",
     "decode_attention",
     "int4_matmul",
+    "layer_norm",
     "quantized_matmul",
     "seanet_tail",
     "WRAPPERS",

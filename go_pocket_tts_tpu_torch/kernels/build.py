@@ -32,6 +32,7 @@ SOURCES = (
     "batched_decode_attention",
     "quantized_matmul",
     "int4_matmul",
+    "layer_norm",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

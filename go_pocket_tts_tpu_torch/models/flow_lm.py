@@ -25,6 +25,7 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 
+from go_pocket_tts_tpu_torch.kernels import layer_norm as lnk
 from go_pocket_tts_tpu_torch.models import flow_net as fnet
 from go_pocket_tts_tpu_torch.models.flow_transformer import (
     TransformerConfig,
@@ -38,7 +39,6 @@ from go_pocket_tts_tpu_torch.models.params import (
     layer_norm_params,
     linear_params,
 )
-from go_pocket_tts_tpu_torch.ops import layer_norm
 
 __all__ = [
     "FlowLMConfig",
@@ -92,9 +92,13 @@ def _replace_nan_with_bos(frame: torch.Tensor, bos: torch.Tensor) -> torch.Tenso
     return torch.where(torch.isnan(frame), bos.to(frame.dtype), frame)
 
 
-def _hidden_and_eos(params: Params, y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """out_norm → last token → eos logit. ``y``: [B,T,D] → ([B,D], [B])."""
-    n = layer_norm(y, params["out_norm"]["weight"], params["out_norm"]["bias"])
+def _hidden_and_eos(
+    params: Params, y: torch.Tensor, use_kernels: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """out_norm → last token → eos logit. ``y``: [B,T,D] → ([B,D], [B]);
+    the norm through the fused LayerNorm kernel with ``use_kernels``."""
+    norm = lnk.layer_norm if use_kernels else lnk.layer_norm_plain
+    n = norm(y, params["out_norm"]["weight"], params["out_norm"]["bias"])
     last = n[:, -1, :]
     return last, apply_linear(params["out_eos"], last)[:, 0]
 
@@ -116,8 +120,9 @@ def ar_core(
     seq = _replace_nan_with_bos(frame, params["bos_emb"])
     x = apply_linear(params["input_linear"], seq)
     y, cache = transformer_forward_cached(params["transformer"], cfg.transformer, cache, x)
-    last, eos = _hidden_and_eos(params, y)
-    decoded = fnet.lsd_decode(params["flow_net"], last, noise, decode_steps, time_cond, fused_ada)
+    kernels = cfg.transformer.use_kernels
+    last, eos = _hidden_and_eos(params, y, kernels)
+    decoded = fnet.lsd_decode(params["flow_net"], last, noise, decode_steps, time_cond, fused_ada, kernels)
     return cache, decoded[:, None, :], eos
 
 
@@ -147,7 +152,7 @@ def flow_main(
     seq = _replace_nan_with_bos(sequence, params["bos_emb"])
     x = torch.cat([text_emb, apply_linear(params["input_linear"], seq)], dim=1)
     y = transformer_forward_stateless(params["transformer"], cfg.transformer, x)
-    return _hidden_and_eos(params, y)
+    return _hidden_and_eos(params, y, cfg.transformer.use_kernels)
 
 
 def sample_noise(generator: torch.Generator, batch: int, latent_dim: int, temperature: float) -> torch.Tensor:

@@ -23,6 +23,7 @@ from typing import Dict, Optional
 
 import torch
 
+from go_pocket_tts_tpu_torch.kernels import layer_norm as lnk
 from go_pocket_tts_tpu_torch.models.params import (
     VarBuilder,
     apply_linear,
@@ -30,7 +31,7 @@ from go_pocket_tts_tpu_torch.models.params import (
     linear_params,
 )
 from go_pocket_tts_tpu_torch.models.quantize import dequantize_weight, is_quantized
-from go_pocket_tts_tpu_torch.ops import layer_norm, modulate, rms_norm_bessel, silu
+from go_pocket_tts_tpu_torch.ops import rms_norm_bessel, silu
 
 __all__ = [
     "flow_direction",
@@ -95,22 +96,23 @@ def _adaln_chunks(ada: torch.Tensor, fd: int, base: int, n: int):
     return [ada[:, base + j * fd : base + (j + 1) * fd] for j in range(n)]
 
 
-def _flow_core(params: Params, fused_ada: Params, y: torch.Tensor, x: torch.Tensor):
-    """Res-block chain + final layer with the batched adaLN projection."""
+def _flow_core(params: Params, fused_ada: Params, y: torch.Tensor, x: torch.Tensor, use_kernels: bool = False):
+    """Res-block chain + final layer with the batched adaLN projection;
+    each LN and the modulate after it are one fused LayerNorm launch with
+    ``use_kernels``."""
     n_blocks = len(params["res_blocks"])
     fd = params["input_proj"]["w"].shape[1]
     ada_all = apply_linear(fused_ada, silu(y))  # [B, (3n+2)·fd]
+    norm = lnk.layer_norm if use_kernels else lnk.layer_norm_plain
 
     cur = apply_linear(params["input_proj"], x)
     for i, rb in enumerate(params["res_blocks"]):
         shift, scale, gate = _adaln_chunks(ada_all, fd, i * 3 * fd, 3)
-        h = layer_norm(cur, rb["in_ln"]["weight"], rb["in_ln"]["bias"], eps=1e-6)
-        h = apply_linear(rb["mlp0"], modulate(h, shift, scale))
-        h = apply_linear(rb["mlp2"], silu(h))
+        h = norm(cur, rb["in_ln"]["weight"], rb["in_ln"]["bias"], 1e-6, shift, scale)
+        h = apply_linear(rb["mlp2"], silu(apply_linear(rb["mlp0"], h)))
         cur = cur + h * gate
     shift, scale = _adaln_chunks(ada_all, fd, n_blocks * 3 * fd, 2)
-    out = modulate(layer_norm(cur, eps=1e-6), shift, scale)
-    return apply_linear(params["final_linear"], out)
+    return apply_linear(params["final_linear"], norm(cur, None, None, 1e-6, shift, scale))
 
 
 def flow_direction(
@@ -176,12 +178,14 @@ def lsd_decode(
     steps: int,
     time_cond: Optional[torch.Tensor] = None,
     fused_ada: Optional[Params] = None,
+    use_kernels: bool = False,
 ) -> torch.Tensor:
     """Euler-integrate the flow from noise ``x0`` [B, L] in ``steps`` steps.
     ``time_cond`` (from :func:`precompute_time_cond`) and ``fused_ada``
     (from :func:`precompute_fused_adaln`) are the loop invariants; callers
     that decode many frames build them once and pass them in, otherwise they
-    are built here."""
+    are built here. ``use_kernels``: the norms through the fused LayerNorm
+    kernel (the model's ``TransformerConfig.use_kernels``)."""
     if steps <= 0:
         raise ValueError("lsd decode steps must be > 0")
     if time_cond is None:
@@ -192,5 +196,5 @@ def lsd_decode(
     x = x0
     for i in range(steps):
         y = time_cond[i].to(cond_y.dtype) + cond_y
-        x = x + _flow_core(params, fused_ada, y, x) * (1.0 / steps)
+        x = x + _flow_core(params, fused_ada, y, x, use_kernels) * (1.0 / steps)
     return x

@@ -25,8 +25,10 @@ offset per lane (``offset`` int32 ``[B]``) and, optionally, an int8 cache
 with per-row float32 scales (``k_scale``/``v_scale`` ``[L,B,H,C]``); its
 RoPE, row quantization, row writes and attention go through the fused
 batched decode-attention step (``kernels/batched_decode_attention.py``).
+Every layer norm goes through the fused LayerNorm kernel
+(``kernels/layer_norm.py``: one launch a norm).
 ``TransformerConfig.use_kernels=False`` (the reference's ``use_pallas``)
-sends both kernels' calls to their plain versions, on any device.
+sends the three kernels' calls to their plain versions, on any device.
 
 **Tensor parallel.** A transformer tree whose ``ranks`` holds one tree per
 tp rank (``parallel.mesh.shard_params_tp``) runs the Megatron split: rank
@@ -51,6 +53,7 @@ import torch
 
 from go_pocket_tts_tpu_torch.kernels import batched_decode_attention as bda
 from go_pocket_tts_tpu_torch.kernels import decode_attention
+from go_pocket_tts_tpu_torch.kernels import layer_norm as lnk
 from go_pocket_tts_tpu_torch.models.params import (
     VarBuilder,
     apply_linear,
@@ -64,7 +67,6 @@ from go_pocket_tts_tpu_torch.ops import (
     attention_with_positions_int8kv,
     build_rope_tables,
     gelu_erf,
-    layer_norm,
     rope_rows,
 )
 
@@ -283,6 +285,7 @@ def transformer_forward_cached(
         }
     capacity = cache["k"].shape[3]
     device = x.device
+    norm = lnk.layer_norm if cfg.use_kernels else lnk.layer_norm_plain
 
     use_kernel = t == 1 and cfg.context is None
     if use_kernel:
@@ -297,7 +300,7 @@ def transformer_forward_cached(
 
     k_all, v_all = cache["k"], cache["v"]
     for i, layer in enumerate(params["layers"]):
-        n1 = layer_norm(x, layer["norm1"]["weight"], layer["norm1"]["bias"])
+        n1 = norm(x, layer["norm1"]["weight"], layer["norm1"]["bias"])
         qkv = apply_linear(layer["in_proj"], n1)
         q, k, v = (
             _split_heads(part, cfg.num_heads, cfg.head_dim) for part in qkv.chunk(3, dim=-1)
@@ -314,7 +317,7 @@ def transformer_forward_cached(
             attn = attention_with_positions(q, k_all[i], v_all[i], pos_q, pos_k, cfg.context)
 
         x = x + apply_linear(layer["out_proj"], _merge_heads(attn))
-        n2 = layer_norm(x, layer["norm2"]["weight"], layer["norm2"]["bias"])
+        n2 = norm(x, layer["norm2"]["weight"], layer["norm2"]["bias"])
         x = x + apply_linear(layer["linear2"], gelu_erf(apply_linear(layer["linear1"], n2)))
 
     return x, {"k": k_all, "v": v_all, "offset": offset + valid}
@@ -382,14 +385,15 @@ def transformer_step_batched(
 
     batch = x.shape[0]
     rope = (params["rope_cos"], params["rope_sin"])
+    norm = lnk.layer_norm if cfg.use_kernels else lnk.layer_norm_plain
     for i, layer in enumerate(params["layers"]):
-        n1 = layer_norm(x, layer["norm1"]["weight"], layer["norm1"]["bias"])
+        n1 = norm(x, layer["norm1"]["weight"], layer["norm1"]["bias"])
         qkv = apply_linear(layer["in_proj"], n1)
         # [B,H,1,Dh] views into the projection: the kernel takes their strides.
         q, k, v = qkv.reshape(batch, 1, 3, cfg.num_heads, cfg.head_dim).permute(2, 0, 3, 1, 4)
         attn = _batched_attention(cfg, rope, cache, offsets, i, q, k, v)
         x = x + apply_linear(layer["out_proj"], _merge_heads(attn))
-        n2 = layer_norm(x, layer["norm2"]["weight"], layer["norm2"]["bias"])
+        n2 = norm(x, layer["norm2"]["weight"], layer["norm2"]["bias"])
         x = x + apply_linear(layer["linear2"], gelu_erf(apply_linear(layer["linear1"], n2)))
 
     new_cache = {"k": cache["k"], "v": cache["v"], "offset": offsets + 1}
@@ -424,9 +428,10 @@ def _tp_layers(
     b, t = x.shape[:2]
     heads = cfg.num_heads // len(ranks)
     devices = [r["rope_cos"].device for r in ranks]
+    norm = lnk.layer_norm if cfg.use_kernels else lnk.layer_norm_plain
     for i in range(cfg.num_layers):
         norms = ranks[0]["layers"][i]
-        n1 = layer_norm(x, norms["norm1"]["weight"], norms["norm1"]["bias"])
+        n1 = norm(x, norms["norm1"]["weight"], norms["norm1"]["bias"])
         parts = []
         for r, (rank, dev) in enumerate(zip(ranks, devices)):
             layer = rank["layers"][i]
@@ -435,7 +440,7 @@ def _tp_layers(
             attn = attend(r, i, q, k, v)
             parts.append(apply_linear(layer["out_proj"], _merge_heads(attn), out_dtype=torch.float32))
         x = x + _reduce(parts, x)
-        n2 = layer_norm(x, norms["norm2"]["weight"], norms["norm2"]["bias"])
+        n2 = norm(x, norms["norm2"]["weight"], norms["norm2"]["bias"])
         parts = []
         for rank, dev in zip(ranks, devices):
             layer = rank["layers"][i]
@@ -480,14 +485,15 @@ def transformer_forward_stateless(params: Params, cfg: TransformerConfig, x: tor
     ``0..T-1``, RoPE from 0, masked to ``cfg.context`` when it is set."""
     pos = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     rope = (params["rope_cos"], params["rope_sin"])
+    norm = lnk.layer_norm if cfg.use_kernels else lnk.layer_norm_plain
     for layer in params["layers"]:
-        n1 = layer_norm(x, layer["norm1"]["weight"], layer["norm1"]["bias"])
+        n1 = norm(x, layer["norm1"]["weight"], layer["norm1"]["bias"])
         q, k, v = (
             _split_heads(part, cfg.num_heads, cfg.head_dim)
             for part in apply_linear(layer["in_proj"], n1).chunk(3, dim=-1)
         )
         attn = attention_with_positions(apply_rope(q, *rope), apply_rope(k, *rope), v, pos, pos, cfg.context)
         x = x + apply_linear(layer["out_proj"], _merge_heads(attn))
-        n2 = layer_norm(x, layer["norm2"]["weight"], layer["norm2"]["bias"])
+        n2 = norm(x, layer["norm2"]["weight"], layer["norm2"]["bias"])
         x = x + apply_linear(layer["linear2"], gelu_erf(apply_linear(layer["linear1"], n2)))
     return x

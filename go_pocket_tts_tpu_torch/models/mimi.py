@@ -23,8 +23,10 @@ this decode and could not fit it in a TPU's scoped VMEM; its
 fused tail kernels, as in the reference's kernel branch. The wrappers
 launch the CUDA kernels for CUDA tensors and run their plain versions on
 the CPU. The stream decoder (:mod:`models.mimi_stream`) runs the same
-stages through the cascade kernel instead. ``MimiConfig.use_kernels=False``
-(the reference's ``use_pallas``) calls the plain versions on any device.
+stages through the cascade kernel instead. The transformer's norms go
+through the fused LayerNorm kernel, which reads its transposed input in
+place. ``MimiConfig.use_kernels=False`` (the reference's ``use_pallas``)
+calls the plain versions on any device.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from go_pocket_tts_tpu_torch.kernels import layer_norm as lnk
 from go_pocket_tts_tpu_torch.kernels import seanet_tail
 from go_pocket_tts_tpu_torch.models.params import VarBuilder, apply_linear, layer_norm_params, linear_params
 from go_pocket_tts_tpu_torch.ops import (
@@ -44,7 +47,6 @@ from go_pocket_tts_tpu_torch.ops import (
     conv_transpose1d_trim,
     elu,
     gelu_erf,
-    layer_norm,
     repack_conv_transpose_kernel,
 )
 from go_pocket_tts_tpu_torch.ops.local_attention import local_windowed_attention
@@ -74,7 +76,7 @@ class MimiConfig:
     context: int = 250
     upsample_groups: int = 512  # read from the checkpoint at load
     seanet_strides: Tuple[int, int, int] = (6, 5, 4)
-    use_kernels: bool = True  # False: the SEANet kernels' plain versions, on any device
+    use_kernels: bool = True  # False: the SEANet and norm kernels' plain versions, on any device
 
     @property
     def steps_per_latent(self) -> int:
@@ -210,12 +212,13 @@ def _transformer(params: Params, cfg: MimiConfig, x: torch.Tensor) -> torch.Tens
     head_dim = tp["rope_cos"].shape[1] * 2
     num_heads = d // head_dim
     pos = torch.arange(t, dtype=torch.int32, device=x.device)
+    norm = lnk.layer_norm if cfg.use_kernels else lnk.layer_norm_plain
 
     def heads(z):
         return z.reshape(b, t, num_heads, head_dim).transpose(1, 2)
 
     for layer in tp["layers"]:
-        n1 = layer_norm(x, layer["norm1"]["weight"], layer["norm1"]["bias"])
+        n1 = norm(x, layer["norm1"]["weight"], layer["norm1"]["bias"])
         q, k, v = (heads(z) for z in apply_linear(layer["in_proj"], n1).chunk(3, dim=-1))
         q = apply_rope(q, tp["rope_cos"], tp["rope_sin"], 0)
         k = apply_rope(k, tp["rope_cos"], tp["rope_sin"], 0)
@@ -230,7 +233,7 @@ def _transformer(params: Params, cfg: MimiConfig, x: torch.Tensor) -> torch.Tens
             a = a * layer["layer_scale_1"].to(a.dtype)
         x = x + a
 
-        n2 = layer_norm(x, layer["norm2"]["weight"], layer["norm2"]["bias"])
+        n2 = norm(x, layer["norm2"]["weight"], layer["norm2"]["bias"])
         ff = apply_linear(layer["linear2"], gelu_erf(apply_linear(layer["linear1"], n2)))
         if "layer_scale_2" in layer:
             ff = ff * layer["layer_scale_2"].to(ff.dtype)

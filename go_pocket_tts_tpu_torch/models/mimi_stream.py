@@ -37,6 +37,7 @@ from typing import Dict, Tuple, Union
 
 import torch
 
+from go_pocket_tts_tpu_torch.kernels import layer_norm as lnk
 from go_pocket_tts_tpu_torch.kernels import seanet_tail
 from go_pocket_tts_tpu_torch.models.mimi import (
     MimiConfig,
@@ -52,7 +53,6 @@ from go_pocket_tts_tpu_torch.ops import (
     conv_transpose1d_trim,
     elu,
     gelu_erf,
-    layer_norm,
 )
 
 __all__ = [
@@ -228,8 +228,9 @@ def _stream_transformer(params: Params, cfg: MimiConfig, state: State, x: torch.
         return z.reshape(b, t, num_heads, head_dim).transpose(1, 2)
 
     kv_k, kv_v = state["kv_k"], state["kv_v"]
+    norm = lnk.layer_norm if cfg.use_kernels else lnk.layer_norm_plain
     for i, layer in enumerate(tp["layers"]):
-        n1 = layer_norm(x, layer["norm1"]["weight"], layer["norm1"]["bias"])
+        n1 = norm(x, layer["norm1"]["weight"], layer["norm1"]["bias"])
         q, k, v = (heads(z) for z in apply_linear(layer["in_proj"], n1).chunk(3, dim=-1))
         if per_lane:
             q, k = apply_rope_rows(q, rope_c, rope_s), apply_rope_rows(k, rope_c, rope_s)
@@ -245,7 +246,7 @@ def _stream_transformer(params: Params, cfg: MimiConfig, state: State, x: torch.
         if "layer_scale_1" in layer:
             a = a * layer["layer_scale_1"].to(a.dtype)
         x = x + a
-        n2 = layer_norm(x, layer["norm2"]["weight"], layer["norm2"]["bias"])
+        n2 = norm(x, layer["norm2"]["weight"], layer["norm2"]["bias"])
         ff = apply_linear(layer["linear2"], gelu_erf(apply_linear(layer["linear1"], n2)))
         if "layer_scale_2" in layer:
             ff = ff * layer["layer_scale_2"].to(ff.dtype)

@@ -220,8 +220,9 @@ def _ar_step_body(params, cfg, state: State, noise: torch.Tensor, decode_steps: 
     seq = torch.where(torch.isnan(frame), params["bos_emb"].to(frame.dtype), frame)
     x = flm.apply_linear(params["input_linear"], seq)
     y, cache = ftr.transformer_step_batched(params["transformer"], cfg.transformer, state["cache"], x)
-    last, eos_logit = flm._hidden_and_eos(params, y)
-    decoded = flm.fnet.lsd_decode(params["flow_net"], last, noise, decode_steps, time_cond, fused_ada)
+    kernels = cfg.transformer.use_kernels
+    last, eos_logit = flm._hidden_and_eos(params, y, kernels)
+    decoded = flm.fnet.lsd_decode(params["flow_net"], last, noise, decode_steps, time_cond, fused_ada, kernels)
 
     frames = state["frames"]
     lanes = torch.arange(frames.shape[0], device=frames.device)

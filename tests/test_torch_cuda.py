@@ -20,6 +20,7 @@ from go_pocket_tts_tpu_torch import kernels
 from go_pocket_tts_tpu_torch.kernels import batched_decode_attention as bda
 from go_pocket_tts_tpu_torch.kernels import decode_attention as da
 from go_pocket_tts_tpu_torch.kernels import int4_matmul as i4mm
+from go_pocket_tts_tpu_torch.kernels import layer_norm as lnk
 from go_pocket_tts_tpu_torch.kernels import quantized_matmul as qmm
 from go_pocket_tts_tpu_torch.kernels import seanet_tail as st
 from go_pocket_tts_tpu_torch.kernels.split_kv import boundary_offsets
@@ -668,6 +669,7 @@ def test_tiny_batched_stream_kernels_match_plain(card, monkeypatch):
     monkeypatch.setattr(bda, "batched_decode_attention_step", bda.batched_decode_attention_step_plain)
     monkeypatch.setattr(qmm, "quantized_matmul", qmm.quantized_matmul_plain)
     monkeypatch.setattr(st, "fused_up2_up3_tail_stream", st.fused_up2_up3_tail_stream_plain)
+    monkeypatch.setattr(lnk, "layer_norm", lnk.layer_norm_plain)
     kernels.reset_launches()
     want = serve()
     assert [fn.launches for fn in kernels.WRAPPERS] == [0] * len(kernels.WRAPPERS)
@@ -1492,3 +1494,159 @@ def test_a_capture_while_another_engine_replays(card):
     for g, w in zip(*outs):
         assert g.shape == w.shape
         assert np.sqrt(np.mean((g.astype(np.float64) - w) ** 2)) < 1e-4
+
+
+# -- the fused LayerNorm (kernels/layer_norm.py) ----------------------------------
+
+# (x's shape, affine, modulate, layout) at the main paths' shapes: the AR
+# step's transformer and output norms (1 and 8 rows of 1024), its flowNet
+# norms with their modulate (512; the final layer's without an affine), a
+# 50-token prefill, and the harvest decode's Mimi transformer (8 lanes x 256
+# frames x 16 steps a frame, transposed as the decoder reads it, and
+# contiguous); then rows the kernel reads one element at a time.
+LN_CASES = {
+    "ar_1x1024": ((1, 1, 1024), True, False, "contiguous"),
+    "ar_8x1024": ((8, 1, 1024), True, False, "contiguous"),
+    "flow_1x512_modulate": ((1, 512), True, True, "contiguous"),
+    "flow_8x512_modulate": ((8, 512), True, True, "contiguous"),
+    "flow_final_8x512_modulate": ((8, 512), False, True, "contiguous"),
+    "prefill_50x1024": ((1, 50, 1024), True, False, "contiguous"),
+    "mimi_8x4096x512_transposed": ((8, 4096, 512), True, False, "transposed"),
+    "mimi_8x4096x512": ((8, 4096, 512), True, False, "contiguous"),
+    "unaligned_3x1000": ((3, 1000), True, True, "offset"),
+    "narrow_5x48": ((5, 48), True, False, "contiguous"),
+}
+
+
+def _ln_inputs(gen, shape, affine, mod, layout, dtype, device, w_dtype=None):
+    """x in ``layout``, its weight and bias (``w_dtype``, else ``dtype``, as
+    the loader casts them) and shift and scale as column chunks of one
+    [..., 3·D] projection, as the flowNet slices it."""
+    d = shape[-1]
+
+    def rnd(*s, scale=1.0, shift=0.0):
+        return (torch.randn(s, generator=gen, device=device) * scale + shift).to(dtype)
+
+    if layout == "transposed":
+        x = rnd(*shape[:-2], d, shape[-2], scale=2.0, shift=0.5).transpose(-1, -2)
+    elif layout == "offset":
+        x = rnd(*shape[:-1], d + 1, scale=2.0, shift=0.5)[..., 1:]
+    else:
+        x = rnd(*shape, scale=2.0, shift=0.5)
+    w = b = shift = scale = None
+    if affine:
+        wd = w_dtype or dtype
+        w = (torch.randn(d, generator=gen, device=device) * 0.5 + 1.0).to(wd)
+        b = (torch.randn(d, generator=gen, device=device) * 0.1).to(wd)
+    if mod:
+        ada = rnd(*shape[:-1], 3 * d, scale=0.3)
+        shift, scale = ada[..., :d], ada[..., 2 * d :]
+    return x, w, b, shift, scale
+
+
+def _bf16_ulp(v):
+    """One bf16 step at |v| (8 bits of mantissa)."""
+    e = torch.floor(torch.log2(v.float().abs().clamp_min(2.0**-126)))
+    return torch.exp2(e - 7)
+
+
+def _ln_close(got, want, dtype, x, w, b, shift, scale):
+    """float32: within ``TOLERANCES["layer_norm"]``. bf16: within one bf16
+    step of the largest value the eager chain sums or rounds on its way (the
+    normalised value times the weight, the bias, the norm, its product with
+    ``1 + scale``, the shift): the kernel's float32 row sums run in another
+    order, which may move a rounding by one step."""
+    from go_pocket_tts_tpu_torch.ops import TOLERANCES
+
+    assert got.dtype == want.dtype == dtype and got.shape == want.shape and got.is_contiguous()
+    if dtype == torch.float32:
+        atol, rtol = TOLERANCES["layer_norm"]
+        torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
+        return
+    ref = torch.maximum(want.float().abs(), lnk.layer_norm_plain(x.float(), None if w is None else w.float()).abs())
+    if b is not None:
+        ref = torch.maximum(ref, b.float().abs())
+    if shift is not None:
+        h = lnk.layer_norm_plain(x, w, b).float()
+        ref = torch.maximum(ref, (h * (1 + scale.float())).abs())
+        ref = torch.maximum(ref, shift.float().abs())
+    excess = (got.float() - want.float()).abs() - _bf16_ulp(ref)
+    assert excess.max().item() <= 0, f"beyond one bf16 step by {excess.max().item():.3e}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(LN_CASES))
+def test_layer_norm_kernel(card, dtype, case):
+    shape, affine, mod, layout = LN_CASES[case]
+    gen = torch.Generator(device=card).manual_seed(len(case))
+    x, w, b, shift, scale = _ln_inputs(gen, shape, affine, mod, layout, dtype, card)
+    eps = 1e-6 if mod else 1e-5
+    before = lnk.layer_norm.launches
+    got = lnk.layer_norm(x, w, b, eps, shift, scale)
+    want = lnk.layer_norm_plain(x, w, b, eps, shift, scale)
+    torch.cuda.synchronize()
+    assert lnk.layer_norm.launches == before + 1
+    _ln_close(got, want.contiguous(), dtype, x, w, b, shift, scale)
+    assert torch.equal(got, lnk.layer_norm(x, w, b, eps, shift, scale))  # deterministic
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_kernel_reads_weights_as_stored(card, dtype):
+    """A float32 weight and bias beside bf16 activations, and the reverse."""
+    gen = torch.Generator(device=card).manual_seed(5)
+    other = torch.bfloat16 if dtype == torch.float32 else torch.float32
+    x, w, b, _, _ = _ln_inputs(gen, (8, 1024), True, False, "contiguous", dtype, card, w_dtype=other)
+    _ln_close(lnk.layer_norm(x, w, b), lnk.layer_norm_plain(x, w, b), dtype, x, w, b, None, None)
+
+
+def test_layer_norm_kernel_in_a_graph(card):
+    """The flowNet's fused norm captured in a ``GraphCache`` graph: each
+    replay is one launch and gives the eager call's bits."""
+    from go_pocket_tts_tpu_torch.runtime import graphs
+
+    gen = torch.Generator(device=card).manual_seed(9)
+    x, w, b, shift, scale = _ln_inputs(gen, (8, 512), True, True, "contiguous", torch.bfloat16, card)
+
+    def body(inp):
+        return lnk.layer_norm(inp["x"], w, b, 1e-6, shift, scale)
+
+    want = body({"x": x})
+    kernels.reset_launches()
+    cache = graphs.GraphCache(card)
+    graph = cache.get("norm", lambda: (body, {"x": x.clone()}))
+    for n in range(1, 4):
+        got = graph.run()
+        torch.cuda.synchronize()
+        assert lnk.layer_norm.launches == n
+    assert torch.equal(got, want) and cache.captures == 1
+    assert all(fn.launches == 0 for fn in kernels.WRAPPERS if fn is not lnk.layer_norm)
+
+
+def test_layer_norm_wrapper_raises_on_what_the_kernel_does_not_take(card):
+    x = torch.zeros((2, 64), device=card)
+    with pytest.raises(TypeError):
+        lnk.layer_norm(x.half())
+    with pytest.raises(ValueError):
+        lnk.layer_norm(torch.zeros((2, lnk.MAX_D + 8), device=card))
+    with pytest.raises(ValueError):
+        lnk.layer_norm(x, shift=x)
+    with pytest.raises(ValueError):
+        lnk.layer_norm(x, torch.ones(32, device=card))
+    with pytest.raises(ValueError):
+        lnk.layer_norm(x.bfloat16(), shift=x, scale=x)  # shift and scale of another type than x
+
+
+def test_runtime_norms_launch_the_kernel_only_with_kernels_on(card):
+    """``GPURuntime`` launches the norm kernel; with ``pallas=False`` no
+    kernel at all, and the float32 audio agrees."""
+    model = load_model_from_tensors(
+        synthetic.build_checkpoint(GRAPH_ARCH, seed=2), num_heads=GRAPH_ARCH.num_heads, device=card
+    )
+    cfg = GenerateConfig(temperature=0.0, eos_threshold=1e9, max_steps=8)
+    kernels.reset_launches()
+    on = GPURuntime(model, seed=1, frame_bucket=64, device=card).generate_audio([3, 17, 41], cfg)
+    assert lnk.layer_norm.launches > 0
+    kernels.reset_launches()
+    off = GPURuntime(model, seed=1, frame_bucket=64, device=card, pallas=False).generate_audio([3, 17, 41], cfg)
+    assert all(fn.launches == 0 for fn in kernels.WRAPPERS)
+    assert np.sqrt(np.mean((on - off) ** 2)) < 1e-5

@@ -629,6 +629,7 @@ def test_wrappers_and_meta_line_up():
         "int4_matmul",
         "fused_up2_res",
         "fused_up2_up3_tail",
+        "layer_norm",
     ]
     assert len(kernels.META) == len(kernels.WRAPPERS)
     for meta in kernels.META:
