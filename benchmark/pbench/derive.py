@@ -113,16 +113,17 @@ def mean_rows(run) -> Optional[float]:
     return total / frames if frames else None
 
 
-def _request_flops(arch: Dict, n_tokens: int, first: int, count: int, prefill: bool) -> float:
-    steps = sum(roofline.frame_step_flops(arch, n_tokens + j + 1) for j in range(first, first + count))
+def _request_flops(layout, arch: Dict, n_tokens: int, first: int, count: int, prefill: bool) -> float:
+    steps = sum(layout.frame_step_flops(arch, n_tokens + j + 1) for j in range(first, first + count))
     ops = steps + roofline.decode_flops(arch, first, count)
-    return ops + (roofline.prefill_flops(arch, n_tokens) if prefill else 0.0)
+    return ops + (layout.prefill_flops(arch, n_tokens) if prefill else 0.0)
 
 
 def window_flops(run) -> float:
     """The model operations that the audio delivered in the window needed:
     each delivered frame's AR step and decode, and the prefill of each
-    request whose first audio arrived in the window."""
+    request whose first audio arrived in the window. The AR step's and the
+    prefill's counts are the configuration's reference module's."""
     arch = run.config
     total = 0.0
     for r in run.records:
@@ -131,7 +132,7 @@ def window_flops(run) -> float:
         for i, (t, n) in enumerate(r.blocks):
             frames = n // SAMPLES_PER_FRAME
             if in_window(run, t):
-                total += _request_flops(arch, n_tok, done, frames, prefill=(i == 0))
+                total += _request_flops(run.reference, arch, n_tok, done, frames, prefill=(i == 0))
             done += frames
     return total
 

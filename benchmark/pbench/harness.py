@@ -14,6 +14,7 @@ import threading
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
+from types import ModuleType
 from typing import Callable, Dict, List, Optional
 
 import torch
@@ -35,6 +36,8 @@ class Run:
 
     cell: str
     config: Dict
+    # The configuration's reference module: its layout and operation counts.
+    reference: ModuleType
     workload: Dict
     seconds: float
     setup_s: float
@@ -116,7 +119,7 @@ def run_cell(
         registry.use_build_dirs()
 
     # -- set-up: weights from the seed, the system, the cell's shapes ------
-    weights = make_weights(config, _sub_seed(seed, 1), dev)
+    weights = make_weights(reference, config, _sub_seed(seed, 1), dev)
     host = systems.host_copy(weights)
     del weights
     system = systems.build_system(config, host, dev, _sub_seed(seed, 2))
@@ -131,7 +134,8 @@ def run_cell(
     # What set-up made lives on: no collection walks it inside the window.
     gc.collect()
     gc.freeze()
-    run = Run(cell=cell, config=config, workload=workload, seconds=seconds, setup_s=time.perf_counter() - t_start, card=card)
+    run = Run(cell=cell, config=config, reference=reference, workload=workload, seconds=seconds,
+              setup_s=time.perf_counter() - t_start, card=card)
 
     # -- the window --------------------------------------------------------
     requests = traffic.draw(workload, _sub_seed(seed, 3))

@@ -5,9 +5,12 @@ The peaks and :func:`bound_s` are frozen copies of ``chip_smoke.py``'s
 ``PEAK_BYTES_PER_S``, ``PEAK_FLOPS`` and ``bound``; :data:`SEANET_WORK`
 and :func:`seanet_bound_s` of its ``SEANET_WORK`` and ``seanet_bound``
 (published H100 SXM rates, dense; bytes and operations from the shapes,
-each input byte read once and each output byte written once). The model's
-operation counts are worked out here from a configuration's widths: the
-work that a request's inputs need, whatever implements it.
+each input byte read once and each output byte written once). Mimi's
+decode operations are counted here from a configuration's widths, since
+every configuration keeps Mimi; the rest of the model's operations come
+from the configuration's reference module (``frame_step_flops``,
+``prefill_flops``): the work that a request's inputs need, whatever
+implements it.
 """
 
 from __future__ import annotations
@@ -21,8 +24,6 @@ __all__ = [
     "bound_s",
     "decode_attention_bound_s",
     "decode_flops",
-    "frame_step_flops",
-    "prefill_flops",
     "quantized_matmul_shapes",
     "quantized_matmul_bound_s",
     "seanet_bound_s",
@@ -47,42 +48,6 @@ def bound_s(bytes_moved: float, flops: float, dtype: str = "bfloat16") -> float:
     """The least time on one H100: bytes at the HBM rate or operations at
     the dtype's peak, whichever is longer."""
     return max(bytes_moved / PEAK_BYTES_PER_S, flops / PEAK_FLOPS[dtype])
-
-
-def _linears(arch: Dict) -> Dict[str, Tuple[int, int]]:
-    """``{name: (in, out)}`` of the linears one AR step runs for one lane."""
-    d, ffn, lat, fd, fh = arch["d_model"], arch["ffn_dim"], arch["latent_dim"], arch["flow_dim"], arch["flow_hidden"]
-    out = {"input_linear": (lat, d), "out_eos": (d, 1)}
-    for i in range(arch["num_layers"]):
-        out[f"l{i}.in_proj"] = (d, 3 * d)
-        out[f"l{i}.out_proj"] = (d, d)
-        out[f"l{i}.linear1"] = (d, ffn)
-        out[f"l{i}.linear2"] = (ffn, d)
-    out["cond_embed"] = (d, fd)
-    out["input_proj"] = (lat, fd)
-    for i in range(arch["flow_depth"]):
-        out[f"r{i}.mlp0"] = (fd, fh)
-        out[f"r{i}.mlp2"] = (fh, fd)
-    out["adaln"] = (fd, (3 * arch["flow_depth"] + 2) * fd)
-    out["final_linear"] = (fd, lat)
-    return out
-
-
-def frame_step_flops(arch: Dict, rows: int) -> float:
-    """Operations of one lane's AR step attending to ``rows`` cached rows:
-    the FlowLM linears and attention, and one flowNet evaluation."""
-    linear = sum(2.0 * k * n for k, n in _linears(arch).values())
-    attention = arch["num_layers"] * 4.0 * rows * arch["d_model"]
-    return linear + attention
-
-
-def prefill_flops(arch: Dict, n_tokens: int) -> float:
-    """Operations of a prompt of ``n_tokens``: the transformer's linears per
-    token and its causal attention."""
-    d, ffn = arch["d_model"], arch["ffn_dim"]
-    per_token = 2.0 * (d * 3 * d + d * d + d * ffn + ffn * d) * arch["num_layers"]
-    attention = arch["num_layers"] * 4.0 * d * n_tokens * (n_tokens + 1) / 2
-    return per_token * n_tokens + attention
 
 
 def decode_flops(arch: Dict, first_frame: int, n_frames: int) -> float:
@@ -126,11 +91,11 @@ def decode_attention_bound_s(arch: Dict, rows: float, dtype: str = "bfloat16") -
     return bound_s(bytes_moved, 4.0 * h * rows * dh, dtype)
 
 
-def quantized_matmul_shapes(arch: Dict) -> List[Tuple[int, int]]:
-    """``(K, N)`` of the AR step's int8 linears that the quantized-matmul
-    kernel takes (its gate: ``K % 128 == 0`` and ``N % 256 == 0``; the AR
-    step's few rows pass ``M <= 64``)."""
-    return [(k, n) for k, n in _linears(arch).values() if k % 128 == 0 and n % 256 == 0]
+def quantized_matmul_shapes(linears: Iterable[Tuple[int, int]]) -> List[Tuple[int, int]]:
+    """``(K, N)`` of the AR step's int8 linears (``(in, out)`` each) that the
+    quantized-matmul kernel takes (its gate: ``K % 128 == 0`` and
+    ``N % 256 == 0``; the AR step's few rows pass ``M <= 64``)."""
+    return [(k, n) for k, n in linears if k % 128 == 0 and n % 256 == 0]
 
 
 def quantized_matmul_bound_s(m: int, k: int, n: int) -> float:

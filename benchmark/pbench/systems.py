@@ -30,16 +30,10 @@ def _synchronize(device: torch.device) -> None:
 
 
 def host_copy(weights: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """The checkpoint tensors on the host, in one copy: the port's loader
-    reads host arrays."""
-    names = list(weights)
-    flat = torch.cat([weights[n].reshape(-1) for n in names]).cpu()
-    out, i = {}, 0
-    for n in names:
-        size = weights[n].numel()
-        out[n] = flat[i : i + size].reshape(weights[n].shape)
-        i += size
-    return out
+    """The checkpoint tensors on the host, each in its own dtype, copied one
+    at a time: the port's loader reads host arrays, and the card needs no
+    room beyond the set."""
+    return {name: t.cpu() for name, t in weights.items()}
 
 
 def _gen_config(temperature: float, frames: int):

@@ -1,147 +1,94 @@
-"""Checkpoint tensors of a PocketTTS configuration, drawn from a seed on the
-card.
+"""Checkpoint tensors of a configuration, drawn from a seed on the card.
 
-Frozen copy of the key naming and the initial scales of
-``go_pocket_tts_tpu_torch/models/synthetic.py`` (``build_checkpoint``, the
-decoder's tensors only): linear and convolution weights ~ N(0, 1/fan_in),
-biases 0.02·N, layer norms 1 + 0.05·N and 0.02·N, the text table 0.02·N,
-the latent statistics 0.5 + U and 0.1·N, the time embedders' frequencies
-exp(4·U), and Mimi's layer scales 0.01. The values are not the builder's
-(its NumPy stream is not reproduced): every Gaussian leaf is a slice of one
-``torch.randn`` and every uniform leaf a slice of one ``torch.rand``, both
-from a ``torch.Generator`` on ``device`` seeded with ``seed``, so a set is
-made in two launches.
+The layout is the configuration's own: its reference module
+(``references/<reference_impl>.py``) gives ``leaf_specs(config)``, every
+checkpoint tensor as ``(name, shape, kind, scale, offset)``, and
+``CHECKPOINT_DTYPE``, the dtype the tensors are held in. A leaf's value is
+``offset + scale · draw`` where kind ``"n"`` draws N(0, 1), ``"u"`` draws
+U[0, 1), ``"e"`` is ``exp(scale · U)`` and ``"c"`` is the constant
+``offset``.
 
-The architecture comes from a configuration file (``benchmark/configs``):
-the published widths under the names of ``SynthArch``.
+The draws come from one ``torch.Generator`` on ``device`` seeded with
+``seed``: first the normal stream, every ``"n"`` leaf in the layout's order,
+then the uniform stream, every ``"u"`` and ``"e"`` leaf; each stream drawn
+in consecutive chunks of at most :data:`CHUNK` elements, in float32. A set
+whose streams each fit one chunk is made in two launches. Each leaf is
+written straight into its own tensor in the checkpoint's dtype, so the
+card holds the set in that dtype, one chunk, and one leaf's float32 values.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from types import ModuleType
+from typing import Dict
 
 import torch
 
-__all__ = ["leaf_specs", "make_weights", "weight_count"]
+__all__ = ["CHUNK", "make_weights", "weight_count"]
 
-# (name, shape, kind, scale, offset): value = offset + scale · draw, where
-# kind "n" draws N(0, 1), "u" U[0, 1), "c" is the constant ``offset``, and
-# "e" is exp(scale · U).
-Spec = Tuple[str, Tuple[int, ...], str, float, float]
+# The most elements one draw makes: 4.3 GB of float32.
+CHUNK = 2**30
 
 
-def _lin(specs: List[Spec], prefix: str, out_dim: int, in_dim: int, bias: bool) -> None:
-    specs.append((f"{prefix}.weight", (out_dim, in_dim), "n", 1.0 / math.sqrt(in_dim), 0.0))
-    if bias:
-        specs.append((f"{prefix}.bias", (out_dim,), "n", 0.02, 0.0))
+def weight_count(layout: ModuleType, config: Dict) -> int:
+    return sum(math.prod(shape) for _n, shape, _k, _s, _o in layout.leaf_specs(config))
 
 
-def _ln(specs: List[Spec], prefix: str, dim: int) -> None:
-    specs.append((f"{prefix}.weight", (dim,), "n", 0.05, 1.0))
-    specs.append((f"{prefix}.bias", (dim,), "n", 0.02, 0.0))
+class _Stream:
+    """``total`` values drawn ``CHUNK`` at a time by ``draw(n)``, handed out
+    in order; one chunk alive at a time."""
+
+    def __init__(self, draw, total: int) -> None:
+        self.draw, self.left = draw, total
+        self.chunk, self.pos = None, 0
+
+    def piece(self, want: int) -> torch.Tensor:
+        """At most ``want`` of the next values: a view of the chunk."""
+        if self.chunk is None or self.pos == self.chunk.numel():
+            self.chunk = None  # freed before the next is drawn
+            n = min(CHUNK, self.left)
+            self.chunk, self.pos, self.left = self.draw(n), 0, self.left - n
+        out = self.chunk[self.pos : self.pos + want]
+        self.pos += out.numel()
+        return out
 
 
-def _conv(specs: List[Spec], prefix: str, out_ch: int, in_per_group: int, k: int, bias: bool) -> None:
-    specs.append((f"{prefix}.weight", (out_ch, in_per_group, k), "n", 1.0 / math.sqrt(in_per_group * k), 0.0))
-    if bias:
-        specs.append((f"{prefix}.bias", (out_ch,), "n", 0.02, 0.0))
+def _fill(out: torch.Tensor, stream: _Stream, kind: str, scale: float, offset: float) -> None:
+    """Write ``out`` (any dtype) from the stream's next ``out.numel()``
+    values, a piece at a time, through float32."""
+    flat = out.view(-1)
+    done = 0
+    while done < flat.numel():
+        v = stream.piece(flat.numel() - done) * scale
+        if kind == "e":
+            v.exp_()
+        else:
+            v.add_(offset)
+        flat[done : done + v.numel()].copy_(v)
+        done += v.numel()
 
 
-def _convtr(specs: List[Spec], prefix: str, in_ch: int, out_per_group: int, k: int, bias_ch: int, bias: bool) -> None:
-    specs.append((f"{prefix}.weight", (in_ch, out_per_group, k), "n", 1.0 / math.sqrt(in_ch * k), 0.0))
-    if bias:
-        specs.append((f"{prefix}.bias", (bias_ch,), "n", 0.02, 0.0))
-
-
-def leaf_specs(arch: Dict) -> List[Spec]:
-    """Every decoder-side checkpoint tensor of ``arch`` with its draw."""
-    a = arch
-    d, lat, fd = a["d_model"], a["latent_dim"], a["flow_dim"]
-    s: List[Spec] = []
-    s.append(("flow_lm.conditioner.embed.weight", (a["n_bins"] + 1, d), "n", 0.02, 0.0))
-    s.append(("flow_lm.emb_std", (lat,), "u", 1.0, 0.5))
-    s.append(("flow_lm.emb_mean", (lat,), "n", 0.1, 0.0))
-    s.append(("flow_lm.bos_emb", (lat,), "n", 0.1, 0.0))
-    _lin(s, "flow_lm.input_linear", d, lat, True)
-    _ln(s, "flow_lm.out_norm", d)
-    _lin(s, "flow_lm.out_eos", 1, d, True)
-    for i in range(a["num_layers"]):
-        p = f"flow_lm.transformer.layers.{i}"
-        _ln(s, f"{p}.norm1", d)
-        _ln(s, f"{p}.norm2", d)
-        _lin(s, f"{p}.self_attn.in_proj", 3 * d, d, False)
-        _lin(s, f"{p}.self_attn.out_proj", d, d, False)
-        _lin(s, f"{p}.linear1", a["ffn_dim"], d, False)
-        _lin(s, f"{p}.linear2", d, a["ffn_dim"], False)
-    for te in (0, 1):
-        p = f"flow_lm.flow_net.time_embed.{te}"
-        s.append((f"{p}.freqs", (a["freq_half"],), "e", 4.0, 0.0))
-        _lin(s, f"{p}.mlp.0", a["te_hidden"], 2 * a["freq_half"], True)
-        _lin(s, f"{p}.mlp.2", fd, a["te_hidden"], True)
-        s.append((f"{p}.mlp.3.alpha", (fd,), "n", 0.05, 1.0))
-    _lin(s, "flow_lm.flow_net.cond_embed", fd, d, True)
-    _lin(s, "flow_lm.flow_net.input_proj", fd, lat, True)
-    for i in range(a["flow_depth"]):
-        p = f"flow_lm.flow_net.res_blocks.{i}"
-        _ln(s, f"{p}.in_ln", fd)
-        _lin(s, f"{p}.mlp.0", a["flow_hidden"], fd, True)
-        _lin(s, f"{p}.mlp.2", fd, a["flow_hidden"], True)
-        _lin(s, f"{p}.adaLN_modulation.1", 3 * fd, fd, True)
-    _lin(s, "flow_lm.flow_net.final_layer.linear", lat, fd, True)
-    _lin(s, "flow_lm.flow_net.final_layer.adaLN_modulation.1", 2 * fd, fd, True)
-
-    c = a["mimi_dim"]
-    _conv(s, "mimi.quantizer.output_proj", c, lat, 1, False)
-    _convtr(s, "mimi.upsample.convtr.convtr", c, 1, a["upsample_kernel"], c, False)
-    for i in range(a["mimi_layers"]):
-        p = f"mimi.decoder_transformer.transformer.layers.{i}"
-        _ln(s, f"{p}.norm1", c)
-        _ln(s, f"{p}.norm2", c)
-        _lin(s, f"{p}.self_attn.in_proj", 3 * c, c, False)
-        _lin(s, f"{p}.self_attn.out_proj", c, c, False)
-        _lin(s, f"{p}.linear1", a["mimi_ffn"], c, False)
-        _lin(s, f"{p}.linear2", c, a["mimi_ffn"], False)
-        s.append((f"{p}.layer_scale_1.scale", (c,), "c", 0.0, 0.01))
-        s.append((f"{p}.layer_scale_2.scale", (c,), "c", 0.0, 0.01))
-    ch, strides = a["seanet_channels"], a["seanet_strides"]
-    _conv(s, "mimi.decoder.model.0.conv", ch[0], c, a["seanet_kernel_init"], True)
-    for bi, (up_idx, res_idx) in enumerate([(2, 3), (5, 6), (8, 9)]):
-        cin, cout = ch[bi], ch[bi + 1]
-        _convtr(s, f"mimi.decoder.model.{up_idx}.convtr", cin, cout, 2 * strides[bi], cout, True)
-        _conv(s, f"mimi.decoder.model.{res_idx}.block.1.conv", cout // 2, cout, 3, True)
-        _conv(s, f"mimi.decoder.model.{res_idx}.block.3.conv", cout, cout // 2, 1, True)
-    _conv(s, "mimi.decoder.model.11.conv", 1, ch[-1], a["seanet_kernel_final"], True)
-    return s
-
-
-def weight_count(arch: Dict) -> int:
-    return sum(math.prod(shape) for _n, shape, _k, _s, _o in leaf_specs(arch))
-
-
-def make_weights(arch: Dict, seed: int, device) -> Dict[str, torch.Tensor]:
-    """``{checkpoint name: float32 tensor on device}`` for ``arch`` from
-    ``seed``: two draws on the device, then one slice per leaf."""
-    specs = leaf_specs(arch)
-    n_norm = sum(math.prod(sh) for _n, sh, k, _s, _o in specs if k == "n")
-    n_unif = sum(math.prod(sh) for _n, sh, k, _s, _o in specs if k in ("u", "e"))
+def make_weights(layout: ModuleType, config: Dict, seed: int, device) -> Dict[str, torch.Tensor]:
+    """``{checkpoint name: tensor on device}`` of ``config`` in the layout's
+    ``CHECKPOINT_DTYPE``, from ``seed``."""
+    specs = layout.leaf_specs(config)
+    dtype = getattr(torch, layout.CHECKPOINT_DTYPE)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
-    normal = torch.randn(n_norm, generator=gen, device=device, dtype=torch.float32)
-    unif = torch.rand(n_unif, generator=gen, device=device, dtype=torch.float32)
     out: Dict[str, torch.Tensor] = {}
-    i_n = i_u = 0
-    for name, shape, kind, scale, offset in specs:
-        size = math.prod(shape)
-        if kind == "n":
-            out[name] = (normal[i_n : i_n + size] * scale + offset).reshape(shape)
-            i_n += size
-        elif kind == "u":
-            out[name] = (unif[i_u : i_u + size] * scale + offset).reshape(shape)
-            i_u += size
-        elif kind == "e":
-            out[name] = torch.exp(unif[i_u : i_u + size] * scale).reshape(shape)
-            i_u += size
-        else:
-            out[name] = torch.full(shape, offset, dtype=torch.float32, device=device)
-    return out
+    streams = [
+        (("n",), lambda n: torch.randn(n, generator=gen, device=device, dtype=torch.float32)),
+        (("u", "e"), lambda n: torch.rand(n, generator=gen, device=device, dtype=torch.float32)),
+    ]
+    for kinds, draw in streams:
+        mine = [s for s in specs if s[2] in kinds]
+        stream = _Stream(draw, sum(math.prod(shape) for _n, shape, _k, _s, _o in mine))
+        for name, shape, kind, scale, offset in mine:
+            out[name] = torch.empty(shape, dtype=dtype, device=device)
+            _fill(out[name], stream, kind, scale, offset)
+        del stream
+    for name, shape, kind, _scale, offset in specs:
+        if kind == "c":
+            out[name] = torch.full(shape, offset, dtype=dtype, device=device)
+    return {name: out[name] for name, *_ in specs}

@@ -5,10 +5,11 @@ from pathlib import Path
 
 import pytest
 
-from pbench import derive, roofline, stats
+from pbench import derive, registry, roofline, stats
 
 BENCH = Path(__file__).resolve().parent.parent
 ARCH = json.loads((BENCH / "configs" / "pockettts-b6369a24-bf16.json").read_text())
+LAYOUT = registry.load_reference(BENCH, ARCH["reference_impl"])
 
 
 @pytest.mark.parametrize("q, want", [(50, 5), (95, 10), (100, 10), (10, 1), (1, 1)])
@@ -72,9 +73,9 @@ def test_step_and_prefill_flops():
     transformer = 2 * 6 * (d * 3 * d + d * d + d * ffn + ffn * d)
     flow = 2 * (1024 * 512 + 32 * 512 + 6 * 2 * 512 * 1024 + 512 * 20 * 512 + 512 * 32)
     heads = 2 * (32 * 1024 + 1024)
-    assert roofline.frame_step_flops(ARCH, 0) == transformer + flow + heads
-    assert roofline.frame_step_flops(ARCH, 10) - roofline.frame_step_flops(ARCH, 0) == 6 * 4 * 10 * d
-    assert roofline.prefill_flops(ARCH, 2) == 2 * transformer + 6 * 4 * d * 3
+    assert LAYOUT.frame_step_flops(ARCH, 0) == transformer + flow + heads
+    assert LAYOUT.frame_step_flops(ARCH, 10) - LAYOUT.frame_step_flops(ARCH, 0) == 6 * 4 * 10 * d
+    assert LAYOUT.prefill_flops(ARCH, 2) == 2 * transformer + 6 * 4 * d * 3
 
 
 def test_decode_flops_split_adds_up():
@@ -89,7 +90,7 @@ def test_decode_flops_split_adds_up():
 
 
 def test_quantized_matmul_shapes_and_bound():
-    shapes = roofline.quantized_matmul_shapes(ARCH)
+    shapes = roofline.quantized_matmul_shapes(LAYOUT.step_linears(ARCH).values())
     # 6 layers × 4 linears, cond_embed, 6 × 2 flowNet MLPs, the fused adaLN.
     assert len(shapes) == 24 + 1 + 12 + 1
     b = roofline.quantized_matmul_bound_s(8, 1024, 4096)

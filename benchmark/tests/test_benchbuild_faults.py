@@ -33,7 +33,7 @@ def _run(root, cell, hook=None, seconds=2.0, trace=False):
     return out, lines
 
 
-@pytest.mark.parametrize("cell", ["tiny-stream", "tiny-oneshot", "tiny-mixed"])
+@pytest.mark.parametrize("cell", ["tiny-stream", "tiny-oneshot", "tiny-mixed", "tiny-single-oneshot"])
 def test_sound_run_is_correct(tiny_root, cell):
     out, lines = _run(tiny_root, cell)
     assert out["correct"], lines
@@ -59,7 +59,7 @@ def _alter(scale):
     return hook
 
 
-@pytest.mark.parametrize("cell", ["tiny-stream", "tiny-oneshot", "tiny-mixed"])
+@pytest.mark.parametrize("cell", ["tiny-stream", "tiny-oneshot", "tiny-mixed", "tiny-single-oneshot"])
 def test_altered_answer_is_not_correct(tiny_root, cell):
     out, lines = _run(tiny_root, cell, hook=_alter(1.01))
     assert not out["correct"], lines
@@ -148,6 +148,7 @@ def test_sound_run_is_correct_against_the_control_decode(tiny_root):
     # Each a step below what the configuration states, as the real
     # configurations' "control" entries.
     ("tiny-stream", {"weights": "fp8", "activations": "fp8"}),
+    ("tiny-single-oneshot", {"weights": "fp8", "activations": "fp8"}),
     ("tiny-oneshot", {"weights": "int4", "kv": "int4", "activations": "fp8"}),
 ])
 def test_control_is_not_correct(tiny_root, monkeypatch, cell, precision):

@@ -17,7 +17,7 @@ REF = registry.load_reference(BENCH, "pockettts")
 
 @pytest.fixture(scope="module")
 def weights():
-    return make_weights(tiny_config("w", {}, {}), 2**31 + 99, torch.device("cpu"))
+    return make_weights(REF, tiny_config("w", {}, {}), 2**31 + 99, torch.device("cpu"))
 
 
 @pytest.mark.parametrize("tokens, frames", [([5, 9, 2, 33], 42), (list(range(1, 40)), 60)])

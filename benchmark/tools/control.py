@@ -46,7 +46,7 @@ def readings(root: Path, cell: str, seed: int, drawn: int, device: torch.device)
     workload = registry.load_workload(root, cell)
     config = registry.load_config(root, workload["config"])
     ref_mod = registry.load_reference(root, config["reference_impl"])
-    weights = make_weights(config, harness._sub_seed(seed, 1), device)
+    weights = make_weights(ref_mod, config, harness._sub_seed(seed, 1), device)
     requests = list(itertools.islice(traffic.draw(workload, harness._sub_seed(seed, 3)), drawn))
     control = ref_mod.PocketTTSReference(weights, config, config["control"])
     probe = FrameProbe()
