@@ -25,7 +25,10 @@ failure exits non-zero:
    and the fused LayerNorm at the AR step's, a prefill's and the harvest
    decode's Mimi transformer's shapes (with the adaLN modulate at the
    flowNet's; the Mimi one a transposed view), within one bf16 step of the
-   eager chain, beside ``torch.nn.functional.layer_norm``;
+   eager chain, beside ``torch.nn.functional.layer_norm``, and the hybrid
+   backbone's Mamba-2 decode step at granite-4.0-h-micro's widths (float32
+   and bfloat16, 1 and 2 rows, three steps with both states carried),
+   beside its bound from bytes;
 3. the single-utterance path: ``real_arch()`` weights from a fixed seed,
    bfloat16 on the card, ``GPURuntime.generate_audio`` on three requests (a
    warm-up request first), then one ``PocketTTSModel.mimi_decode`` of a
@@ -237,6 +240,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -1134,6 +1138,87 @@ def check_layer_norm(rows: dict) -> None:
                 rows["layer_norm"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                                           library_ms=lib_ms)
     rows["layer_norm"]["shapes"] = times
+
+
+# granite-4.0-h-micro's Mamba-2 mixer: H heads of P, state N, G groups.
+MAMBA2_DIMS = (64, 64, 128, 1)
+
+
+def mamba2_step_inputs(gen, batch: int, dtype: torch.dtype):
+    """Random inputs of the Mamba-2 decode step at the published widths,
+    with dt and A in the published initialisation's ranges."""
+    heads, p, n, g = MAMBA2_DIMS
+    conv_dim = heads * p + 2 * g * n
+    width = 2 * heads * p + 2 * g * n + heads
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device="cuda")
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    return dict(
+        zxbcdt=randn(batch, width).to(dtype),
+        conv_state=randn(batch, conv_dim, 3).to(dtype),
+        conv_w=(randn(conv_dim, 4) * 0.5).to(dtype),
+        conv_b=(rand(conv_dim) - 0.5).to(dtype),
+        dt_bias=rand(heads) * 4.65 - 6.91,
+        a=-torch.exp(rand(heads) * math.log(16.0)),
+        d=torch.ones(heads, device="cuda"),
+        ssm_state=randn(batch, heads, p, n) * 0.1,
+        groups=g,
+    )
+
+
+def mamba2_step_bound(batch: int, dtype: torch.dtype):
+    """The step's least bytes (the benchmark reference's
+    ``mamba2_step_bytes``): the float32 state read and written, the
+    projection row, the conv state read and written, the conv weights,
+    dt_bias, A, D and the float32 output; ~5 operations a state element."""
+    heads, p, n, g = MAMBA2_DIMS
+    es = torch.empty((), dtype=dtype).element_size()
+    conv_dim = heads * p + 2 * g * n
+    bytes_moved = (2 * batch * heads * p * n * 4 + batch * (heads * p + conv_dim + heads) * es
+                   + 2 * batch * conv_dim * 3 * es + conv_dim * 5 * es + 3 * heads * 4 + batch * heads * p * 4)
+    return bound(bytes_moved, 5.0 * batch * heads * p * n, torch.float32)
+
+
+def check_mamba2_step(rows: dict) -> None:
+    """The Mamba-2 decode step (one layer, the hybrid backbone's AR step)
+    against its plain version at granite-4.0-h-micro's widths, float32 and
+    bf16, over three steps (both states carried, the grid counter back at
+    0); device time by graph replay beside its bound from bytes, the eager
+    call and the plain version."""
+    from go_pocket_tts_tpu_torch.kernels import mamba2_step as m2k
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    sync = torch.zeros(1, dtype=torch.int32, device="cuda")
+    times = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for batch in (1, 2):
+            x = mamba2_step_inputs(gen, batch, dtype)
+            plain = {k: v.clone() if isinstance(v, torch.Tensor) else v for k, v in x.items()}
+            what = f"mamba2_step {dname(dtype)} B={batch}"
+            err = 0.0
+            for _ in range(3):
+                zx = torch.randn(x["zxbcdt"].shape, generator=gen, device="cuda").to(dtype)
+                x["zxbcdt"] = plain["zxbcdt"] = zx
+                got = m2k.mamba2_step(**x, sync=sync)
+                want = m2k.mamba2_step_plain(**plain)
+                err = max(err, max_err(got, want, torch.float32, what),
+                          max_err(x["ssm_state"], plain["ssm_state"], torch.float32, what + " state"))
+                if not torch.equal(x["conv_state"], plain["conv_state"]) or int(sync.item()) != 0:
+                    fail(f"{what}: conv state or grid counter differs from the plain version's")
+            ms = device_ms(lambda: m2k.mamba2_step(**x, sync=sync))
+            call_ms = eager_ms(lambda: m2k.mamba2_step(**x, sync=sync))
+            plain_ms = device_ms(lambda: m2k.mamba2_step_plain(**plain))
+            b_ms, b_by = mamba2_step_bound(batch, dtype)
+            print(f"  {what}: max_abs_err {err:.3e}  kernel {ms:.5f} ms (eager call {call_ms:.4f} ms)  plain "
+                  f"{plain_ms:.5f} ms  bound {b_ms:.6f} ms ({b_by}): {100 * b_ms / ms:.1f}% of it  [{CARD}]")
+            times[f"{dname(dtype)} B{batch}"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "max_abs_err": err}
+            if dtype == torch.bfloat16 and batch == 1:
+                rows["mamba2_step"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    rows["mamba2_step"]["shapes"] = times
 
 
 def norm_launches_per_step(model, arch) -> None:
@@ -4705,6 +4790,7 @@ def main() -> int:
     check_int4_matmul(rows)
     check_up2(rows)
     check_layer_norm(rows)
+    check_mamba2_step(rows)
 
     t = time.perf_counter()
     arch, model = build_model(torch.bfloat16)

@@ -14,11 +14,13 @@ int4_matmul.int4_matmul                            int4_matmul.py: int4_matmul
 seanet_tail.fused_up2_res                          seanet_tail.py: fused_up2_res
 seanet_tail.fused_up2_up3_tail (and its stream)    seanet_tail.py: fused_up2_up3_tail
 layer_norm.layer_norm                              none (``ops/norms.py``: layer_norm, modulate)
+mamba2_step.mamba2_step                            none (the hybrid backbone's Mamba-2 decode step)
 =================================================  ===========================================
 
 Each wrapper runs its plain PyTorch version for CPU tensors and launches its
 kernel for CUDA tensors (or raises), counting launches in ``.launches``;
-the four SEANet wrappers also count them by input shape in ``.shapes``.
+the four SEANet wrappers and the Mamba-2 step also count them by input
+shape in ``.shapes``.
 The batcher calls ``batched_decode_attention.batched_decode_attention_step``,
 the same kernel with the step's RoPE, int8 row quantization and row write
 fused in; its launches count under the attention wrapper of its cache kind.
@@ -30,7 +32,10 @@ bfloat16 share ``csrc/seanet_mma.cuh`` (implicit-GEMM convolutions on
 tensor-core kernel the helpers of ``csrc/mma_sync.cuh``. The fused
 LayerNorm (with the adaLN modulate as an optional epilogue) replaces no TPU
 kernel: XLA fused the JAX package's norm, and the port ran it as ~14 eager
-kernels a call.
+kernels a call. Nor does the Mamba-2 decode step (conv, softplus, the
+float32 state update, readout and gate in one launch a layer): the JAX
+package has no state-space layer; the hybrid backbone
+(``models/hybrid_backbone.py``) calls it.
 
 No wrapper falls back on its own. A runtime built with ``pallas=False``
 (``--runtime-pallas off``) keeps every call off the wrappers instead: the
@@ -48,6 +53,7 @@ from go_pocket_tts_tpu_torch.kernels import (
     decode_attention,
     int4_matmul,
     layer_norm,
+    mamba2_step,
     quantized_matmul,
     seanet_tail,
 )
@@ -63,6 +69,7 @@ WRAPPERS = (
     seanet_tail.fused_up2_res,
     seanet_tail.fused_up2_up3_tail,
     layer_norm.layer_norm,
+    mamba2_step.mamba2_step,
 )
 
 # Per wrapper (same order): its CUDA source, the TPU kernel it replaces and
@@ -119,12 +126,19 @@ META = (
         "replaces": "go_pocket_tts_tpu/ops/norms.py:27",
         "units": "CUDA cores (float32 arithmetic)",
     },
+    {
+        # No TPU kernel (the JAX package has no state-space layer): the
+        # eager chain of its plain version.
+        "source": "go_pocket_tts_tpu_torch/csrc/mamba2_step.cu",
+        "replaces": "go_pocket_tts_tpu_torch/kernels/mamba2_step.py:66",
+        "units": "CUDA cores (float32 arithmetic)",
+    },
 )
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count to 0 (and empty the SEANet wrappers'
-    counts by input shape, ``.shapes``)."""
+    """Set every kernel's launch count to 0 (and empty the counts by input
+    shape, ``.shapes``, of the wrappers that keep them)."""
     for fn in WRAPPERS:
         fn.launches = 0
         if hasattr(fn, "shapes"):
@@ -136,6 +150,7 @@ __all__ = [
     "decode_attention",
     "int4_matmul",
     "layer_norm",
+    "mamba2_step",
     "quantized_matmul",
     "seanet_tail",
     "WRAPPERS",

@@ -33,6 +33,7 @@ SOURCES = (
     "quantized_matmul",
     "int4_matmul",
     "layer_norm",
+    "mamba2_step",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -6,7 +6,13 @@ Weight prefix ``flow_lm.*``:
 - ``conditioner.embed.weight`` ``[n_bins+1, D]`` LUT text conditioner
 - ``emb_std``/``emb_mean``/``bos_emb`` ``[latent]`` latent stats + BOS vector
 - ``input_linear`` (latent→D), ``out_norm`` LN, ``out_eos`` (D→1)
-- ``transformer.*`` (:mod:`flow_transformer`), ``flow_net.*`` (:mod:`flow_net`)
+- ``transformer.*`` (:mod:`flow_transformer`), or in its place a hybrid
+  Mamba-2 / attention stack ``backbone.*`` (:mod:`hybrid_backbone`);
+  ``flow_net.*`` (:mod:`flow_net`)
+
+The backbone's parameters and config live under ``params["transformer"]``
+and ``FlowLMConfig.transformer`` whichever kind it is; :func:`init_cache`
+and :func:`cache_keys` give its cache.
 
 The AR contract (:func:`ar_core`; :func:`flow_main` is its stateless
 full-sequence counterpart): a NaN-sentinel frame is replaced by
@@ -27,8 +33,10 @@ import torch
 
 from go_pocket_tts_tpu_torch.kernels import layer_norm as lnk
 from go_pocket_tts_tpu_torch.models import flow_net as fnet
+from go_pocket_tts_tpu_torch.models import hybrid_backbone as hyb
 from go_pocket_tts_tpu_torch.models.flow_transformer import (
     TransformerConfig,
+    init_kv_cache,
     load_flow_transformer,
     transformer_forward_cached,
     transformer_forward_stateless,
@@ -42,6 +50,9 @@ from go_pocket_tts_tpu_torch.models.params import (
 
 __all__ = [
     "FlowLMConfig",
+    "cache_keys",
+    "init_cache",
+    "is_hybrid",
     "load_flow_lm",
     "text_embeddings",
     "prompt",
@@ -57,7 +68,33 @@ Params = Dict
 class FlowLMConfig:
     d_model: int = 1024
     latent_dim: int = 32
-    transformer: TransformerConfig = None  # set by the loader
+    # The backbone's: a TransformerConfig, or a hybrid_backbone.HybridConfig
+    # (set by the loader).
+    transformer: Union[TransformerConfig, hyb.HybridConfig] = None
+
+
+def is_hybrid(cfg: FlowLMConfig) -> bool:
+    """Whether the backbone is the hybrid Mamba-2 / attention stack."""
+    return isinstance(cfg.transformer, hyb.HybridConfig)
+
+
+def init_cache(
+    cfg: FlowLMConfig, batch: int, capacity: int, dtype: torch.dtype = torch.float32, device="cpu"
+) -> Params:
+    """A zero cache of the backbone: the transformer's KV cache, or the
+    hybrid's KV cache and recurrent states."""
+    init = hyb.init_cache if is_hybrid(cfg) else init_kv_cache
+    return init(cfg.transformer, batch, capacity, dtype, device)
+
+
+def cache_keys(cfg: FlowLMConfig) -> Tuple[str, ...]:
+    """The leaves of the backbone's cache."""
+    return hyb.CACHE_KEYS if is_hybrid(cfg) else ("k", "v", "offset")
+
+
+def _forward_cached(params: Params, cfg: FlowLMConfig, cache: Params, x: torch.Tensor, valid_len=None):
+    forward = hyb.forward_cached if is_hybrid(cfg) else transformer_forward_cached
+    return forward(params["transformer"], cfg.transformer, cache, x, valid_len)
 
 
 def load_flow_lm(vb: VarBuilder, num_heads: int = 16) -> Tuple[Params, FlowLMConfig]:
@@ -65,7 +102,10 @@ def load_flow_lm(vb: VarBuilder, num_heads: int = 16) -> Tuple[Params, FlowLMCon
     embed = flow.tensor("conditioner.embed.weight")
     if embed.ndim != 2:
         raise ValueError(f"conditioner embed must be rank-2, got {tuple(embed.shape)}")
-    transformer, tcfg = load_flow_transformer(flow, num_heads=num_heads)
+    if flow.has("backbone.layers.0.input_layernorm.weight"):
+        transformer, tcfg = hyb.load_hybrid_backbone(flow, num_heads)
+    else:
+        transformer, tcfg = load_flow_transformer(flow, num_heads=num_heads)
     latent_dim = int(flow.shape("bos_emb")[0])
     params = {
         "conditioner_embed": embed,
@@ -119,7 +159,7 @@ def ar_core(
     countdown are the caller's."""
     seq = _replace_nan_with_bos(frame, params["bos_emb"])
     x = apply_linear(params["input_linear"], seq)
-    y, cache = transformer_forward_cached(params["transformer"], cfg.transformer, cache, x)
+    y, cache = _forward_cached(params, cfg, cache, x)
     kernels = cfg.transformer.use_kernels
     last, eos = _hidden_and_eos(params, y, kernels)
     decoded = fnet.lsd_decode(params["flow_net"], last, noise, decode_steps, time_cond, fused_ada, kernels)
@@ -136,9 +176,7 @@ def prompt(
     """Prefill the transformer cache with conditioning embeddings
     ``text_emb`` [B, T, D], zero-padded to T with ``valid_len`` real
     tokens."""
-    _, cache = transformer_forward_cached(
-        params["transformer"], cfg.transformer, cache, text_emb, valid_len
-    )
+    _, cache = _forward_cached(params, cfg, cache, text_emb, valid_len)
     return cache
 
 
@@ -151,7 +189,8 @@ def flow_main(
     0; returns ``(last_hidden [B, D], eos_logit [B])``."""
     seq = _replace_nan_with_bos(sequence, params["bos_emb"])
     x = torch.cat([text_emb, apply_linear(params["input_linear"], seq)], dim=1)
-    y = transformer_forward_stateless(params["transformer"], cfg.transformer, x)
+    stateless = hyb.forward_stateless if is_hybrid(cfg) else transformer_forward_stateless
+    y = stateless(params["transformer"], cfg.transformer, x)
     return _hidden_and_eos(params, y, cfg.transformer.use_kernels)
 
 

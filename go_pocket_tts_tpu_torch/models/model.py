@@ -41,8 +41,10 @@ Params = Dict
 # ``[N]`` int4; the reference's ``astype`` keeps them float32 too), and the
 # fused latent→mimi projector, which the decode casts to the activation type
 # where it reads it (the same values the reference gets by casting it at
-# load). Integer leaves (int8 and packed int4 weights) are never cast.
-KEEP_F32 = ("rope_cos", "rope_sin", "scale", "latent_to_mimi")
+# load), and the hybrid backbone's ``f32`` subtrees (its norm weights and
+# the Mamba-2 mixers' A, dt_bias and D, which the step kernel reads as
+# float32). Integer leaves (int8 and packed int4 weights) are never cast.
+KEEP_F32 = ("rope_cos", "rope_sin", "scale", "latent_to_mimi", "f32")
 
 
 @dataclass(frozen=True)

@@ -100,6 +100,7 @@ from go_pocket_tts_tpu_torch import tracing
 from go_pocket_tts_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from go_pocket_tts_tpu_torch.models import flow_lm as flm
 from go_pocket_tts_tpu_torch.models import flow_transformer as ftr
+from go_pocket_tts_tpu_torch.models import hybrid_backbone
 from go_pocket_tts_tpu_torch.models import mimi_stream
 from go_pocket_tts_tpu_torch.models.model import PocketTTSModel
 from go_pocket_tts_tpu_torch.models.quantize import quantize_kv_rows
@@ -1246,6 +1247,8 @@ class ContinuousBatcher(_Engine):
     ) -> None:
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"ContinuousBatcher: dtype {dtype} not supported (float32 or bfloat16)")
+        if flm.is_hybrid(model.config.flow_lm):
+            raise hybrid_backbone.unsupported("the continuous batcher" if mesh is None else "a dp/tp mesh")
         if mesh is not None and slots % mesh.dp:
             raise ValueError(f"ContinuousBatcher: {slots} slots do not split over dp={mesh.dp}")
         self.dtype = dtype

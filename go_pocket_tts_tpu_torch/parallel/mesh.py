@@ -32,6 +32,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import torch
 
 from go_pocket_tts_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from go_pocket_tts_tpu_torch.models import hybrid_backbone
 from go_pocket_tts_tpu_torch.models.params import tree_map
 
 __all__ = [
@@ -261,10 +262,12 @@ def shard_params_tp(params: Params, mesh: Mesh, num_heads: int) -> List[Params]:
     over ``tp``, when a group-wise int4 ``K/tp`` is not a whole number of
     groups, and on a transformer linear with a bias."""
     tp = mesh.tp
-    if num_heads % tp:
-        raise ValueError(f"num_heads {num_heads} does not split over tp={tp}")
     whole = "flow_lm" in params
     flow = params["flow_lm"] if whole else params
+    if hybrid_backbone.is_hybrid_tree(flow["transformer"]):
+        raise hybrid_backbone.unsupported("a tensor-parallel mesh")
+    if num_heads % tp:
+        raise ValueError(f"num_heads {num_heads} does not split over tp={tp}")
     out = []
     for row in mesh.devices:
 

@@ -4,7 +4,9 @@
 Three stages, each on the device:
 
 1. prefill — LUT text embedding → ``flow_lm.prompt`` (transformer, T > 1)
-   into a static-capacity ``[L,B,H,C,Dh]`` KV cache;
+   into a static-capacity ``[L,B,H,C,Dh]`` KV cache (with the hybrid
+   Mamba-2 / attention backbone, ``models/hybrid_backbone.py``, also each
+   Mamba layer's conv and SSM states, zeroed for each request);
 2. AR loop — per step ``flow_lm.ar_core`` (transformer step through the
    decode-attention kernel, EOS logit, LSD decode with the time conditioning
    and fused adaLN weights hoisted out of the loop) and the EOS countdown;
@@ -26,7 +28,9 @@ state lives in static buffers on the device: the KV cache, frame buffer,
 nothing the decode reads (their frames lie past ``n_frames`` and are
 masked), and the loop ends by setting the cache offset to where the
 while_loop stops (the K/V rows those steps wrote lie past it, unread), so
-the audio and the carried cache are the while_loop's exactly. The loop
+the audio and the carried cache are the while_loop's exactly. (The hybrid
+backbone's recurrent states do advance over such steps; nothing reads
+them after its last frame: it runs no sessions.) The loop
 takes and returns its carry (cache, frame, countdown, ``done`` and the
 request's noise), so the streaming path runs it in segments and a
 continuity session carries the cache into the next chunk; a session's
@@ -82,6 +86,7 @@ from go_pocket_tts_tpu_torch import tracing
 from go_pocket_tts_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from go_pocket_tts_tpu_torch.models import flow_lm as flm
 from go_pocket_tts_tpu_torch.models import flow_transformer as ftr
+from go_pocket_tts_tpu_torch.models import hybrid_backbone as hyb
 from go_pocket_tts_tpu_torch.models.model import PocketTTSModel, auto_pallas_mimi, with_kernels
 from go_pocket_tts_tpu_torch.models.params import matmul_backends
 from go_pocket_tts_tpu_torch.models.quantize import quantize_model_params
@@ -295,13 +300,14 @@ def quantized_model(model: PocketTTSModel, quantize: Union[bool, int]) -> Pocket
 
 def _ar_steps(model: PocketTTSModel, fused_ada, s: Dict, noise: torch.Tensor, time_cond, decode_steps: int) -> None:
     """``len(noise)`` AR steps over the loop state ``s`` (cache ``k``,
-    ``v``, ``offset``; ``frame``, ``countdown``, ``done``, ``frames``,
-    ``n_frames``, the step index ``step`` and the knobs ``sigma``,
-    ``eos_threshold``, ``frames_after_eos``), written back in place:
-    the body of both the graphs and the eager loop."""
+    ``v``, ``offset``, and the hybrid backbone's states; ``frame``,
+    ``countdown``, ``done``, ``frames``, ``n_frames``, the step index
+    ``step`` and the knobs ``sigma``, ``eos_threshold``,
+    ``frames_after_eos``), written back in place: the body of both the
+    graphs and the eager loop."""
     flow = model.params["flow_lm"]
     flow_cfg = model.config.flow_lm
-    cache = {"k": s["k"], "v": s["v"], "offset": s["offset"]}
+    cache = {key: s[key] for key in flm.cache_keys(flow_cfg)}
     frame, countdown, done, n_frames, step = s["frame"], s["countdown"], s["done"], s["n_frames"], s["step"]
     for i in range(noise.shape[0]):
         cache, frame, eos_logit = flm.ar_core(
@@ -365,6 +371,9 @@ class GPURuntime:
             raise ValueError(f"GPURuntime: matmul_precision {matmul_precision!r} (want one of {MATMUL_PRECISIONS})")
         self.matmul_precision = matmul_precision
         self.kernels = resolve_pallas(pallas)
+        self.hybrid = flm.is_hybrid(model.config.flow_lm)
+        if self.hybrid and quantize:
+            raise hyb.unsupported(f"quantize={quantize!r}")
         model = kernel_model(quantized_model(model, quantize), self.kernels)
         self.model = model if (model.device, model.dtype) == (self.device, dtype) else model.to(
             self.device, dtype
@@ -434,12 +443,11 @@ class GPURuntime:
         valid = n_tokens + voice_len
         if self._graphs is None:
             if cache is None:
-                cache = ftr.init_kv_cache(
-                    self.model.config.flow_lm.transformer, batch, capacity, self.dtype, self.device
-                )
+                cache = flm.init_cache(self.model.config.flow_lm, batch, capacity, self.dtype, self.device)
             return _embed_prefill(self.model, self.dtype, cache, tokens_padded, valid, voice_emb)
         fresh = cache is None
         static = self._cache_buffers(batch, capacity)
+        keys = flm.cache_keys(self.model.config.flow_lm)
         key = ("prefill", batch, bucket, voice_len, capacity, self.dtype, "fresh" if fresh else "given")
 
         def make():
@@ -452,7 +460,7 @@ class GPURuntime:
             }
 
             def body(inputs):
-                cache = {"k": inputs["k"], "v": inputs["v"], "offset": inputs["offset"]}
+                cache = {key: inputs[key] for key in keys}
                 if fresh:
                     for leaf in cache.values():
                         leaf.zero_()
@@ -463,7 +471,7 @@ class GPURuntime:
 
         graph = self._graphs.get(key, make)
         if not fresh:
-            feed(graph.inputs, k=cache["k"], v=cache["v"], offset=cache["offset"])
+            feed(graph.inputs, **{key: cache[key] for key in keys})
         feed(graph.inputs, ids=tokens_padded)
         if voice_emb is not None:
             feed(graph.inputs, voice=voice_emb)
@@ -521,7 +529,8 @@ class GPURuntime:
             carry = self._new_carry(cfg, batch, n_steps)
         time_cond = self._time_conditioning(decode_steps)
         s = self._loop_buffers(batch, capacity, max_frames, fresh=self._graphs is None)
-        feed(s, k=cache["k"], v=cache["v"], offset=cache["offset"])
+        keys = flm.cache_keys(self.model.config.flow_lm)
+        feed(s, **{key: cache[key] for key in keys})
         feed(s, frame=carry["frame"], countdown=carry["countdown"], done=carry["done"])
         s["sigma"].fill_(math.sqrt(max(float(cfg.temperature), 0.0)))
         s["eos_threshold"].fill_(float(cfg.eos_threshold))
@@ -551,7 +560,7 @@ class GPURuntime:
         # past that wrote K/V rows beyond this offset, which are never read.
         s["offset"].copy_(offset0 + s["n_frames"].max())
         carry = {
-            "cache": {"k": s["k"], "v": s["v"], "offset": s["offset"]},
+            "cache": {key: s[key] for key in keys},
             "frame": s["frame"],
             "countdown": s["countdown"],
             "done": s["done"],
@@ -582,12 +591,12 @@ class GPURuntime:
         return self._buffers[key]
 
     def _cache_buffers(self, batch: int, capacity: int, fresh: bool = False) -> Dict[str, torch.Tensor]:
-        """The static KV cache of (batch, capacity): the prefill graph's
+        """The static cache of (batch, capacity): the prefill graph's
         output and the AR loop's carried input."""
-        tcfg = self.model.config.flow_lm.transformer
+        flow_cfg = self.model.config.flow_lm
         return self._group(
             ("cache", batch, capacity),
-            lambda: ftr.init_kv_cache(tcfg, batch, capacity, self.dtype, self.device),
+            lambda: flm.init_cache(flow_cfg, batch, capacity, self.dtype, self.device),
             fresh,
         )
 
@@ -656,6 +665,8 @@ class GPURuntime:
         model state's frames); raises on a bad voice."""
         if cfg.voice_embedding is not None and cfg.voice_model_state is not None:
             raise ValueError("generate: voice embedding and voice model state are mutually exclusive")
+        if self.hybrid and (cfg.voice_embedding is not None or cfg.voice_model_state is not None):
+            raise hyb.unsupported("a voice")
         voice_emb, voice_len = None, 0
         if cfg.voice_embedding is not None:
             with tracing.span("wait"):  # a copy from pageable memory
@@ -707,6 +718,12 @@ class GPURuntime:
         cache = self._prefill(ids, len(tok_np), capacity, voice_cache, voice_emb)
         return cache, max_steps, decode_steps, frame_bucket, len(tok_np)
 
+    def _mark_state(self, span: Optional[tracing.Span]) -> None:
+        """A hybrid request's ``setup`` span carries ``state_bytes``: the
+        recurrent state (conv and SSM) its prefill zeroed."""
+        if span is not None and self.hybrid:
+            span.set(state_bytes=hyb.state_bytes(self.model.config.flow_lm.transformer, 1, self.dtype))
+
     def _pcm(self, frames, n_frames, max_steps: int, frame_bucket: int,
              root: Optional[tracing.Span] = None) -> Callable[[], np.ndarray]:
         """Enqueue the decode and the int16 PCM's copy into pinned host
@@ -747,8 +764,9 @@ class GPURuntime:
         root = tracing.begin("request", request=tracing.next_request_id())
         try:
             with self._compute():
-                with tracing.span("setup", parent=root):
+                with tracing.span("setup", parent=root) as sp:
                     cache, max_steps, decode_steps, frame_bucket, n_tokens = self._setup(tokens, cfg)
+                    self._mark_state(sp)
                 with tracing.span("ar", parent=root):
                     frames, n_frames, _ = self._ar_loop(cache, cfg, max_steps, decode_steps, frame_bucket)
                 pcm = self._pcm(frames, n_frames, max_steps, frame_bucket, root)
@@ -844,6 +862,8 @@ class GPURuntime:
         and the streamed session: validation, the capacity ladder and reset
         bookkeeping, voice hydration and the prefill. Returns (cache,
         capacity, used0, max_steps, decode_steps, frame_bucket, n_tokens)."""
+        if self.hybrid:
+            raise hyb.unsupported("a continuity session")
         tok_np, max_steps, decode_steps, frame_bucket, token_bucket, ids = self._request(tokens, cfg)
         voice_emb, voice_len, voice_frames = self._voice(cfg)
         # Peak write index of this chunk: prefill pads to the token bucket;

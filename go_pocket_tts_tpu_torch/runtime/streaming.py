@@ -52,8 +52,9 @@ def stream_generate(runtime, tokens, cfg: GenerateConfig) -> Iterator[np.ndarray
     bucketing are those of its ``generate_audio``."""
     root = tracing.begin("request", request=tracing.next_request_id())
     try:
-        with tracing.span("setup", parent=root), runtime._compute():
+        with tracing.span("setup", parent=root) as sp, runtime._compute():
             cache, max_steps, decode_steps, frame_bucket, _ = runtime._setup(tokens, cfg)
+            runtime._mark_state(sp)
             start = _stream_start(runtime, cfg, max_steps, frame_bucket)
         yield from _segment_loop(runtime, cfg, cache, max_steps, decode_steps, start, root)
     finally:

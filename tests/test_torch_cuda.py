@@ -21,6 +21,7 @@ from go_pocket_tts_tpu_torch.kernels import batched_decode_attention as bda
 from go_pocket_tts_tpu_torch.kernels import decode_attention as da
 from go_pocket_tts_tpu_torch.kernels import int4_matmul as i4mm
 from go_pocket_tts_tpu_torch.kernels import layer_norm as lnk
+from go_pocket_tts_tpu_torch.kernels import mamba2_step as m2k
 from go_pocket_tts_tpu_torch.kernels import quantized_matmul as qmm
 from go_pocket_tts_tpu_torch.kernels import seanet_tail as st
 from go_pocket_tts_tpu_torch.kernels.split_kv import boundary_offsets
@@ -1650,3 +1651,140 @@ def test_runtime_norms_launch_the_kernel_only_with_kernels_on(card):
     off = GPURuntime(model, seed=1, frame_bucket=64, device=card, pallas=False).generate_audio([3, 17, 41], cfg)
     assert all(fn.launches == 0 for fn in kernels.WRAPPERS)
     assert np.sqrt(np.mean((on - off) ** 2)) < 1e-5
+
+
+# -- the Mamba-2 decode step (the hybrid backbone) --------------------------
+
+
+def _mamba2_inputs(card, gen, batch, dtype, heads=64, p=64, n=128, groups=1):
+    conv_dim = heads * p + 2 * groups * n
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=card)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=card)
+
+    return dict(
+        conv_state=randn(batch, conv_dim, 3).to(dtype),
+        conv_w=(randn(conv_dim, 4) * 0.5).to(dtype),
+        conv_b=(rand(conv_dim) - 0.5).to(dtype),
+        dt_bias=rand(heads) * 4.65 - 6.91,
+        a=-torch.exp(rand(heads) * 2.77),
+        d=randn(heads),
+        ssm_state=randn(batch, heads, p, n) * 0.1,
+        groups=groups,
+    ), 2 * heads * p + 2 * groups * n + heads
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch,heads,groups", [(1, 64, 1), (2, 64, 1), (3, 8, 2)])
+def test_mamba2_step_kernel(card, dtype, batch, heads, groups):
+    """The kernel against its plain version at granite-4.0-h-micro's widths
+    (64 heads of 64, state 128; and 2 groups at 8 heads), five steps with
+    both states carried: y and the SSM state within float32 sum order (both
+    compute in float32 from the same stored inputs), the conv state equal,
+    the grid counter back at 0 after every launch."""
+    gen = torch.Generator(device=card).manual_seed(batch * 10 + heads)
+    x, width = _mamba2_inputs(card, gen, batch, dtype, heads=heads, groups=groups)
+    plain = {k: v.clone() if isinstance(v, torch.Tensor) else v for k, v in x.items()}
+    sync = torch.zeros(1, dtype=torch.int32, device=card)
+    before = m2k.mamba2_step.launches
+    for _ in range(5):
+        # A row view of a [B, 1, W] projection, as the backbone passes it.
+        zx = torch.randn((batch, 1, width), generator=gen, device=card).to(dtype)[:, 0]
+        got = m2k.mamba2_step(zx, **x, sync=sync)
+        want = m2k.mamba2_step_plain(zx, **plain)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(x["ssm_state"], plain["ssm_state"], rtol=1e-4, atol=1e-4)
+        assert torch.equal(x["conv_state"], plain["conv_state"])
+        assert int(sync.item()) == 0
+    assert m2k.mamba2_step.launches == before + 5
+    assert m2k.mamba2_step.shapes[(batch, heads, 64, 128)] >= 5
+
+
+def test_mamba2_step_kernel_refuses_what_it_does_not_take(card):
+    gen = torch.Generator(device=card).manual_seed(0)
+    x, width = _mamba2_inputs(card, gen, 1, torch.bfloat16, n=64)
+    zx = torch.zeros((1, width), dtype=torch.bfloat16, device=card)
+    with pytest.raises(ValueError, match="N = 128"):
+        m2k.mamba2_step(zx, **x, sync=torch.zeros(1, dtype=torch.int32, device=card))
+    x, width = _mamba2_inputs(card, gen, 1, torch.bfloat16)
+    with pytest.raises(ValueError, match="counter"):
+        m2k.mamba2_step(torch.zeros((1, width), dtype=torch.bfloat16, device=card), **x)
+
+
+def _hybrid_model(card):
+    """A small hybrid at kernel widths (d 512, 8 heads of 64 over 2 KV
+    heads; 8 Mamba heads of 64, state 128): layers mamba, attention,
+    mamba, mamba; ``tiny_arch()``'s flowNet and a SEANet the stream kernels
+    take."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "benchmark" / "references" / "pockettts_granite_hybrid.py"
+    spec = importlib.util.spec_from_file_location("hybrid_reference_on_card", path)
+    ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ref)
+    t = dataclasses.replace(synthetic.tiny_arch(), seanet_channels=(32, 256, 128, 64))
+    arch = {
+        "hidden_size": 512, "num_attention_heads": 8, "num_key_value_heads": 2, "shared_intermediate_size": 1024,
+        "layer_types": ["mamba", "attention", "mamba", "mamba"], "mamba_n_heads": 8, "mamba_d_head": 64,
+        "mamba_d_state": 128, "mamba_n_groups": 1, "mamba_d_conv": 4, "embedding_multiplier": 12.0,
+        "residual_multiplier": 0.22, "attention_multiplier": 0.015625, "rms_norm_eps": 1e-5, "num_heads": 8,
+        **{k: getattr(t, k) for k in ("n_bins", "latent_dim", "flow_dim", "flow_depth", "flow_hidden", "freq_half",
+                                      "te_hidden", "mimi_dim", "mimi_layers", "mimi_ffn",
+                                      "upsample_stride", "upsample_kernel", "seanet_kernel_init",
+                                      "seanet_kernel_final")},
+        "seanet_channels": list(t.seanet_channels), "seanet_strides": list(t.seanet_strides), "mimi_context": 250,
+        "mimi_heads": 8,
+    }
+    rng = np.random.default_rng(3)
+    weights = {}
+    for name, shape, kind, scale, offset in ref.leaf_specs(arch):
+        v = {"n": lambda: offset + scale * rng.standard_normal(shape), "u": lambda: offset + scale * rng.random(shape),
+             "e": lambda: np.exp(scale * rng.random(shape)), "c": lambda: np.full(shape, offset)}[kind]()
+        weights[name] = v.astype(np.float32)
+    return load_model_from_tensors(weights, num_heads=8, device=card)
+
+
+def test_hybrid_runtime_graphs_through_both_kernels(card):
+    """The hybrid on ``GPURuntime`` (bf16, graphs): one Mamba-2 step launch
+    per Mamba layer and one decode-attention launch per attention layer a
+    frame, streamed and one-shot alike, streamed frames equal to one-shot
+    ones; in float32 the kernels against a runtime of plain versions."""
+    from go_pocket_tts_tpu_torch import kernels
+    from go_pocket_tts_tpu_torch.runtime import stream_generate
+
+    model = _hybrid_model(card)
+    tokens = [3, 9, 27, 40, 11]
+    cfg = GenerateConfig(temperature=0.0, eos_threshold=1e9, max_steps=20)
+
+    def frames_of(rt, run):
+        seen, orig = [], rt._ar_loop
+
+        def ar_loop(*args, **kwargs):
+            frames, n, carry = orig(*args, **kwargs)
+            seen.append(frames[0, : int(n[0])].float().cpu())
+            return frames, n, carry
+
+        rt._ar_loop = ar_loop
+        run()
+        rt._ar_loop = orig
+        return torch.cat(seen)
+
+    rt = GPURuntime(model, dtype=torch.bfloat16, seed=1, device=card)
+    rt.generate_audio(tokens, cfg)  # captures
+    [b for b in stream_generate(rt, tokens, cfg)]
+    kernels.reset_launches()
+    oneshot = frames_of(rt, lambda: rt.generate_audio(tokens, cfg))
+    streamed = frames_of(rt, lambda: [b for b in stream_generate(rt, tokens, cfg)])
+    assert m2k.mamba2_step.launches == 2 * 20 * 3
+    assert da.decode_attention_step.launches == 2 * 20 * 1
+    assert torch.equal(oneshot, streamed)
+    f32 = GPURuntime(model, dtype=torch.float32, seed=1, device=card)
+    plain = GPURuntime(model, dtype=torch.float32, seed=1, device=card, pallas=False)
+    got = frames_of(f32, lambda: f32.generate_audio(tokens, cfg))
+    want = frames_of(plain, lambda: plain.generate_audio(tokens, cfg))
+    assert float((got - want).pow(2).mean().sqrt() / want.pow(2).mean().sqrt()) < 1e-4

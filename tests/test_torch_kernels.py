@@ -630,6 +630,7 @@ def test_wrappers_and_meta_line_up():
         "fused_up2_res",
         "fused_up2_up3_tail",
         "layer_norm",
+        "mamba2_step",
     ]
     assert len(kernels.META) == len(kernels.WRAPPERS)
     for meta in kernels.META:
