@@ -25,16 +25,19 @@ failure exits non-zero:
    and the fused LayerNorm at the AR step's, a prefill's and the harvest
    decode's Mimi transformer's shapes (with the adaLN modulate at the
    flowNet's; the Mimi one a transposed view), within one bf16 step of the
-   eager chain, beside ``torch.nn.functional.layer_norm``, and the hybrid
-   backbone's Mamba-2 decode step at granite-4.0-h-micro's widths (float32
-   and bfloat16, 1 and 2 rows, three steps with both states carried),
-   beside its bound from bytes;
+   eager chain, beside ``torch.nn.functional.layer_norm``, its RMS mode at
+   the hybrid backbone's norms (an AR step's and a 64-row prefill's 2048-wide
+   bf16 rows, the gated norm's float32 4096-wide rows into bf16) beside the
+   eager chains it replaces, and the hybrid backbone's Mamba-2 decode step
+   at granite-4.0-h-micro's widths (float32 and bfloat16, 1 and 2 rows,
+   three steps with both states carried), beside its bound from bytes;
 3. the single-utterance path: ``real_arch()`` weights from a fixed seed,
    bfloat16 on the card, ``GPURuntime.generate_audio`` on three requests (a
    warm-up request first), then one ``PocketTTSModel.mimi_decode`` of a
    latent whose length takes the decoder's fallback tail; then the fused
    LayerNorm's launches of one eager request, counted apart for the
-   prefill, the AR steps (20 a step) and the decodes;
+   prefill, the AR steps (20 a step) and the decodes (and no launch of its
+   RMS mode, the hybrid backbone's alone);
 4. float32: that runtime with the kernels against the same runtime with
    every kernel replaced by its plain version, held to an RMS tolerance;
 5. batched serving: ``ContinuousBatcher`` at 8 slots with int8 weights and
@@ -1140,6 +1143,66 @@ def check_layer_norm(rows: dict) -> None:
     rows["layer_norm"]["shapes"] = times
 
 
+# The hybrid backbone's RMSNorms at granite-4.0-h-micro's widths: (x's
+# shape, its dtype, the output's, groups), the weight float32 as the backbone
+# keeps it. The layer norms of an AR step and a 64-row prefill (bf16, d_model
+# 2048; 8 eager kernels a call) and the Mamba-2 mixer's gated norm of the
+# float32 y (d_inner 4096; 7 eager kernels), one group as granite and 8.
+RMS_SHAPES = {
+    "step 1x2048": ((1, 1, 2048), torch.bfloat16, torch.bfloat16, 1),
+    "prefill 64x2048": ((1, 64, 2048), torch.bfloat16, torch.bfloat16, 1),
+    "gated step 1x4096 float32->bfloat16": ((1, 1, 4096), torch.float32, torch.bfloat16, 1),
+    "gated prefill 64x4096 float32->bfloat16": ((1, 64, 4096), torch.float32, torch.bfloat16, 1),
+    "gated step 1x4096 float32->bfloat16 G=8": ((1, 1, 4096), torch.float32, torch.bfloat16, 8),
+}
+
+
+def check_rms_norm(rows: dict) -> None:
+    """The fused norm's RMS mode against its plain version (the eager chain)
+    at the hybrid backbone's shapes: within one bf16 step of the value, one
+    launch a call, bit-equal over two calls; device times by graph replay
+    beside the bound from bytes and the eager chain, the yardstick it
+    replaces."""
+    from go_pocket_tts_tpu_torch.kernels import rms_norm as rmsk
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    times = {}
+    for name, (shape, dtype, out_dtype, groups) in RMS_SHAPES.items():
+        x = (torch.randn(shape, generator=gen, device="cuda") * 2.0 + 0.5).to(dtype)
+        w = torch.rand(shape[-1], generator=gen, device="cuda") + 0.5
+        what = f"rms_norm {name}"
+        n0 = rmsk.rms_norm.launches
+        got = rmsk.rms_norm(x, w, 1e-5, out_dtype, groups)
+        if rmsk.rms_norm.launches != n0 + 1:
+            fail(f"{what}: {rmsk.rms_norm.launches - n0} launches a call")
+        want = rmsk.rms_norm_plain(x, w, 1e-5, out_dtype, groups)
+        exact = rmsk.rms_norm_plain(x, w, 1e-5, torch.float32, groups)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got.float()).all():
+            fail(f"{what}: non-finite kernel output")
+        err = (got.float() - want.float()).abs()
+        excess = (err - torch.exp2(torch.floor(torch.log2(exact.abs().clamp_min(2.0 ** -126))) - 7)).max().item()
+        if excess > 0:
+            fail(f"{what}: max abs err {err.max().item():.3e} beyond one bf16 step by {excess:.3e}")
+        if not torch.equal(got, rmsk.rms_norm(x, w, 1e-5, out_dtype, groups)):
+            fail(f"{what}: two calls differ")
+        bit_equal = (got == want).float().mean().item()
+        ms = device_ms(lambda: rmsk.rms_norm(x, w, 1e-5, out_dtype, groups))
+        call_ms = eager_ms(lambda: rmsk.rms_norm(x, w, 1e-5, out_dtype, groups))
+        plain_ms = device_ms(lambda: rmsk.rms_norm_plain(x, w, 1e-5, out_dtype, groups))
+        n = x.numel()
+        out_es = torch.empty((), dtype=out_dtype).element_size()
+        b_ms, b_by = bound(n * (x.element_size() + out_es) + 4 * shape[-1], 4.0 * n, torch.float32)
+        print(f"  {what}: max_abs_err {err.max().item():.3e} ({bit_equal * 100:.2f}% bit-equal)  kernel {ms:.5f} ms "
+              f"(eager call {call_ms:.4f} ms)  eager chain {plain_ms:.5f} ms  bound {b_ms:.6f} ms ({b_by})  [{CARD}]")
+        times[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "max_abs_err": err.max().item(),
+                       "bit_equal": bit_equal}
+        if name == "step 1x2048":
+            rows["rms_norm"].update(max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                    bound_by=b_by)
+    rows["rms_norm"]["shapes"] = times
+
+
 # granite-4.0-h-micro's Mamba-2 mixer: H heads of P, state N, G groups.
 MAMBA2_DIMS = (64, 64, 128, 1)
 
@@ -1228,6 +1291,7 @@ def norm_launches_per_step(model, arch) -> None:
     from go_pocket_tts_tpu_torch import kernels
     from go_pocket_tts_tpu_torch.kernels import decode_attention as da
     from go_pocket_tts_tpu_torch.kernels import layer_norm as lnk
+    from go_pocket_tts_tpu_torch.kernels import rms_norm as rmsk
     from go_pocket_tts_tpu_torch.models import flow_lm as flm
     from go_pocket_tts_tpu_torch.runtime import GenerateConfig, GPURuntime
 
@@ -1259,6 +1323,8 @@ def norm_launches_per_step(model, arch) -> None:
           f"({per_step:.2f} a step), decodes {decode}")
     if per_step != 2 * arch.num_layers + 1 + arch.flow_depth + 1:
         fail(f"layer_norm: {per_step} launches an AR step")
+    if rmsk.rms_norm.launches:
+        fail(f"rms_norm: {rmsk.rms_norm.launches} launches on the PocketTTS path (the hybrid backbone's alone)")
 
 
 # -- phases 3 to 8: the main paths -------------------------------------------
@@ -4790,6 +4856,7 @@ def main() -> int:
     check_int4_matmul(rows)
     check_up2(rows)
     check_layer_norm(rows)
+    check_rms_norm(rows)
     check_mamba2_step(rows)
 
     t = time.perf_counter()

@@ -31,6 +31,18 @@
 // stride, so the load stays coalesced and no copy is made. The kernel
 // neither synchronises with the host nor allocates, so it captures into a
 // CUDA graph.
+//
+// The RMS mode (`rms_norm`, its own instantiations beside the LayerNorm's)
+// is the hybrid backbone's RMSNorm (models/hybrid_backbone.py, two a layer,
+// and the Mamba-2 mixer's gated norm over each group's channels), whose
+// eager chain (kernels/rms_norm.py `rms_norm_plain`) is 7-8 kernels a call:
+//
+//   out = OT((x * rsqrt(sum(x^2) / D + eps)) * w)      in float32 from x as stored
+//
+// with one rounding, at the store; no mean, no bias, no modulate. The input
+// and output types are separate (the gated norm reads float32 and writes
+// the activations' type). Same row plan and reduction as the row path;
+// contiguous rows only.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -307,6 +319,106 @@ int launch_w(int w_dtype, const Args& a, int vec, int tpr, int chunks, int tile,
   return (int)cudaErrorInvalidValue;
 }
 
+// -- RMS mode ---------------------------------------------------------------
+
+struct RmsArgs {
+  const void* x;  // contiguous [rows, D], IT
+  long long rows;
+  int D, groups;
+  float inv_d, eps;
+  const void* w;  // [groups * D]: row r reads (r % groups) * D on
+  void* out;  // contiguous [rows, D], OT
+};
+
+// The row path's plan, without the mean: the row in registers, the weight
+// loaded before the one reduction so that its latency hides behind it.
+template <typename IT, typename OT, typename WT, int VEC, int kChunks>
+__global__ void __launch_bounds__(kThreads) rms_rows_kernel(RmsArgs a) {
+  __shared__ float red[kMaxWarps];
+  const int tpr = blockDim.x;
+  const long long row = blockIdx.x;
+  const int chunks = a.D / VEC;
+  const IT* x = static_cast<const IT*>(a.x) + row * a.D;
+  const WT* w = static_cast<const WT*>(a.w) + (row % a.groups) * a.D;
+
+  float v[kChunks][VEC], wv[kChunks][VEC];
+  float q = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kChunks; ++k) {
+    const int c = threadIdx.x + k * tpr;
+    if (c < chunks) {
+      load<IT, VEC>(x + (long long)c * VEC, v[k]);
+      load<WT, VEC>(w + (long long)c * VEC, wv[k]);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) q = __fadd_rn(q, __fmul_rn(v[k][j], v[k][j]));
+    }
+  }
+  const float rstd = rsqrtf(__fadd_rn(__fmul_rn(row_sum(q, red, tpr), a.inv_d), a.eps));
+
+  OT* out = static_cast<OT*>(a.out) + row * a.D;
+#pragma unroll
+  for (int k = 0; k < kChunks; ++k) {
+    const int c = threadIdx.x + k * tpr;
+    if (c >= chunks) continue;
+    float o[VEC];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) o[j] = __fmul_rn(__fmul_rn(v[k][j], rstd), wv[k][j]);
+    store<OT, VEC>(out + (long long)c * VEC, o);
+  }
+}
+
+template <typename IT, typename OT, typename WT, int VEC, int kChunks>
+void rms_launch(const RmsArgs& a, int tpr, cudaStream_t stream) {
+  rms_rows_kernel<IT, OT, WT, VEC, kChunks><<<(unsigned)a.rows, tpr, 0, stream>>>(a);
+}
+
+// rows_dispatch's chunk counts: kChunks x VEC floats a thread, at most 32.
+template <typename IT, typename OT, typename WT, int VEC>
+int rms_dispatch(const RmsArgs& a, int tpr, int chunks, cudaStream_t stream) {
+  switch (chunks) {
+    case 1: rms_launch<IT, OT, WT, VEC, 1>(a, tpr, stream); return 0;
+    case 2: rms_launch<IT, OT, WT, VEC, 2>(a, tpr, stream); return 0;
+    case 4: rms_launch<IT, OT, WT, VEC, 4>(a, tpr, stream); return 0;
+  }
+  if constexpr (VEC <= 4) {
+    if (chunks == 8) { rms_launch<IT, OT, WT, VEC, 8>(a, tpr, stream); return 0; }
+  }
+  if constexpr (VEC == 1) {
+    if (chunks == 16) { rms_launch<IT, OT, WT, VEC, 16>(a, tpr, stream); return 0; }
+    if (chunks == 32) { rms_launch<IT, OT, WT, VEC, 32>(a, tpr, stream); return 0; }
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename IT, typename OT, typename WT>
+int rms_vec(const RmsArgs& a, int vec, int tpr, int chunks, cudaStream_t stream) {
+  int err;
+  if (tpr <= 0 || tpr % 32 || tpr > kThreads) {
+    err = (int)cudaErrorInvalidValue;
+  } else if (vec == 1) {
+    err = rms_dispatch<IT, OT, WT, 1>(a, tpr, chunks, stream);
+  } else if (vec == 16 / (int)sizeof(IT)) {
+    err = rms_dispatch<IT, OT, WT, 16 / sizeof(IT)>(a, tpr, chunks, stream);
+  } else {
+    err = (int)cudaErrorInvalidValue;
+  }
+  return err ? err : (int)cudaGetLastError();
+}
+
+template <typename IT, typename OT>
+int rms_w(int w_dtype, const RmsArgs& a, int vec, int tpr, int chunks, cudaStream_t stream) {
+  if (w_dtype == 0) return rms_vec<IT, OT, float>(a, vec, tpr, chunks, stream);
+  if (w_dtype == 1) return rms_vec<IT, OT, __nv_bfloat16>(a, vec, tpr, chunks, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename IT>
+int rms_out(int out_dtype, int w_dtype, const RmsArgs& a, int vec, int tpr, int chunks, cudaStream_t stream) {
+  if (out_dtype == 0) return rms_w<IT, float>(w_dtype, a, vec, tpr, chunks, stream);
+  if (out_dtype == 1) return rms_w<IT, __nv_bfloat16>(w_dtype, a, vec, tpr, chunks, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // dtype (x, shift, scale, out) and w_dtype (weight and bias): 0 = float32,
@@ -342,5 +454,30 @@ extern "C" int layer_norm(int dtype, int w_dtype, const void* x, long long x_inn
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_w<float>(w_dtype, a, vec, tpr, chunks, tile, s);
   if (dtype == 1) return launch_w<__nv_bfloat16>(w_dtype, a, vec, tpr, chunks, tile, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The RMS mode. in_dtype (x), out_dtype (out) and w_dtype (w): 0 = float32,
+// 1 = bfloat16. x and out are contiguous [rows, D]; w is [groups * D], row r
+// scaled by its D elements from (r % groups) * D. The launch shape as
+// `layer_norm`'s row path (kernels/layer_norm.py `launch_plan`, never a tile):
+// one block of `tpr` threads a row, `chunks` chunks of `vec` elements a
+// thread. Returns the CUDA error of the launch (0 on success).
+extern "C" int rms_norm(int in_dtype, int out_dtype, int w_dtype, const void* x, long long rows, int D, int groups,
+                        const void* w, float eps, void* out, int vec, int tpr, int chunks, void* stream) {
+  if (rows <= 0 || D <= 0 || groups <= 0 || x == nullptr || w == nullptr || out == nullptr)
+    return (int)cudaErrorInvalidValue;
+  RmsArgs a;
+  a.x = x;
+  a.rows = rows;
+  a.D = D;
+  a.groups = groups;
+  a.inv_d = 1.0f / (float)D;
+  a.eps = eps;
+  a.w = w;
+  a.out = out;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (in_dtype == 0) return rms_out<float>(out_dtype, w_dtype, a, vec, tpr, chunks, s);
+  if (in_dtype == 1) return rms_out<__nv_bfloat16>(out_dtype, w_dtype, a, vec, tpr, chunks, s);
   return (int)cudaErrorInvalidValue;
 }

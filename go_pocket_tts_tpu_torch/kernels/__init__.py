@@ -15,6 +15,7 @@ seanet_tail.fused_up2_res                          seanet_tail.py: fused_up2_res
 seanet_tail.fused_up2_up3_tail (and its stream)    seanet_tail.py: fused_up2_up3_tail
 layer_norm.layer_norm                              none (``ops/norms.py``: layer_norm, modulate)
 mamba2_step.mamba2_step                            none (the hybrid backbone's Mamba-2 decode step)
+rms_norm.rms_norm                                  none (the hybrid backbone's RMSNorms)
 =================================================  ===========================================
 
 Each wrapper runs its plain PyTorch version for CPU tensors and launches its
@@ -35,7 +36,10 @@ kernel: XLA fused the JAX package's norm, and the port ran it as ~14 eager
 kernels a call. Nor does the Mamba-2 decode step (conv, softplus, the
 float32 state update, readout and gate in one launch a layer): the JAX
 package has no state-space layer; the hybrid backbone
-(``models/hybrid_backbone.py``) calls it.
+(``models/hybrid_backbone.py``) calls it. Nor does the RMS mode of the
+fused norm's source (the hybrid backbone's RMSNorms, its gated norm's
+groups included, ~7-8 eager kernels a call), its own instantiations and C
+entry beside the LayerNorm's.
 
 No wrapper falls back on its own. A runtime built with ``pallas=False``
 (``--runtime-pallas off``) keeps every call off the wrappers instead: the
@@ -55,6 +59,7 @@ from go_pocket_tts_tpu_torch.kernels import (
     layer_norm,
     mamba2_step,
     quantized_matmul,
+    rms_norm,
     seanet_tail,
 )
 
@@ -70,6 +75,7 @@ WRAPPERS = (
     seanet_tail.fused_up2_up3_tail,
     layer_norm.layer_norm,
     mamba2_step.mamba2_step,
+    rms_norm.rms_norm,
 )
 
 # Per wrapper (same order): its CUDA source, the TPU kernel it replaces and
@@ -133,6 +139,13 @@ META = (
         "replaces": "go_pocket_tts_tpu_torch/kernels/mamba2_step.py:66",
         "units": "CUDA cores (float32 arithmetic)",
     },
+    {
+        # No TPU kernel (the JAX package has no hybrid backbone): the eager
+        # chain of its plain version.
+        "source": "go_pocket_tts_tpu_torch/csrc/layer_norm.cu",
+        "replaces": "go_pocket_tts_tpu_torch/kernels/rms_norm.py:35",
+        "units": "CUDA cores (float32 arithmetic)",
+    },
 )
 
 
@@ -152,6 +165,7 @@ __all__ = [
     "layer_norm",
     "mamba2_step",
     "quantized_matmul",
+    "rms_norm",
     "seanet_tail",
     "WRAPPERS",
     "META",

@@ -23,7 +23,9 @@ A layer's kind is read from which keys it has. The attention heads are the
 loader's ``num_heads`` (the head width is ``D / num_heads``); the KV heads,
 the Mamba heads, their width and the state width follow from the shapes.
 
-Per layer (pre-norm, RMSNorm in float32 with one rounding):
+Per layer (pre-norm, RMSNorm in float32 with one rounding; every RMSNorm,
+the gated one too, one launch of the fused norm's RMS mode,
+``kernels/rms_norm.py``):
 ``x += m·mixer(rms(x))``, then ``x += m·mlp(rms(x))`` with
 ``mlp(h) = out(silu(gate(h))·up(h))`` and ``m`` the residual multiplier,
 folded into each branch's output linear at load. The backbone's input is
@@ -43,8 +45,8 @@ scaled by the embedding multiplier.
   state ``h [H, P, N]`` follows ``h ← exp(dt·A)·h + dt·x ⊗ B``; ``y = h·C
   + D·x``; ``out_proj(RMSNorm_G(y·silu(z)))``, the norm over each group's
   ``d_inner / G`` channels. An AR step runs it through the Mamba-2
-  decode-step kernel (``kernels/mamba2_step.py``), the gated norm and
-  ``out_proj`` as ordinary launches; a prompt runs the chunked (SSD) form
+  decode-step kernel (``kernels/mamba2_step.py``), then the gated norm
+  and ``out_proj``; a prompt runs the chunked (SSD) form
   in plain PyTorch (:func:`ssd_scan`).
 
 The cache (:func:`init_cache`) holds, beside the attention layers' KV
@@ -73,6 +75,7 @@ import torch.nn.functional as F
 
 from go_pocket_tts_tpu_torch.kernels import decode_attention
 from go_pocket_tts_tpu_torch.kernels import mamba2_step as m2k
+from go_pocket_tts_tpu_torch.kernels import rms_norm as rmsk
 from go_pocket_tts_tpu_torch.models.params import VarBuilder, apply_linear
 from go_pocket_tts_tpu_torch.ops import attention_with_positions
 
@@ -267,10 +270,12 @@ def state_bytes(cfg: HybridConfig, batch: int, dtype: torch.dtype) -> int:
     return conv + cfg.mamba_layers * batch * cfg.d_inner * cfg.d_state * 4
 
 
-def _rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float, dtype: torch.dtype) -> torch.Tensor:
-    """RMSNorm over the last dim in float32, one rounding to ``dtype``."""
-    xf = x.float()
-    return (xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps) * w).to(dtype)
+def _rms_norm(x: torch.Tensor, w: torch.Tensor, cfg: HybridConfig, dtype: torch.dtype, groups: int = 1) -> torch.Tensor:
+    """RMSNorm over the last dim (over each of ``groups`` equal slices of it)
+    in float32 from ``x`` as stored, one rounding to ``dtype``: one launch of
+    the fused norm's RMS mode with ``cfg.use_kernels``."""
+    norm = rmsk.rms_norm if cfg.use_kernels else rmsk.rms_norm_plain
+    return norm(x, w, cfg.rms_norm_eps, dtype, groups)
 
 
 def _segsum(x: torch.Tensor) -> torch.Tensor:
@@ -322,14 +327,6 @@ def ssd_scan(
     return (y_diag + y_off).reshape(batch, chunks * size, heads, p)[:, :t], passed[:, -1]
 
 
-def _gated_norm(y: torch.Tensor, w: torch.Tensor, cfg: HybridConfig, dtype: torch.dtype) -> torch.Tensor:
-    """The mixer's RMSNorm of the gated ``y [..., d_inner]`` (float32) over
-    each group's channels, then its weight; one rounding to ``dtype``."""
-    g = y.reshape(*y.shape[:-1], cfg.mamba_groups, -1)
-    g = g * torch.rsqrt(g.square().mean(-1, keepdim=True) + cfg.rms_norm_eps)
-    return (g.reshape(y.shape) * w).to(dtype)
-
-
 def _mamba(layer: Params, cfg: HybridConfig, cache: Params, j: int, h: torch.Tensor, valid) -> torch.Tensor:
     """Mamba layer ``j``'s mixer over ``h [B, T, D]``, updating its conv and
     SSM states in place: the step kernel for T = 1, the chunked scan for a
@@ -360,8 +357,10 @@ def _mamba(layer: Params, cfg: HybridConfig, cache: Params, j: int, h: torch.Ten
         y, final = ssd_scan(x, dt, f["a"], bm.reshape(groups), cm.reshape(groups), ssm)
         conv_state.copy_(past.index_select(-1, rows))
         ssm.copy_(final)
-        y = (y + f["d"][:, None] * x).reshape(batch, t, d_inner) * F.silu(z.float())
-    return apply_linear(layer["out_proj"], _gated_norm(y, f["gated_norm"], cfg, h.dtype))
+        # The scan's einsums leave y channel-major; the norm reads rows.
+        y = ((y + f["d"][:, None] * x).reshape(batch, t, d_inner) * F.silu(z.float())).contiguous()
+    # The gated RMSNorm of the float32 y over each group's channels.
+    return apply_linear(layer["out_proj"], _rms_norm(y, f["gated_norm"], cfg, h.dtype, cfg.mamba_groups))
 
 
 def forward_cached(
@@ -394,7 +393,7 @@ def forward_cached(
     rep = cfg.num_heads // cfg.num_kv_heads
     for layer, kind in zip(params["layers"], cfg.kinds):
         f = layer["f32"]
-        h = _rms_norm(x, f["input_norm"], cfg.rms_norm_eps, dtype)
+        h = _rms_norm(x, f["input_norm"], cfg, dtype)
         if kind == "mamba":
             h = _mamba(layer, cfg, cache, n_mamba, h, valid)
             n_mamba += 1
@@ -414,7 +413,7 @@ def forward_cached(
             h = apply_linear(layer["o_proj"], attn.transpose(1, 2).reshape(batch, t, cfg.num_heads * cfg.head_dim))
             n_attn += 1
         x = x + h
-        gate, up = apply_linear(layer["mlp_in"], _rms_norm(x, f["post_norm"], cfg.rms_norm_eps, dtype)).chunk(2, -1)
+        gate, up = apply_linear(layer["mlp_in"], _rms_norm(x, f["post_norm"], cfg, dtype)).chunk(2, -1)
         x = x + apply_linear(layer["mlp_out"], F.silu(gate) * up)
     return x, {**cache, "k": k_all, "v": v_all, "offset": offset + valid}
 

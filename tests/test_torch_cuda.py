@@ -23,6 +23,7 @@ from go_pocket_tts_tpu_torch.kernels import int4_matmul as i4mm
 from go_pocket_tts_tpu_torch.kernels import layer_norm as lnk
 from go_pocket_tts_tpu_torch.kernels import mamba2_step as m2k
 from go_pocket_tts_tpu_torch.kernels import quantized_matmul as qmm
+from go_pocket_tts_tpu_torch.kernels import rms_norm as rmsk
 from go_pocket_tts_tpu_torch.kernels import seanet_tail as st
 from go_pocket_tts_tpu_torch.kernels.split_kv import boundary_offsets
 from go_pocket_tts_tpu_torch.models import synthetic
@@ -1653,6 +1654,96 @@ def test_runtime_norms_launch_the_kernel_only_with_kernels_on(card):
     assert np.sqrt(np.mean((on - off) ** 2)) < 1e-5
 
 
+# -- the fused norm's RMS mode (kernels/rms_norm.py) ---------------------------
+
+# (x's shape, its dtype, the output's, the weight's, groups): the hybrid
+# backbone's layer norms at granite-4.0-h-micro's width (an AR step's row, a
+# 64-row prefill; float32 for the float32 runtime), its gated norm of the
+# Mamba-2 step's float32 y (d_inner 4096; 1 group as granite, 8 as the
+# Mamba-2 default), a bf16 weight, and rows the kernel reads one element at
+# a time (misaligned, narrow).
+BF16, F32 = torch.bfloat16, torch.float32
+RMS_CASES = {
+    "step_1x2048": ((1, 1, 2048), BF16, BF16, F32, 1),
+    "prefill_64x2048": ((1, 64, 2048), BF16, BF16, F32, 1),
+    "f32_1x2048": ((1, 1, 2048), F32, F32, F32, 1),
+    "gated_1x4096": ((1, 1, 4096), F32, BF16, F32, 1),
+    "gated_1x4096_g8": ((1, 1, 4096), F32, BF16, F32, 8),
+    "gated_64x4096": ((1, 64, 4096), F32, BF16, F32, 1),
+    "bf16_weight_8x2048": ((8, 2048), BF16, BF16, BF16, 1),
+    "bf16_to_f32_3x1024": ((3, 1024), BF16, F32, F32, 1),
+    "unaligned_3x1000": ((3, 1000), BF16, BF16, F32, 1),
+    "narrow_5x48_g2": ((5, 48), F32, BF16, F32, 2),
+}
+
+
+def _rms_inputs(card, gen, shape, dtype, w_dtype, misaligned=False):
+    x = (torch.randn(shape, generator=gen, device=card) * 2.0 + 0.5).to(dtype)
+    if misaligned:  # contiguous, but one element off a 16-byte boundary
+        x = torch.empty(x.numel() + 1, dtype=dtype, device=card)[1:].view(shape).copy_(x)
+    w = (torch.rand(shape[-1], generator=gen, device=card) + 0.5).to(w_dtype)
+    return x, w
+
+
+@pytest.mark.parametrize("case", list(RMS_CASES))
+def test_rms_norm_kernel(card, case):
+    """The RMS mode against its plain version: in float32 within float32
+    sum order, in bf16 within one bf16 step of the value (the kernel's
+    float32 row sum runs in another order, which may move the one rounding
+    by a step); one launch a call, the same bits over two calls."""
+    shape, dtype, out_dtype, w_dtype, groups = RMS_CASES[case]
+    gen = torch.Generator(device=card).manual_seed(len(case))
+    x, w = _rms_inputs(card, gen, shape, dtype, w_dtype, misaligned=case.startswith("unaligned"))
+    before = rmsk.rms_norm.launches
+    got = rmsk.rms_norm(x, w, 1e-5, out_dtype, groups)
+    want = rmsk.rms_norm_plain(x, w, 1e-5, out_dtype, groups)
+    torch.cuda.synchronize()
+    assert rmsk.rms_norm.launches == before + 1
+    assert got.dtype == out_dtype and got.shape == x.shape and got.is_contiguous()
+    if out_dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        exact = rmsk.rms_norm_plain(x, w, 1e-5, torch.float32, groups)
+        excess = (got.float() - want.float()).abs() - _bf16_ulp(exact)
+        assert excess.max().item() <= 0, f"beyond one bf16 step by {excess.max().item():.3e}"
+    assert torch.equal(got, rmsk.rms_norm(x, w, 1e-5, out_dtype, groups))
+
+
+def test_rms_norm_kernel_in_a_graph(card):
+    """The AR step's norm captured in a ``GraphCache`` graph: each replay is
+    one launch and gives the eager call's bits."""
+    from go_pocket_tts_tpu_torch.runtime import graphs
+
+    gen = torch.Generator(device=card).manual_seed(4)
+    x, w = _rms_inputs(card, gen, (1, 1, 2048), torch.bfloat16, torch.float32)
+
+    def body(inp):
+        return rmsk.rms_norm(inp["x"], w, 1e-5, torch.bfloat16)
+
+    want = body({"x": x})
+    kernels.reset_launches()
+    cache = graphs.GraphCache(card)
+    graph = cache.get("rms", lambda: (body, {"x": x.clone()}))
+    for n in range(1, 4):
+        got = graph.run()
+        torch.cuda.synchronize()
+        assert rmsk.rms_norm.launches == n
+    assert torch.equal(got, want) and cache.captures == 1
+    assert all(fn.launches == 0 for fn in kernels.WRAPPERS if fn is not rmsk.rms_norm)
+
+
+def test_rms_norm_wrapper_raises_on_what_the_kernel_does_not_take(card):
+    x, w = torch.zeros((2, 64), device=card), torch.ones(64, device=card)
+    with pytest.raises(TypeError):
+        rmsk.rms_norm(x.half(), w, 1e-5, torch.float32)
+    with pytest.raises(ValueError):
+        rmsk.rms_norm(x, w, 1e-5, torch.float32, groups=3)
+    with pytest.raises(ValueError):
+        rmsk.rms_norm(torch.zeros((64, 2), device=card).T, w, 1e-5, torch.float32)
+    with pytest.raises(ValueError):
+        rmsk.rms_norm(x, w.cpu(), 1e-5, torch.float32)
+
+
 # -- the Mamba-2 decode step (the hybrid backbone) --------------------------
 
 
@@ -1783,6 +1874,9 @@ def test_hybrid_runtime_graphs_through_both_kernels(card):
     assert m2k.mamba2_step.launches == 2 * 20 * 3
     assert da.decode_attention_step.launches == 2 * 20 * 1
     assert torch.equal(oneshot, streamed)
+    # Every RMSNorm one launch: 2 a layer and the 3 gated ones, for each of
+    # the 20 AR steps and for the prefill, in both routes.
+    assert rmsk.rms_norm.launches == 2 * 21 * (2 * 4 + 3)
     f32 = GPURuntime(model, dtype=torch.float32, seed=1, device=card)
     plain = GPURuntime(model, dtype=torch.float32, seed=1, device=card, pallas=False)
     got = frames_of(f32, lambda: f32.generate_audio(tokens, cfg))

@@ -5,6 +5,7 @@ versions), against the benchmark's plain reference
 frames, the padded prompt's state, streamed against one-shot frames, the
 step's recurrence, the setup span and the routes it refuses."""
 
+import dataclasses
 import importlib.util
 import math
 from pathlib import Path
@@ -13,8 +14,9 @@ import numpy as np
 import pytest
 import torch
 
-from go_pocket_tts_tpu_torch import tracing
+from go_pocket_tts_tpu_torch import kernels, tracing
 from go_pocket_tts_tpu_torch.kernels import mamba2_step as m2k
+from go_pocket_tts_tpu_torch.kernels import rms_norm as rmsk
 from go_pocket_tts_tpu_torch.models import flow_lm as flm
 from go_pocket_tts_tpu_torch.models import hybrid_backbone as hyb
 from go_pocket_tts_tpu_torch.models import synthetic
@@ -261,6 +263,92 @@ def test_setup_span_carries_state_bytes_and_the_step_runs_the_wrapper(setup, mon
     setups = [s for s in tracing.spans() if s.name == "setup"]
     assert [s.attrs["state_bytes"] for s in setups] == [hyb.state_bytes(model.config.flow_lm.transformer, 1, torch.float32)]
     assert len(calls) == 6 * 3  # every AR step, every Mamba layer
+
+
+# The backbone's norms as it computed them before they went through the
+# wrapper: RMSNorm over the last dim, and the gated norm over each group.
+def _rms_norm_eager(x, w, eps, dtype):
+    xf = x.float()
+    return (xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps) * w).to(dtype)
+
+
+def _gated_norm_eager(y, w, groups, eps, dtype):
+    g = y.reshape(*y.shape[:-1], groups, -1)
+    g = g * torch.rsqrt(g.square().mean(-1, keepdim=True) + eps)
+    return (g.reshape(y.shape) * w).to(dtype)
+
+
+@pytest.mark.parametrize("case", ["input_bf16", "input_f32", "gated_g1", "gated_g2", "gated_g4"])
+def test_rms_norm_plain_is_the_backbones_arithmetic(setup, case):
+    """The wrapper's plain version, bit for bit, is the backbone's eager
+    norm: the layer norms at d_model (bf16 in and out, float32 in and out),
+    and the gated norm of the float32 ``y`` at d_inner into bf16 over 1, 2
+    and 4 groups."""
+    _, _, model, _ = setup
+    cfg = model.config.flow_lm.transformer
+    gen = torch.Generator().manual_seed(len(case))
+    eps = cfg.rms_norm_eps
+    if case.startswith("input"):
+        dtype = torch.bfloat16 if case == "input_bf16" else torch.float32
+        x = (torch.randn(2, 7, cfg.d_model, generator=gen) * 3 + 0.5).to(dtype)
+        w = torch.rand(cfg.d_model, generator=gen) + 0.5
+        got, want = rmsk.rms_norm(x, w, eps, dtype), _rms_norm_eager(x, w, eps, dtype)
+    else:
+        groups = int(case[-1])
+        y = torch.randn(2, 7, cfg.d_inner, generator=gen) * 2
+        w = torch.rand(cfg.d_inner, generator=gen) + 0.5
+        got = rmsk.rms_norm(y, w, eps, torch.bfloat16, groups)
+        want = _gated_norm_eager(y, w, groups, eps, torch.bfloat16)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("use_kernels", [True, False])
+@pytest.mark.parametrize("rows", [7, 1])
+def test_every_norm_of_a_prefill_and_a_step_goes_through_the_wrapper(setup, monkeypatch, rows, use_kernels):
+    """A prefill (7 rows) and an AR step (1 row) each call the RMS wrapper
+    2·L + L_mamba times with the kernels on, each call with what the CUDA
+    kernel takes, and never with them off; the output is the same either
+    way on the CPU."""
+    _, _, model, _ = setup
+    flow, fcfg = model.params["flow_lm"], model.config.flow_lm
+    cfg = fcfg.transformer
+    calls = []
+    orig = rmsk.rms_norm
+
+    def counted(x, weight, eps, out_dtype, groups=1):
+        rmsk._check(x, weight, out_dtype, groups)  # what the CUDA kernel takes
+        calls.append(1)
+        return orig(x, weight, eps, out_dtype, groups)
+
+    monkeypatch.setattr(rmsk, "rms_norm", counted)
+    x = torch.randn(1, rows, cfg.d_model, generator=torch.Generator().manual_seed(rows))
+    with torch.no_grad():
+        want = hyb.forward_cached(flow["transformer"], cfg, flm.init_cache(fcfg, 1, 16), x)[0]
+        calls.clear()
+        run_cfg = dataclasses.replace(cfg, use_kernels=use_kernels)
+        got = hyb.forward_cached(flow["transformer"], run_cfg, flm.init_cache(fcfg, 1, 16), x)[0]
+    assert len(calls) == (2 * cfg.num_layers + cfg.mamba_layers if use_kernels else 0)
+    assert torch.equal(got, want)
+
+
+def test_rms_norm_wrapper_takes_the_plain_version_on_the_cpu_and_checks_what_the_kernel_takes():
+    kernels.reset_launches()
+    x, w = torch.randn(3, 64).bfloat16(), torch.rand(64)
+    assert torch.equal(rmsk.rms_norm(x, w, 1e-5, torch.bfloat16), rmsk.rms_norm_plain(x, w, 1e-5, torch.bfloat16))
+    assert rmsk.rms_norm.launches == 0
+    assert rmsk._check(x, w, torch.bfloat16, 2) == 32
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        rmsk._check(x.half(), w, torch.bfloat16, 1)
+    with pytest.raises(TypeError, match="out_dtype"):
+        rmsk._check(x, w, torch.float16, 1)
+    with pytest.raises(ValueError, match="groups"):
+        rmsk._check(x, w, torch.bfloat16, 3)
+    with pytest.raises(ValueError, match="groups"):
+        rmsk._check(torch.zeros(1, 2 * 8192 + 16), torch.zeros(2 * 8192 + 16), torch.bfloat16, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        rmsk._check(torch.randn(64, 3).T, w, torch.bfloat16, 1)
+    with pytest.raises(ValueError, match="weight"):
+        rmsk._check(x, torch.rand(32), torch.bfloat16, 1)
 
 
 def _voice_state():

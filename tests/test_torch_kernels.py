@@ -631,6 +631,7 @@ def test_wrappers_and_meta_line_up():
         "fused_up2_up3_tail",
         "layer_norm",
         "mamba2_step",
+        "rms_norm",
     ]
     assert len(kernels.META) == len(kernels.WRAPPERS)
     for meta in kernels.META:
